@@ -8,9 +8,11 @@ never JAX and never `bagel_tpu`.
 
 Entry points (`BagelEngine`, `init_bagel_params`, `kv_cache_init`) run on
 CUDA unless the caller passes `device="cpu"`; with no device and no GPU they
-raise. The one hand-written kernel of this slice is `ops.flash`'s
-`flash_cached_attention` (`csrc/flash_cached_attention.cu`), built with nvcc
-at first use.
+raise. The hand-written kernels are `ops.flash`'s `flash_cached_attention`
+(`csrc/flash_cached_attention.cu`: every LLM attention) and
+`ops.sparse_flash`'s `sparse_packed_attention`
+(`csrc/sparse_packed_attention.cu`: the SigLIP tower's attention), each
+built with nvcc at first use.
 """
 
 __version__ = "0.1.0"

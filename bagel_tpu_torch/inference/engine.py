@@ -1,22 +1,30 @@
-"""Text-to-image inference engine (port of bagel_tpu/inference/engine.py).
+"""Interleaved inference engine (port of bagel_tpu/inference/engine.py).
 
-The text-to-image slice of the JAX engine: text prefill into per-context KV
-caches, the batched-CFG rectified-flow denoise loop split into a CFG-on and
-a CFG-off phase, and the VAE decode. The loops that JAX runs under
-`lax.scan` are Python loops here; PyTorch runs eagerly.
+Two paths of the JAX engine:
+- understanding: an image goes through SigLIP into a non-causal ViT block
+  [start, end, vit tokens..., pad] of the context's KV cache, the question
+  through a causal text prefill, and `gen_text` decodes the answer;
+- text-to-image: text prefill into per-context KV caches, the batched-CFG
+  rectified-flow denoise loop split into a CFG-on and a CFG-off phase, and
+  the VAE decode.
+`think=True` decodes a reasoning text first on either path. The loops that
+JAX runs under `lax.scan` / `lax.while_loop` are Python loops here; PyTorch
+runs eagerly.
 
 Contexts share cache buffers on `copy()` exactly as JAX arrays are shared:
-`qwen2.llm_extend` never writes into the cache it is given, so updating one
-context cannot touch a sibling's buffer.
+`qwen2.llm_extend` never writes into the cache it is given, and
+`decode_text` writes only into its own clone, so updating one context cannot
+touch a sibling's buffer.
 
-Image inputs, think mode, understanding output and TaylorSeer step caching
-raise NotImplementedError naming the slice that brings them.
+Image inputs to generation (the VAE pathway of an image), speculative
+decode and TaylorSeer step caching raise NotImplementedError naming the
+slice that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,6 +33,7 @@ from bagel_tpu_torch.configs import BagelConfig
 from bagel_tpu_torch.models import qwen2
 from bagel_tpu_torch.models.bagel import (
     cfg_combine,
+    encode_vit_tokens,
     latent_to_llm,
     shifted_timesteps,
     unpatchify_latent,
@@ -39,6 +48,20 @@ from bagel_tpu_torch.ops.flash import kv_bucket
 from bagel_tpu_torch.utils.device import resolve_device
 
 
+VLM_THINK_SYSTEM_PROMPT = (
+    "You should first think about the reasoning process in the mind and "
+    "then provide the user with the answer. \n"
+    "The reasoning process is enclosed within <think> </think> tags, i.e. "
+    "<think> reasoning process here </think> answer here"
+)
+
+GEN_THINK_SYSTEM_PROMPT = (
+    "You should first think about the planning process in the mind and "
+    "then generate the image. \n"
+    "The planning process is enclosed within <think> </think> tags, i.e. "
+    "<think> planning process here </think> image here"
+)
+
 PREFILL_BUCKET = 32
 
 
@@ -51,27 +74,48 @@ def _bucket(n: int) -> int:
 
 @dataclasses.dataclass
 class GenContext:
-    """One conversation context: its KV cache and two host-side integers."""
+    """One conversation context: its KV cache, two host-side integers and
+    the token history of every text block consumed so far (image blocks add
+    no ids)."""
 
     cache: KVCache
     kv_len: int = 0
     rope: int = 0
+    text_ids: tuple = ()
 
     def copy(self) -> "GenContext":
         # shares the buffers: llm_extend writes out of place
-        return GenContext(cache=self.cache, kv_len=self.kv_len, rope=self.rope)
+        return GenContext(cache=self.cache, kv_len=self.kv_len, rope=self.rope,
+                          text_ids=self.text_ids)
 
 
-def _prefill_text(params, cfg: BagelConfig, cache, ids, pos, valid):
+def _prefill_text(params, cfg: BagelConfig, cache, ids, pos, valid,
+                  attn_impl: str = "auto"):
     embeds = qwen2.embed_tokens(params["llm"], ids)
     return qwen2.llm_extend(
         params["llm"], cfg.llm, embeds, pos, cache, valid,
-        und_len=ids.shape[1], causal=True, update_cache=True,
+        und_len=ids.shape[1], causal=True, update_cache=True, attn_impl=attn_impl,
+    )
+
+
+def _prefill_vit(params, cfg: BagelConfig, cache, boundary_ids, patches,
+                 vit_pos, seg, rope_pos: int, valid, attn_impl: str = "auto"):
+    """Understanding-image block [start, end, vit tokens..., pad]: one rope
+    position for the whole block, und expert, non-causal."""
+    vit_emb = encode_vit_tokens(params, cfg, patches, vit_pos, seg, attn_impl=attn_impl)
+    tok_emb = qwen2.embed_tokens(params["llm"], boundary_ids)  # [2, d]
+    block = torch.cat([tok_emb, vit_emb.to(tok_emb.dtype)])[None]
+    t = block.shape[1]
+    pos = torch.full((1, t), rope_pos, dtype=torch.int32, device=block.device)
+    return qwen2.llm_extend(
+        params["llm"], cfg.llm, block, pos, cache, valid,
+        und_len=t, causal=False, update_cache=True, attn_impl=attn_impl,
     )
 
 
 def _make_flow_v(params, cfg: BagelConfig, n: int, n_jobs: int, nb: int,
-                 boundary_ids, branch_rope, cache: KVCache, lat_pos):
+                 boundary_ids, branch_rope, cache: KVCache, lat_pos,
+                 attn_impl: str = "auto"):
     """Closure computing per-branch velocities for one step.
 
     x_t is [J, N, pd]; each job expands into its nb CFG branches
@@ -96,7 +140,7 @@ def _make_flow_v(params, cfg: BagelConfig, n: int, n_jobs: int, nb: int,
             block = block.repeat_interleave(nb, dim=0)
         hidden, _ = qwen2.llm_extend(
             params["llm"], cfg.llm, block, pos, cache, valid,
-            und_len=2, causal=False, update_cache=False,
+            und_len=2, causal=False, update_cache=False, attn_impl=attn_impl,
         )
         # fp32 result of the working-dtype product (upcast inputs)
         return torch.matmul(hidden[:, 2:tb].float(), head["w"].float()) + head["b"].float()
@@ -135,12 +179,13 @@ def _denoise_phase(
     cfg_img_scale: float,
     cfg_renorm_type: str,
     cfg_renorm_min: float,
+    attn_impl: str = "auto",
 ):
     """K denoise steps: n_jobs images x n_branches CFG forwards batched."""
     n = x_t.shape[1]
     cache = KVCache(k=k_buf, v=v_buf, length=lengths)
     flow_v = _make_flow_v(params, cfg, n, n_jobs, n_branches, boundary_ids,
-                          branch_rope, cache, lat_pos)
+                          branch_rope, cache, lat_pos, attn_impl)
     for t, dt in zip(timesteps, dts):
         v = flow_v(x_t, t)
         v_t = _combine(v, n_jobs, n_branches, cfg_text_scale, cfg_img_scale,
@@ -164,7 +209,7 @@ def _initial_noise(job: dict, shape, device) -> torch.Tensor:
 
 
 class BagelEngine:
-    """User-facing session API, text-to-image slice."""
+    """User-facing session API: understanding and text-to-image."""
 
     def __init__(
         self,
@@ -174,10 +219,17 @@ class BagelEngine:
         new_token_ids: dict,
         max_kv: int = 8192,
         device=None,
+        attn_impl: str = "auto",
     ):
         """`device`: where the engine runs; CUDA unless the caller passes
-        one (the params must already be there)."""
+        one (the params must already be there). `attn_impl` goes to every
+        attention: "auto" runs the kernels on CUDA and the plain versions on
+        the CPU; "dense" takes the plain masked attention everywhere. The
+        option is the reference switch: `chip_smoke.py` holds the kernel
+        path against a "dense" engine on the card; users leave it at
+        "auto"."""
         self.device = resolve_device(device)
+        self.attn_impl = attn_impl
         emb = params["llm"]["embed"]
         if emb.device.type != self.device.type:
             raise ValueError(
@@ -222,11 +274,95 @@ class BagelEngine:
         pos[0, :t] = np.arange(ctx.rope, ctx.rope + t)
         _, cache = _prefill_text(
             self.params, self.cfg, ctx.cache, self._tensor(ids_arr, torch.long),
-            self._tensor(pos), self._tensor([t]),
+            self._tensor(pos), self._tensor([t]), self.attn_impl,
         )
-        return GenContext(cache=cache, kv_len=ctx.kv_len + t, rope=ctx.rope + t)
+        return GenContext(cache=cache, kv_len=ctx.kv_len + t, rope=ctx.rope + t,
+                          text_ids=ctx.text_ids + tuple(ids))
+
+    def _prep_image_tokens(self, image: np.ndarray, patch: int, max_side: int):
+        """image HWC [-1,1] -> (patches [n, p*p*3], pos_ids [n], h, w)."""
+        h, w = image.shape[0] // patch, image.shape[1] // patch
+        x = image.reshape(h, patch, w, patch, 3).transpose(0, 2, 1, 3, 4)
+        patches = x.reshape(h * w, patch * patch * 3)
+        pos = np.asarray(self._pos_ids(image.shape[0], image.shape[1], patch, max_side))
+        return patches, pos, h, w
+
+    @staticmethod
+    def _crop_to_multiple(image: np.ndarray, stride: int) -> np.ndarray:
+        """Center-crop H/W down to multiples of `stride` (each pathway crops
+        to its own stride instead of resampling)."""
+        h = image.shape[0] // stride * stride
+        w = image.shape[1] // stride * stride
+        oh = (image.shape[0] - h) // 2
+        ow = (image.shape[1] - w) // 2
+        return image[oh : oh + h, ow : ow + w]
+
+    def update_context_image(
+        self, image: np.ndarray, ctx: GenContext, vae: bool = True,
+        vit: bool = True,
+    ) -> GenContext:
+        """image: HWC float array in [-1, 1], center-cropped to a multiple of
+        the ViT patch. The ViT pathway: one non-causal block [start, end,
+        vit tokens..., pad] padded so that it fills a prefill bucket; the
+        context's rope advances by 1 (one position for the whole image) and
+        its kv_len by the n + 2 real tokens."""
+        if not (vae or vit):
+            raise ValueError("update_context_image needs the vae or the vit pathway")
+        if vae:
+            raise NotImplementedError(
+                "the VAE pathway of an image input (vae_encode, _prefill_vae) "
+                "comes with the edit slice; understanding uses vae=False"
+            )
+        patch = self.cfg.vit.patch_size
+        image = self._crop_to_multiple(image, patch)
+        patches, pos, _, _ = self._prep_image_tokens(
+            image, patch, self.cfg.vit_max_num_patch_per_side
+        )
+        n = patches.shape[0]
+        nb = _bucket(n + 2) - 2  # the block [start, end, tokens...] fills a bucket
+        patches_p = np.zeros((nb, patches.shape[1]), np.float32)
+        patches_p[:n] = patches
+        pos_p = np.zeros(nb, np.int32)
+        pos_p[:n] = pos
+        seg = np.zeros(nb, np.int32)
+        seg[:n] = 1
+        _, cache = _prefill_vit(
+            self.params, self.cfg, ctx.cache, self._boundary_ids(),
+            self._tensor(patches_p, self.cache_dtype), self._tensor(pos_p, torch.long),
+            self._tensor(seg), ctx.rope, self._tensor([n + 2]), self.attn_impl,
+        )
+        return GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1,
+                          text_ids=ctx.text_ids)
 
     # -- generation ---------------------------------------------------------
+
+    def gen_text(
+        self, ctx: GenContext, max_length: int = 500, do_sample: bool = False,
+        temperature: float = 1.0, rng: Optional[torch.Generator] = None,
+        speculative: int = 0,
+    ) -> str:
+        """Decode from the context, starting with a bos token at its rope
+        position: greedy, or sampled from `rng` (default: a generator seeded
+        0 on the engine's device). The context is left as it was. The text
+        stops before the first eos."""
+        if speculative > 0 and not do_sample:
+            raise NotImplementedError(
+                "speculative decode comes with the decode and serving slice"
+            )
+        eos = self.new_token_ids["eos_token_id"]
+        if rng is None:
+            rng = torch.Generator(device=self.device).manual_seed(0)
+        toks, _ = qwen2.decode_text(
+            self.params["llm"], self.cfg.llm, ctx.cache,
+            self._tensor([self.new_token_ids["bos_token_id"]], torch.long),
+            self._tensor([ctx.rope]),
+            max_steps=max_length, eos_id=eos, temperature=temperature,
+            do_sample=do_sample, generator=rng, attn_impl=self.attn_impl,
+        )
+        toks = toks[0].tolist()
+        if eos in toks:
+            toks = toks[: toks.index(eos)]
+        return self.tokenizer.decode(toks)
 
     def gen_image(
         self,
@@ -346,6 +482,7 @@ class BagelEngine:
                 n_jobs=J, n_branches=len(rows[0]),
                 cfg_text_scale=text_s, cfg_img_scale=img_s,
                 cfg_renorm_type=cfg_renorm_type, cfg_renorm_min=cfg_renorm_min,
+                attn_impl=self.attn_impl,
             )
 
         if len(idx_on) and len(idx_off) and idx_on.min() > idx_off.min():
@@ -371,9 +508,12 @@ class BagelEngine:
 
     def interleave_inference(
         self,
-        input_list: List[str],
+        input_list: List[Union[str, np.ndarray]],
         think: bool = False,
         understanding_output: bool = False,
+        max_think_token_n: int = 1000,
+        do_sample: bool = False,
+        text_temperature: float = 0.3,
         cfg_text_scale: float = 3.0,
         cfg_img_scale: float = 1.5,
         cfg_interval: Tuple[float, float] = (0.4, 1.0),
@@ -384,34 +524,61 @@ class BagelEngine:
         image_shapes: Tuple[int, int] = (1024, 1024),
         enable_taylorseer: bool = False,
         rng: Optional[torch.Generator] = None,
-    ) -> List[np.ndarray]:
-        """Text prompts in, one generated image out (the text-to-image
-        branch of the JAX engine's interleave_inference)."""
-        if understanding_output:
-            raise NotImplementedError(
-                "understanding output (text decode) comes with the "
-                "understanding slice"
-            )
-        if think:
-            raise NotImplementedError(
-                "think mode needs text decode, which comes with the "
-                "understanding slice"
-            )
+        speculative: int = 0,
+    ) -> List[Union[str, np.ndarray]]:
+        """Texts and images in; a decoded answer (understanding_output), or
+        an image, preceded by its reasoning text with think=True, out. Image
+        inputs take the ViT pathway when understanding_output is set and
+        the VAE pathway (the edit slice) otherwise.
+
+        With understanding_output the CFG contexts are never read, so the
+        port does not prefill the cfg_img context there (the JAX engine
+        does, and drops it): one text prefill per text input, not two."""
+        output: List[Union[str, np.ndarray]] = []
         ctx = self.init_context()
         cfg_text_ctx = ctx.copy()
         cfg_img_ctx = ctx.copy()
-        for term in input_list:
-            if isinstance(term, np.ndarray):
-                raise NotImplementedError(
-                    "image inputs come with the understanding and edit slices"
-                )
-            if not isinstance(term, str):
-                raise ValueError(f"Unsupported input type: {type(term)}")
-            cfg_text_ctx = ctx.copy()
-            ctx = self.update_context_text(term, ctx)
-            cfg_img_ctx = self.update_context_text(term, cfg_img_ctx)
 
-        img = self.gen_image(
+        if think:
+            sys_prompt = (
+                VLM_THINK_SYSTEM_PROMPT if understanding_output
+                else GEN_THINK_SYSTEM_PROMPT
+            )
+            ctx = self.update_context_text(sys_prompt, ctx)
+            if not understanding_output:
+                cfg_img_ctx = self.update_context_text(sys_prompt, cfg_img_ctx)
+
+        for term in input_list:
+            if isinstance(term, str):
+                cfg_text_ctx = ctx.copy()
+                ctx = self.update_context_text(term, ctx)
+                if not understanding_output:
+                    cfg_img_ctx = self.update_context_text(term, cfg_img_ctx)
+            elif isinstance(term, np.ndarray):
+                ctx = self.update_context_image(
+                    term, ctx, vae=not understanding_output, vit=True
+                )
+                image_shapes = term.shape[:2]
+                cfg_text_ctx = ctx.copy()
+            else:
+                raise ValueError(f"Unsupported input type: {type(term)}")
+
+        if understanding_output:
+            output.append(self.gen_text(
+                ctx, max_length=max_think_token_n, do_sample=do_sample,
+                temperature=text_temperature, speculative=speculative,
+            ))
+            return output
+
+        if think:
+            txt = self.gen_text(
+                ctx, max_length=max_think_token_n, do_sample=do_sample,
+                temperature=text_temperature, speculative=speculative,
+            )
+            ctx = self.update_context_text(txt, ctx)
+            output.append(txt)
+
+        output.append(self.gen_image(
             image_shapes, ctx,
             cfg_text_precontext=cfg_text_ctx,
             cfg_img_precontext=cfg_img_ctx,
@@ -420,12 +587,18 @@ class BagelEngine:
             num_timesteps=num_timesteps, cfg_renorm_min=cfg_renorm_min,
             cfg_renorm_type=cfg_renorm_type,
             enable_taylorseer=enable_taylorseer, rng=rng,
-        )
-        return [img]
+        ))
+        return output
 
     def __call__(self, image=None, text=None, **kwargs):
+        """{"image": HWC uint8 or None, "text": str or None}."""
+        out = {"image": None, "text": None}
         inputs = [x for x in (image, text) if x is not None]
         if not inputs:
-            return {"image": None, "text": None}
-        (img,) = self.interleave_inference(inputs, **kwargs)
-        return {"image": img, "text": None}
+            return out
+        for item in self.interleave_inference(inputs, **kwargs):
+            if isinstance(item, np.ndarray):
+                out["image"] = item
+            else:
+                out["text"] = item
+        return out

@@ -1,9 +1,10 @@
-"""Bagel generation-side assembly (port of bagel_tpu/models/bagel.py).
+"""Bagel assembly of LLM + ViT + VAE adapters (port of bagel_tpu/models/bagel.py).
 
-Adapters and helpers of the text-to-image path: the timestep embedder, the
-latent <-> LLM projections, latent patchify, the shifted denoise schedule
-and classifier-free-guidance combination. The ViT connector, the packed
-training forward and `visual_und=True` params come with later slices.
+Adapters and helpers of the inference paths: the ViT -> LLM connector and
+`encode_vit_tokens` (understanding), the timestep embedder, the latent <->
+LLM projections, latent patchify, the shifted denoise schedule and
+classifier-free-guidance combination (generation). The packed training
+forward comes with the training slice.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from bagel_tpu_torch.configs import BagelConfig
 from bagel_tpu_torch.models import qwen2
+from bagel_tpu_torch.models.siglip import init_siglip_params, siglip_encode
 from bagel_tpu_torch.models.vae import init_vae_params
 from bagel_tpu_torch.ops.embeds import sincos_2d_grid, timestep_embedding
 from bagel_tpu_torch.utils.device import resolve_device
@@ -32,30 +34,36 @@ def _dense_init(generator, d_in, d_out, dtype, device, std=0.02, zero=False):
 
 def _linear(x, p):
     """x @ w + b computed in the promoted dtype of x and w (as jnp.dot
-    promotes), returned in x.dtype."""
+    promotes), the bias added in the matmul's epilogue (torch.addmm) before
+    the one rounding, returned in x.dtype."""
     ct = torch.promote_types(x.dtype, p["w"].dtype)
-    out = torch.matmul(x.to(ct), p["w"].to(ct)) + p["b"].to(ct)
-    return out.to(x.dtype)
+    w = p["w"].to(ct)
+    out = torch.addmm(p["b"].to(ct), x.reshape(-1, x.shape[-1]).to(ct), w)
+    return out.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype)
 
 
 def init_bagel_params(
     generator: torch.Generator, cfg: BagelConfig, dtype=torch.bfloat16,
     device=None,
 ) -> dict:
-    """Parameter tree: llm / vae / generation adapters, in the JAX layout.
+    """Parameter tree: llm / vit / vae / adapters, in the JAX layout.
 
     llm2vae starts at zero (upstream _init_weights). `generator` must live
     on `device`.
     """
-    if cfg.visual_und:
-        raise NotImplementedError(
-            "visual_und=True needs SigLIP, which comes with the understanding "
-            "slice; pass a config with visual_und=False"
-        )
     device = resolve_device(device)
     d = cfg.llm.hidden_size
     g, dev = generator, device
     params = {"llm": qwen2.init_qwen2_params(g, cfg.llm, dtype, dev)}
+    if cfg.visual_und:
+        params["vit"] = init_siglip_params(g, cfg.vit, dtype, dev)
+        params["connector"] = {
+            "fc1": _dense_init(g, cfg.vit.hidden_size, d, dtype, dev),
+            "fc2": _dense_init(g, d, d, dtype, dev),
+        }
+        params["vit_pos_embed"] = sincos_2d_grid(
+            d, cfg.vit_max_num_patch_per_side, device=dev
+        ).to(dtype)
     if cfg.visual_gen:
         params["vae"] = init_vae_params(g, cfg.vae, torch.float32, dev)
         pd = cfg.patch_latent_dim
@@ -76,6 +84,22 @@ def time_embed(params, t):
     freq = timestep_embedding(t, 256)
     h = _linear(freq, params["time_embed"]["fc1"])
     return _linear(F.silu(h), params["time_embed"]["fc2"])
+
+
+def connector_apply(params, x):
+    """ViT hidden -> LLM hidden (upstream MLPconnector): fc2(gelu_tanh(fc1 x))."""
+    h = _linear(x, params["connector"]["fc1"])
+    return _linear(F.gelu(h, approximate="tanh"), params["connector"]["fc2"])
+
+
+def encode_vit_tokens(params, cfg: BagelConfig, patches, pos_ids, seg_ids,
+                      attn_impl: str = "auto"):
+    """Packed image patches -> LLM-space embeddings (+ the frozen 2-D
+    position table)."""
+    h = siglip_encode(params["vit"], cfg.vit, patches, pos_ids, seg_ids,
+                      attn_impl=attn_impl)
+    h = connector_apply(params, h)
+    return h + params["vit_pos_embed"][pos_ids.long()].to(h.dtype)
 
 
 def latent_to_llm(params, cfg: BagelConfig, x_t, t, latent_pos_ids):

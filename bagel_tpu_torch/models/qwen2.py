@@ -8,23 +8,28 @@
   length. Writes are out of place, as in JAX: `llm_extend` never mutates the
   cache it is given. With `update_cache=True` it returns a new buffer; with
   `update_cache=False` each layer writes the block into a clone of the live
-  prefix of its slice that is dropped after the attention. So contexts may share buffers
-  (`GenContext.copy()`), exactly as JAX arrays do.
+  prefix of its slice that is dropped after the attention. So contexts may
+  share buffers (`GenContext.copy()`), exactly as JAX arrays do. The one
+  exception is the port's own: `decode_text` clones its context's cache
+  once and then writes every token's K/V into that private buffer in place
+  (`llm_extend(..., in_place=True)`), instead of cloning the whole buffer
+  per token.
 - MoT expert selection is by token position: tokens [0, und_len) use the
   und expert, the rest the gen expert, each running only its own matmuls.
 - On a CUDA tensor with attn_impl="auto" every attention goes through the
   hand-written kernel (`ops.flash.flash_cached_attention`), prefill (causal)
   and denoise (non-causal) alike; any attn_impl other than "auto"/"flash"
-  takes the dense path (`cache_block_mask` + `dot_attention`).
+  takes the dense path (`cache_block_mask` + `dot_attention`). Decode steps
+  (T=1) go through the same kernel.
 
-Quantized weight leaves, the int8 KV cache, decode and training come with
-later slices.
+Quantized weight leaves, the int8 KV cache and training come with later
+slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -330,12 +335,16 @@ def llm_extend(
     causal: bool,
     update_cache: bool,
     attn_impl: str = "auto",
+    in_place: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder stack over one new block of tokens.
 
     Returns final hidden states [B, T, d] (post final-norm, expert-selected)
     and the updated cache (the input cache itself if update_cache=False).
-    The input cache is never modified.
+    The input cache is never modified, unless `in_place=True` with
+    update_cache: then the block's K/V are written into the given buffers
+    themselves, which the caller must own (no other context may share
+    them), and the returned cache holds those buffers.
     """
     t = embeds.shape[1]
     past_host = cache.length.tolist()
@@ -348,7 +357,7 @@ def llm_extend(
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
 
     if update_cache:
-        k_new, v_new = cache.k.clone(), cache.v.clone()
+        k_new, v_new = (cache.k, cache.v) if in_place else (cache.k.clone(), cache.v.clone())
     # without update_cache the per-layer scratch buffer holds only the live
     # prefix: no key past it is visible, so the bucket's tail is never copied
     live = max(past_host) + t
@@ -393,3 +402,71 @@ def lm_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
             "a quantized lm_head comes with the quantization slice"
         )
     return torch.matmul(hidden.float(), head["w"].float())
+
+
+# ---------------------------------------------------------------------------
+# Greedy / sampled text decode
+# ---------------------------------------------------------------------------
+
+
+def decode_text(
+    params: dict,
+    cfg: Qwen2Config,
+    cache: KVCache,
+    start_tokens: torch.Tensor,  # [B]
+    position_ids: torch.Tensor,  # [B] rope position of the start token
+    *,
+    max_steps: int,
+    eos_id: int,
+    temperature: float = 1.0,
+    do_sample: bool = False,
+    generator: Optional[torch.Generator] = None,
+    early_stop: bool = True,
+    active: Optional[torch.Tensor] = None,
+    attn_impl: str = "auto",
+) -> Tuple[torch.Tensor, KVCache]:
+    """Autoregressive decode. Returns [B, max_steps] tokens (eos-padded
+    after stop) and the final cache.
+
+    Each step feeds the previous token (the start token first) as a causal
+    und-expert block of one token, then takes the argmax of its logits, or
+    with do_sample a draw from softmax(logits / temperature) by `generator`.
+    early_stop=True ends the loop as soon as every row has emitted eos;
+    False runs all max_steps steps.
+
+    active: optional [B] bool. Rows with active=False are frozen: they emit
+    eos from the first step and their cache length never advances.
+
+    The loop owns its cache: it clones the given cache once and then writes
+    each token's K/V into that private buffer in place, where `llm_extend`
+    would clone the whole [L, B, S, KH, D] buffer per token. The given cache
+    is left untouched, so a context that shares it stays as it was.
+    """
+    b = start_tokens.shape[0]
+    dev = start_tokens.device
+    cache = KVCache(k=cache.k.clone(), v=cache.v.clone(), length=cache.length.clone())
+    done = ~active if active is not None else torch.zeros(b, dtype=torch.bool, device=dev)
+    ones = torch.ones(b, dtype=torch.int32, device=dev)
+    out = torch.full((b, max_steps), eos_id, dtype=start_tokens.dtype, device=dev)
+    tok, pos = start_tokens, position_ids
+    for step in range(max_steps):
+        if early_stop and bool(done.all()):
+            break
+        embeds = embed_tokens(params, tok)[:, None, :]
+        q_valid = (~done).to(torch.int32) if active is not None else ones
+        hidden, cache = llm_extend(
+            params, cfg, embeds, pos[:, None], cache, q_valid,
+            und_len=1, causal=True, update_cache=True, attn_impl=attn_impl,
+            in_place=True,
+        )
+        logits = lm_logits(params, hidden[:, 0])
+        if do_sample:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            nxt = logits.argmax(dim=-1)
+        nxt = torch.where(done, eos_id, nxt.to(tok.dtype))
+        done = done | (nxt == eos_id)
+        out[:, step] = nxt
+        tok, pos = nxt, pos + 1
+    return out, cache

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a plain
 C interface, `build/<name>-<hash>.so` at the root of the checkout, keyed by a
-hash of its source and the compiler flags; ctypes loads it. Nothing here runs
+hash of its source and the compiler flags, with nvcc's ptxas report beside it
+(`build/<name>-<hash>.ptxas.txt`); ctypes loads it. Nothing here runs
 at import time. A missing or failing nvcc raises with nvcc's own error
 output: there is no fallback.
 """
@@ -15,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -55,27 +56,58 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key}.so"
 
 
+def report_path(name: str) -> Path:
+    """nvcc's ptxas report (registers, spills), kept beside the library."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
+def kernel_names() -> list:
+    """Every kernel source of the package: the stems of `csrc/*.cu`."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def build_all(names: Iterable[str]) -> Dict[str, str]:
+    """Compile each `csrc/<name>.cu` whose library does not exist yet, one
+    nvcc process per source, all started together. Returns nvcc's ptxas
+    report per name, read back from `report_path` for a library built
+    before ("" where that report is missing). Raises
+    KernelBuildError with nvcc's stderr if a compile fails (after every
+    started nvcc has ended)."""
+    reports: Dict[str, str] = {}
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            kept = report_path(name)
+            reports[name] = kept.read_text() if kept.is_file() else ""
+            continue
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{stderr}{stdout}")
+            continue
+        reports[name] = stderr + stdout
+        report_path(name).write_text(reports[name])
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return reports
+
+
 def build(name: str) -> str:
     """Compile `csrc/<name>.cu` unless its library exists. Returns nvcc's
-    ptxas report ("" when the library was already built). Raises
+    ptxas report (as `build_all`). Raises
     KernelBuildError with nvcc's stderr if the compile fails."""
-    out = library_path(name)
-    if out.is_file():
-        return ""
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"{name}: nvcc exited {proc.returncode}\n{proc.stderr}{proc.stdout}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return proc.stderr + proc.stdout
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,8 +1,10 @@
-"""Masked attention and the cache-block mask (port of bagel_tpu/ops/attention.py).
+"""Masked attention and its masks (port of bagel_tpu/ops/attention.py).
 
 `dot_attention` is the plain attention every kernel of this package is held
-against: fp32 logits and softmax, GQA by reshape. The segment and training
-masks come with the understanding and training slices.
+against: fp32 logits and softmax, GQA by reshape. Mask builders (bool, True
+= may attend): `cache_block_mask` (a block over a KV buffer),
+`segment_mask` (the ViT's per-image full attention) and `train_packed_mask`
+(the packed causal/full/noise/document predicate).
 """
 
 from __future__ import annotations
@@ -83,3 +85,37 @@ def cache_block_mask(
     else:
         visible = kj < past + valid
     return visible & (kj < past + valid) & (qi < valid)
+
+
+def segment_mask(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Full attention within equal segments; id 0 = padding (no attention).
+
+    segment_ids: [B, S] int. Returns bool [B, S, S]."""
+    a = segment_ids[:, :, None]
+    b = segment_ids[:, None, :]
+    return (a == b) & (a != 0)
+
+
+def train_packed_mask(
+    document_id: torch.Tensor,
+    full_and_noise_id: torch.Tensor,
+    noise_id: torch.Tensor,
+) -> torch.Tensor:
+    """Composed mask over a packed sequence (all args [S] int):
+
+      allowed(i, j) = same_document (id != 0)
+                      & (i >= j | same full/noise split (id >= 0))
+                      & !(key j is a noise token of another noise split)
+
+    Returns bool [S, S]."""
+    s = document_id.shape[0]
+    dev = document_id.device
+    i = torch.arange(s, device=dev)[:, None]
+    j = torch.arange(s, device=dev)[None, :]
+    fan_q, fan_k = full_and_noise_id[:, None], full_and_noise_id[None, :]
+    same_fan = (fan_q == fan_k) & (fan_q >= 0)
+    noise_q, noise_k = noise_id[:, None], noise_id[None, :]
+    remove_noise = ~((noise_k >= 0) & (noise_q != noise_k))
+    doc_q = document_id[:, None]
+    same_doc = (doc_q == document_id[None, :]) & (doc_q != 0)
+    return same_doc & ((i >= j) | same_fan) & remove_noise

@@ -2,9 +2,11 @@
 
 `params_from_numpy` takes the tree `bagel_tpu.models.bagel.init_bagel_params`
 builds (as numpy, e.g. `jax.tree.map(np.asarray, params)`) and returns the
-port's tree in the same layout. The one layout change: VAE conv kernels go
-from HWIO to OIHW. This module imports no JAX; bf16 leaves arrive as
-ml_dtypes bfloat16 arrays and are reinterpreted bit for bit.
+port's tree in the same layout: the LLM, the SigLIP tower (`vit`: stacked
+`[L, in, out]` weights, `[L, d]` LayerNorms), the connector, the VAE and
+the adapters. The one layout change: VAE conv kernels go from HWIO to OIHW.
+This module imports no JAX; bf16 leaves arrive as ml_dtypes bfloat16 arrays
+and are reinterpreted bit for bit.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ def _to_tensor(x) -> torch.Tensor:
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
     """Dicts and lists are walked; every array leaf becomes a tensor on
     `device`. 4-D leaves, which in this tree are the VAE's conv kernels and
-    nothing else, are transposed HWIO -> OIHW. `dtype`, if given, casts
-    every floating-point leaf."""
+    nothing else (the SigLIP tower's leaves are at most 3-D), are
+    transposed HWIO -> OIHW. `dtype`, if given, casts every floating-point
+    leaf."""
     device = resolve_device(device)
 
     def walk(node):

@@ -6,17 +6,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (the first failure exits non-zero, and no result line is printed):
   1. device  nvidia-smi's name and power limit, torch's device name; TF32 off
              for fp32 matmuls and convolutions (the VAE runs in full fp32).
-  2. build   the kernel in bagel_tpu_torch/csrc with nvcc, for sm_90a.
-  3. kernels the kernel against its plain PyTorch version in bf16: edge
-             cases, then the shapes the main path gives it, with its time, the
+  2. build   every kernel in bagel_tpu_torch/csrc with nvcc, for sm_90a, one
+             nvcc per source, all started together; ptxas registers/spills.
+  3. kernels each kernel against its plain PyTorch version in bf16: edge
+             cases, then the shapes the main paths give it, with its time, the
              plain version's, one PyTorch library call's (a yardstick the port
              never calls) and the roofline bound of the work; and a negative
-             control: the gate must reject an attention that takes past as 0.
+             control per kernel that the gate must reject (B1: past taken as
+             0; B3: two packed images merged into one segment); B3's
+             full-tile flags timed against the same launch without them.
   4. forward one full-width MoT gen-block forward (512 px, full depth)
-             through the kernel and through the dense path: velocity rel. error.
+             through the kernel and through the dense path: velocity rel.
+             error; the full-width SigLIP tower on a 980 px image through
+             encode_vit_tokens, kernel vs dense, at 1 and 27 layers.
   5. t2i     text-to-image through BagelEngine.__call__ at full width and depth
-             (BAGEL-7B-MoT shapes, seeded random bf16 weights), 1024 px,
-             8 timesteps; the kernel's launch count must be L x (2 + 7).
+             (BAGEL-7B-MoT + SigLIP so400m shapes, seeded random bf16
+             weights), 1024 px, 8 timesteps; B1's launch count must be
+             L x (2 + 7).
+  6. vqa     image understanding through BagelEngine.__call__ on the same
+             weights: a seeded 980 px image and a question, 32 greedy decode
+             tokens at most; B3 launches once per SigLIP layer (27), B1
+             L x (2 prefills + decode steps); the first decode step's logits
+             through the kernels vs the dense path; the pieces' times.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
@@ -24,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -34,13 +46,16 @@ import torch
 DEVICE = "cuda"
 SEED = 0
 PROMPT = "A photo of a red fox sitting in fresh snow at sunrise, highly detailed"
+QUESTION = "What is shown in this picture? Describe the main object and its colour."
 PX = 1024
+VQA_PX = 980  # SigLIP so400m's image size: a 70 x 70 patch grid
+MAX_THINK = 32  # decode tokens at most
 FORWARD_PX = 512
 NUM_TIMESTEPS = 8  # timestep_shift 3: 6 steps with CFG (3 branches), 1 without
 CFG = dict(cfg_text_scale=4.0, cfg_img_scale=1.5, timestep_shift=3.0,
            num_timesteps=NUM_TIMESTEPS)
 MAX_KV = 8192
-KERNEL = "flash_cached_attention"
+KERNELS = ("flash_cached_attention", "sparse_packed_attention")
 # kernel vs plain, both bf16 out, over the valid rows of each batch row:
 #   elementwise |kernel - plain| <= KERNEL_RTOL |plain| + KERNEL_ATOL_RMS rms(plain)
 #   and ||kernel - plain|| / ||plain|| <= KERNEL_REL.
@@ -55,6 +70,16 @@ KERNEL_TOL = (f"|err| <= {KERNEL_RTOL} |plain| + {KERNEL_ATOL_RMS} rms(plain), "
               f"||err|| / ||plain|| <= {KERNEL_REL}, per batch row")
 FORWARD_TOL_1 = 1e-2  # velocity rel. error after one layer (bf16 attention rounding)
 FORWARD_TOL = 5e-2  # after 28 random-weight layers, which amplify it
+# the ViT tower's output, kernel vs dense: one layer leaves one attention's
+# bf16 rounding (~3e-3 relative) diluted by the residual stream; 27
+# random-weight layers may amplify it as the LLM's 28 did (PR 1: 5.7e-3 at
+# 1 layer, 3.2e-2 at 28), so the same two limits
+VIT_TOL_1 = 1e-2
+VIT_TOL = 5e-2
+# the first decode step's logits, kernel path (B3 x 27, B1 x 28 x 3) vs dense:
+# the ViT's error feeds 28 LLM layers, each adding its own attention
+# rounding; twice the velocity's limit for the longer chain
+LOGITS_TOL = 1e-1
 PEAK_FLOPS = 989e12  # H100 SXM bf16 dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -88,7 +113,7 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_device() -> str:
+def phase_device() -> tuple:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -96,30 +121,42 @@ def phase_device() -> str:
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     name = torch.cuda.get_device_name(0)
-    log(f"[device] nvidia-smi: {smi.stdout.strip().splitlines()[0]}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"[device] nvidia-smi: {card}")
     log(f"[device] torch: {name}, count {torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[device] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
-    return name
+    return name, card
 
 
 def phase_build() -> None:
     from bagel_tpu_torch.ops import _build
 
+    check(sorted(KERNELS) == _build.kernel_names(),
+          f"KERNELS {KERNELS} != the sources in csrc {_build.kernel_names()}")
+    cached = [name for name in KERNELS if _build.library_path(name).is_file()]
     t0 = time.perf_counter()
-    report = _build.build(KERNEL)
-    log(f"[build] {KERNEL} {'built' if report else 'cached'} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {KERNEL}: {line.strip()}")
+    reports = _build.build_all(KERNELS)
+    log(f"[build] {', '.join(KERNELS)} built in {time.perf_counter() - t0:.1f} s "
+        f"(one nvcc per source, in parallel)")
+    for name in KERNELS:
+        if name in cached:
+            kept = "ptxas report as kept beside it" if reports[name] else "no ptxas report kept"
+            log(f"[build] {name}: cached at {_build.library_path(name)}; {kept}")
+        instance = ""
+        for line in reports[name].splitlines():
+            if "Compiling entry function" in line:
+                d = re.search(r"ILi(\d+)E", line)  # a head-dim template argument
+                instance = f" (D={d.group(1)})" if d else ""
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}{instance}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the kernel against its plain version
+# phase 3a: B1 flash_cached_attention against its plain version
 # ---------------------------------------------------------------------------
 
 
@@ -203,7 +240,7 @@ def sdpa_call(q, k, v, mask):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def phase_kernels(cfg, prompt_len, prefill_t):
+def phase_kernels(cfg, prompt_len, prefill_t, vqa):
     from bagel_tpu_torch.ops import flash
     from bagel_tpu_torch.ops.attention import cache_block_mask
 
@@ -234,14 +271,18 @@ def phase_kernels(cfg, prompt_len, prefill_t):
             log(f"[kernels] edge {name}: max abs err {err:.3e} ({ratio:.2f} x the elementwise "
                 f"limit), rel err {rel:.3e}")
 
-    # the shapes the main path gives the kernel (28 heads over 4 KV heads,
+    # the shapes the main paths give the kernel (28 heads over 4 KV heads,
     # D=128, an 8192-slot cache): 1024 px denoise with CFG (3 rows, the
-    # cfg_text row has an empty cache), without CFG, and the prompt prefill
+    # cfg_text row has an empty cache), without CFG, and the prompt prefill;
+    # the VQA image block, the question after it and one decode step
     n = (PX // cfg.latent_downsample) ** 2 + 2
     shapes = [
         ("denoise B=3 (CFG)", 3, n, [prompt_len, 0, prompt_len], [n] * 3, False),
         ("denoise B=1", 1, n, [prompt_len], [n], False),
         ("prefill", 1, prefill_t, [0], [prompt_len], True),
+        ("vit-block prefill", 1, vqa["vit_t"], [0], [vqa["vit_valid"]], False),
+        ("question prefill", 1, vqa["q_t"], [vqa["vit_valid"]], [vqa["q_len"]], True),
+        ("decode T=1", 1, 1, [vqa["vit_valid"] + vqa["q_len"]], [1], True),
     ]
     results = []
     for label, b, t, past, valid, causal in shapes:
@@ -280,6 +321,184 @@ def phase_kernels(cfg, prompt_len, prefill_t):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: B3 sparse_packed_attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def segment_ids(lens, s):
+    """[s] int32: segment i (1-based) over lens[i-1] tokens, then padding."""
+    ids = torch.zeros(s, dtype=torch.int32, device=DEVICE)
+    start = 0
+    for i, n in enumerate(lens, start=1):
+        ids[start:start + n] = i
+        start += n
+    return ids
+
+
+def train_ids(s):
+    """The packed training predicate's ids on s tokens: two documents, each
+    with causal text, a full split and a noise split, then 50 padding."""
+    doc = segment_ids([300, s - 350], s)
+    fan = torch.full((s,), -1, dtype=torch.int32, device=DEVICE)
+    noise = fan.clone()
+    fan[100:200], fan[200:300], noise[200:300] = 0, 1, 1
+    fan[400:500], fan[500:650], noise[500:650] = 2, 3, 3
+    return doc, fan, noise
+
+
+def sparse_inputs(gen, s, h, kh, d, strided=False):
+    """bf16 q [s, h, d], k/v [s, kh, d]; strided: views into one fused
+    [s, h*d + 2*kh*d] projection, as a fused QKV leaf would give them."""
+    if strided:
+        qkv = torch.randn((s, (h + 2 * kh) * d), generator=gen, device=DEVICE).bfloat16()
+        q, k, v = qkv.split([h * d, kh * d, kh * d], dim=1)
+        return q.view(s, h, d), k.view(s, kh, d), v.view(s, kh, d)
+    return (torch.randn((s, h, d), generator=gen, device=DEVICE).bfloat16(),
+            torch.randn((s, kh, d), generator=gen, device=DEVICE).bfloat16(),
+            torch.randn((s, kh, d), generator=gen, device=DEVICE).bfloat16())
+
+
+def sparse_error(got, want, doc):
+    """(max abs error, worst elementwise error in units of its limit, the
+    norm-relative error) over the rows that see a key (doc != 0)."""
+    rows = doc != 0
+    g, w = got[rows].float(), want[rows].float()
+    d = (g - w).abs()
+    limit = KERNEL_RTOL * w.abs() + KERNEL_ATOL_RMS * w.pow(2).mean().sqrt()
+    return (d.max().item(), (d / limit.clamp(min=1e-30)).max().item(),
+            (d.norm() / w.norm().clamp(min=1e-30)).item())
+
+
+def sparse_work(doc, fan, noise, h, kh, d):
+    """(FLOPs, bytes) the function needs on these ids: two products over the
+    visible (query, key) pairs; q, k, v, out and the ids once each."""
+    from bagel_tpu_torch.ops.attention import train_packed_mask
+
+    pairs = int(train_packed_mask(doc, fan, noise).sum())
+    s = doc.shape[0]
+    return 4 * d * h * pairs, 2 * 2 * s * d * (h + kh) + 3 * 4 * s
+
+
+def sparse_compare(sf, args, label):
+    q, k, v, doc, fan, noise = args
+    got = sf.sparse_packed_attention(q, k, v, doc, fan, noise)
+    want = sf.sparse_packed_attention_plain(q, k, v, doc, fan, noise)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite kernel output")
+    pad = got[doc == 0]
+    check(pad.numel() == 0 or pad.abs().max().item() == 0.0,
+          f"{label}: padding rows are not exactly 0")
+    err, ratio, rel = sparse_error(got, want, doc)
+    check(within_tol(ratio, rel),
+          f"{label}: kernel vs plain max abs {err:.3e} ({ratio:.2f} x the elementwise "
+          f"limit), rel {rel:.3e} (limit {KERNEL_REL})")
+    return got, want, err, ratio, rel
+
+
+def phase_sparse_kernels(vit_s, n_patches, heads, head_dim):
+    from bagel_tpu_torch.ops import sparse_flash as sf
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    worst = 0.0
+    gap = segment_ids([192], 512)  # q tile 3 (rows 192..255) is all padding
+    gap[256:] = 2
+    edge = [
+        # label, s, h, kh, d, ids (doc, fan, noise), strided, stale NaN
+        ("3 packed images + 50 padding", 1000, 16, 16, 72, "seg:300,250,400", False, True),
+        ("ragged S=333, strided q/k/v views", 333, 4, 4, 72, "seg:200,100", True, False),
+        ("train predicate D=128, GQA 28/4", 700, 28, 4, 128, "train", False, True),
+        ("train predicate D=72", 700, 16, 16, 72, "train", False, False),
+        ("a q tile with no live key tile", 512, 4, 4, 72, "gap", False, False),
+    ]
+    for label, s, h, kh, d, kind, strided, stale in edge:
+        if kind == "train":
+            ids = train_ids(s)
+        elif kind == "gap":
+            ids = (gap, gap, torch.full_like(gap, -1))
+        else:
+            seg = segment_ids([int(x) for x in kind[4:].split(",")], s)
+            ids = (seg, seg, torch.full_like(seg, -1))
+        q, k, v = sparse_inputs(gen, s, h, kh, d, strided)
+        args = (q, k, v) + ids
+        got, _, err, ratio, rel = sparse_compare(sf, args, label)
+        if kind == "gap":
+            _, cnt = sf.kernel_tables(*ids)
+            check(int(cnt[3]) == 0, f"{label}: q tile 3 has {int(cnt[3])} live key tiles")
+        if stale:  # NaN in K/V rows that no query can see changes nothing
+            dead = ids[0] == 0
+            k[dead] = float("nan")
+            v[dead] = float("nan")
+            again = sf.sparse_packed_attention(q, k, v, *ids)
+            check(torch.equal(again, got), f"{label}: stale NaN leaked into the output")
+        worst = max(worst, err)
+        note = "; stale NaN in dead rows changes nothing" if stale else ""
+        log(f"[kernels] B3 edge {label}: max abs err {err:.3e} ({ratio:.2f} x the elementwise "
+            f"limit), rel err {rel:.3e}{note}")
+
+    # negative control: two 70 x 35-patch images packed into one sequence;
+    # the plain version with both images merged into one segment must fail
+    s2 = 2 * 2450
+    seg2 = segment_ids([2450, 2450], s2)
+    q, k, v = sparse_inputs(gen, s2, heads, heads, head_dim)
+    noise2 = torch.full_like(seg2, -1)
+    _, want, err, ratio, rel = sparse_compare(sf, (q, k, v, seg2, seg2, noise2),
+                                              "two packed images")
+    worst = max(worst, err)
+    merged = (seg2 != 0).to(torch.int32)
+    blind = sf.sparse_packed_attention_plain(q, k, v, merged, merged, noise2)
+    b_err, b_ratio, b_rel = sparse_error(blind, want, seg2)
+    check(not within_tol(b_ratio, b_rel),
+          "the gate accepts an attention that merges two images into one segment")
+    log(f"[kernels] B3 two packed images (S={s2}): max abs err {err:.3e} ({ratio:.2f} x the "
+        f"limit), rel {rel:.3e}; control that merges the images is rejected: max abs "
+        f"{b_err:.3e} ({b_ratio:.1f} x the elementwise limit), rel {b_rel:.3e}")
+    del q, k, v, want, blind
+
+    # the main path's shape: one 980 px image, n_patches tokens in a block
+    # of vit_s, SigLIP's heads and head dim
+    seg = segment_ids([n_patches], vit_s)
+    noise = torch.full_like(seg, -1)
+    q, k, v = sparse_inputs(gen, vit_s, heads, heads, head_dim)
+    _, _, err, ratio, rel = sparse_compare(sf, (q, k, v, seg, seg, noise), "main path")
+    worst = max(worst, err)
+    # the tower builds the kernel's tables once and shares them across its
+    # layers: time the launch with them built, and their build alone
+    tables_ms = cuda_ms(lambda: sf.kernel_tables(seg, seg, noise), 5)
+    tables = sf.kernel_tables(seg, seg, noise)
+    ms = cuda_ms(lambda: sf.sparse_packed_attention(q, k, v, seg, seg, noise, tables=tables),
+                 20, 3)
+    # A/B of the full-tile flags: the same launch with every flag cleared, so
+    # that every tile takes the per-element mask; the output must not change
+    masked = (tables[0] & ~sf.FULL_TILE, tables[1])
+    check(torch.equal(sf.sparse_packed_attention(q, k, v, seg, seg, noise, tables=masked),
+                      sf.sparse_packed_attention(q, k, v, seg, seg, noise, tables=tables)),
+          "main path: the full-tile flags change the output")
+    ab = []
+    for t in (masked, tables, tables, masked):
+        ab.append(cuda_ms(lambda: sf.sparse_packed_attention(q, k, v, seg, seg, noise, tables=t),
+                          20, 3))
+    log(f"[kernels] B3 main path A/B of the full-tile flags: masked {ab[0]:.4f}, flagged "
+        f"{ab[1]:.4f}, flagged {ab[2]:.4f}, masked {ab[3]:.4f} ms")
+    plain_ms = cuda_ms(lambda: sf.sparse_packed_attention_plain(q, k, v, seg, seg, noise), 2)
+    mask = (seg[:, None] == seg[None, :]) & (seg[:, None] != 0)
+    lib_ms = cuda_ms(sdpa_call(q[None], k[None], v[None], mask[None, None]), 5)
+    flops, bytes_ = sparse_work(seg, seg, noise, heads, heads, head_dim)
+    bms, by = bound_ms(flops, bytes_)
+    log(f"[kernels] B3 main path S={vit_s} ({n_patches} patches), H={heads}, D={head_dim}: "
+        f"max abs err {err:.3e} ({ratio:.2f} x the elementwise limit), rel err {rel:.3e}; "
+        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+        f"SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); the tables, built once per "
+        f"image: {tables_ms:.4f} ms")
+    main = dict(shape=f"SigLIP S={vit_s}, {n_patches} patches, H={heads}, D={head_dim}",
+                tables_ms=tables_ms, full_tile_ab_ms=ab,
+                max_abs_err=err, limit_ratio=ratio, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9)
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return worst, main
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: the model
 # ---------------------------------------------------------------------------
 
@@ -295,10 +514,20 @@ def leaves(tree):
 def live_weights(params, cfg, gen):
     """Seeded random weights that hide no bug: the gen expert differs from
     the und expert, norms differ from 1, and llm2vae is non-zero (a zero
-    velocity head would leave the latent on the noise)."""
+    velocity head would leave the latent on the noise); the SigLIP tower's
+    LayerNorms differ from 1 / 0 and its and the connector's biases from 0."""
 
     def noise(t, std):
         return torch.randn(t.shape, generator=gen, device=t.device) * std
+
+    vit = params["vit"]
+    for ln in (vit["layers"]["ln1"], vit["layers"]["ln2"], vit["post_ln"]):
+        ln["w"].copy_(1 + noise(ln["w"], 0.05))
+        ln["b"].copy_(noise(ln["b"], 0.05))
+    linears = [vit["patch_embed"], params["connector"]["fc1"], params["connector"]["fc2"]]
+    linears += list(vit["layers"]["attn"].values()) + list(vit["layers"]["mlp"].values())
+    for lin in linears:
+        lin["b"].copy_(noise(lin["b"], 0.02).to(lin["b"].dtype))
 
     llm = params["llm"]
     for name, tree in llm["layers"].items():
@@ -371,11 +600,59 @@ def phase_forward(engine, gen):
             f"kernel vs dense velocity rel err {rel:.3e} (tol {tol})")
 
 
+def vqa_image():
+    """The seeded synthetic VQA image: HWC float32 in [-1, 1]."""
+    return np.random.default_rng(SEED).uniform(-1, 1, (VQA_PX, VQA_PX, 3)).astype(np.float32)
+
+
+def vit_block_inputs(engine, image):
+    """The padded ViT inputs update_context_image builds for one image:
+    (patches [nb, p*p*3], pos [nb], seg [nb], n real patches)."""
+    from bagel_tpu_torch.inference.engine import _bucket
+
+    cfg = engine.cfg
+    patch = cfg.vit.patch_size
+    patches, pos, _, _ = engine._prep_image_tokens(
+        engine._crop_to_multiple(image, patch), patch, cfg.vit_max_num_patch_per_side)
+    n = patches.shape[0]
+    nb = _bucket(n + 2) - 2
+    patches_p = np.zeros((nb, patches.shape[1]), np.float32)
+    patches_p[:n] = patches
+    pos_p = np.zeros(nb, np.int64)
+    pos_p[:n] = pos
+    seg = np.zeros(nb, np.int32)
+    seg[:n] = 1
+    return (engine._tensor(patches_p, engine.cache_dtype), engine._tensor(pos_p, torch.long),
+            engine._tensor(seg), n)
+
+
+def phase_vit_forward(engine):
+    """The full-width SigLIP tower + connector on the 980 px image through
+    the kernel (auto) and the dense path: relative error over the real
+    tokens, at depth 1 and at full depth."""
+    from bagel_tpu_torch.models.bagel import encode_vit_tokens
+
+    cfg, params = engine.cfg, engine.params
+    patches, pos, seg, n = vit_block_inputs(engine, vqa_image())
+    for depth, tol in ((1, VIT_TOL_1), (cfg.vit.num_hidden_layers, VIT_TOL)):
+        vcfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, num_hidden_layers=depth))
+        out = {impl: encode_vit_tokens(params, vcfg, patches, pos, seg, attn_impl=impl)[:n]
+               for impl in ("auto", "dense")}
+        rel = relative_error(out["auto"], out["dense"])
+        check(bool(torch.isfinite(out["auto"]).all()), "vit forward: non-finite output")
+        check(rel <= tol, f"vit forward: depth {depth} rel err {rel:.3e} > {tol}")
+        log(f"[forward] SigLIP + connector, {VQA_PX} px ({n} patches in a block of "
+            f"{seg.shape[0]}), {depth} layer(s): kernel vs dense rel err {rel:.3e} (tol {tol})")
+        del out
+        torch.cuda.empty_cache()
+
+
 def phase_t2i(engine, gen):
     from bagel_tpu_torch.inference import engine as tengine
     from bagel_tpu_torch.models.bagel import unpatchify_latent
     from bagel_tpu_torch.models.vae import vae_decode
     from bagel_tpu_torch.ops import flash
+    from bagel_tpu_torch.ops import sparse_flash as sf
 
     cfg = engine.cfg
     L = cfg.llm.num_hidden_layers
@@ -383,6 +660,7 @@ def phase_t2i(engine, gen):
 
     # the main path, through the user entry point, counted
     flash.flash_cached_attention.launches = 0
+    sf.sparse_packed_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = engine(text=PROMPT, understanding_output=False, image_shapes=(PX, PX),
@@ -390,6 +668,7 @@ def phase_t2i(engine, gen):
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = flash.flash_cached_attention.launches
+    check(sf.sparse_packed_attention.launches == 0, "text-to-image launched B3")
     peak = torch.cuda.max_memory_allocated()
     img = out["image"]
     expected = L * (2 + NUM_TIMESTEPS - 1)
@@ -444,6 +723,110 @@ def phase_t2i(engine, gen):
     return launches
 
 
+def vqa_context(engine, image):
+    """The context interleave_inference builds for (image, question) with
+    understanding_output=True."""
+    ctx = engine.update_context_image(image, engine.init_context(), vae=False, vit=True)
+    return engine.update_context_text(QUESTION, ctx)
+
+
+def first_logits(engine, ctx, impl):
+    """The first decode step's logits (bos at the context's rope position)."""
+    from bagel_tpu_torch.models import qwen2
+
+    llm = engine.params["llm"]
+    bos = engine._tensor([engine.new_token_ids["bos_token_id"]], torch.long)
+    hidden, _ = qwen2.llm_extend(
+        llm, engine.cfg.llm, qwen2.embed_tokens(llm, bos)[None], engine._tensor([[ctx.rope]]),
+        ctx.cache, engine._tensor([1]), und_len=1, causal=True, update_cache=False,
+        attn_impl=impl)
+    return qwen2.lm_logits(llm, hidden[:, 0])
+
+
+def phase_vqa(engine, card):
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.models.bagel import encode_vit_tokens
+    from bagel_tpu_torch.ops import flash
+    from bagel_tpu_torch.ops import sparse_flash as sf
+
+    cfg = engine.cfg
+    L, LV = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
+    image = vqa_image()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, through the user entry point, counted
+    flash.flash_cached_attention.launches = 0
+    sf.sparse_packed_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine(image=image, text=QUESTION, understanding_output=True,
+                 max_think_token_n=MAX_THINK)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    b1, b3 = flash.flash_cached_attention.launches, sf.sparse_packed_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    answer = out["text"]
+    n_tok = len(answer.split())  # MockTokenizer.decode joins ids with spaces
+    steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK  # the eos step counts
+    log(f"[vqa] __call__ {VQA_PX} px + {len(QUESTION)}-char question, {MAX_THINK} tokens at "
+        f"most: {total_s:.2f} s, answer of {n_tok} tokens, B3 launches {b3} (expected {LV}), "
+        f"B1 launches {b1} (expected {L} x (2 prefills + {steps} decode steps) = "
+        f"{L * (2 + steps)}), peak memory {peak / 2**30:.2f} GiB")
+    check(out["image"] is None and n_tok > 0, f"empty answer {answer!r}")
+    check(b3 == LV, f"B3 launch count {b3} != {LV}")
+    check(b1 == L * (2 + steps), f"B1 launch count {b1} != {L * (2 + steps)}")
+
+    # the same question through the dense path: the first step's logits and
+    # the greedy tokens
+    dense = BagelEngine(engine.params, cfg, engine.tokenizer, engine.new_token_ids,
+                        max_kv=MAX_KV, device=DEVICE, attn_impl="dense")
+    ctx = vqa_context(engine, image)
+    ctx_dense = vqa_context(dense, image)
+    rel = relative_error(first_logits(engine, ctx, "auto"),
+                         first_logits(dense, ctx_dense, "dense"))
+    check(rel <= LOGITS_TOL, f"first decode step logits rel err {rel:.3e} > {LOGITS_TOL}")
+    toks, toks_dense = answer.split(), dense.gen_text(ctx_dense, max_length=MAX_THINK).split()
+    agree = sum(a == b for a, b in zip(toks, toks_dense))
+    prefix = next((i for i, (a, b) in enumerate(zip(toks, toks_dense)) if a != b),
+                  min(len(toks), len(toks_dense)))
+    log(f"[vqa] first decode step logits, kernels vs dense: rel err {rel:.3e} (tol "
+        f"{LOGITS_TOL}); greedy tokens: {agree} of {len(toks)} agree position by position, "
+        f"the first {prefix} in a row (not gated)")
+    del dense, ctx_dense
+    torch.cuda.empty_cache()
+
+    # times of the pieces
+    patches, pos, seg, n = vit_block_inputs(engine, image)
+    vit_ms = cuda_ms(lambda: encode_vit_tokens(engine.params, cfg, patches, pos, seg), 3)
+    vit_emb = encode_vit_tokens(engine.params, cfg, patches, pos, seg)
+    llm = engine.params["llm"]
+    block = torch.cat([qwen2.embed_tokens(llm, engine._boundary_ids()), vit_emb])[None]
+    t = block.shape[1]
+    empty = engine.init_context()
+    block_pos = torch.zeros((1, t), dtype=torch.int32, device=DEVICE)
+    prefill_ms = cuda_ms(lambda: qwen2.llm_extend(
+        llm, cfg.llm, block, block_pos, empty.cache, engine._tensor([n + 2]), und_len=t,
+        causal=False, update_cache=True), 3)
+    img_ctx = engine.update_context_image(image, engine.init_context(), vae=False)
+    question_ms = cuda_ms(lambda: engine.update_context_text(QUESTION, img_ctx), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = engine.gen_text(ctx, max_length=MAX_THINK)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    check(again == answer, "gen_text on the same context gave another answer")
+    log(f"[vqa] on {card}: SigLIP encode {vit_ms:.1f} ms ({n} patches, {LV} layers); "
+        f"vit-block prefill {prefill_ms:.1f} ms (T={t}, {n + 2} valid); question prefill "
+        f"{question_ms:.1f} ms ({ctx.kv_len - img_ctx.kv_len} tokens after "
+        f"{img_ctx.kv_len}); decode "
+        f"{decode_ms:.2f} ms per token (host clock, {steps} steps); total __call__ "
+        f"{total_s:.2f} s; peak {peak / 2**30:.2f} GiB")
+    return dict(b1=b1, b3=b3, total_s=total_s, peak_gib=peak / 2**30, vit_ms=vit_ms,
+                prefill_ms=prefill_ms, question_ms=question_ms, decode_ms=decode_ms,
+                steps=steps, logits_rel=rel, tokens_agree=agree)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -451,7 +834,7 @@ def main() -> int:
         return 1
     import bagel_tpu_torch  # noqa: F401  (outside a checkout: fails before any output)
 
-    name = phase_device()
+    name, card = phase_device()
     phase_build()
 
     from bagel_tpu_torch.configs import BagelConfig
@@ -459,10 +842,16 @@ def main() -> int:
     from bagel_tpu_torch.inference.engine import BagelEngine, _bucket
     from bagel_tpu_torch.models.bagel import init_bagel_params
 
-    cfg = BagelConfig(visual_und=False, vit=None)  # BAGEL-7B-MoT widths, no ViT
+    cfg = BagelConfig()  # BAGEL-7B-MoT widths + SigLIP so400m, both paths
     tok = MockTokenizer(cfg.llm.vocab_size)
     prompt_len = len(tok.encode(PROMPT)) + 2
-    worst, shapes = phase_kernels(cfg, prompt_len, _bucket(prompt_len))
+    n_patches = (VQA_PX // cfg.vit.patch_size) ** 2
+    q_len = len(tok.encode(QUESTION)) + 2
+    vqa_shapes = dict(vit_t=_bucket(n_patches + 2), vit_valid=n_patches + 2,
+                      q_len=q_len, q_t=_bucket(q_len))
+    worst, shapes = phase_kernels(cfg, prompt_len, _bucket(prompt_len), vqa_shapes)
+    worst3, main3 = phase_sparse_kernels(vqa_shapes["vit_t"] - 2, n_patches,
+                                         cfg.vit.num_attention_heads, cfg.vit.head_dim)
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -470,30 +859,57 @@ def main() -> int:
     live_weights(params, cfg, gen)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params["llm"]))
+    n_vit = sum(t.numel() for t in leaves(params["vit"]))
     log(f"[model] full-width BAGEL-7B-MoT, {cfg.llm.num_hidden_layers} layers, "
-        f"{n_params / 1e9:.2f} B LLM params in bf16, built in {time.perf_counter() - t0:.1f} s")
+        f"{n_params / 1e9:.2f} B LLM params, SigLIP {cfg.vit.num_hidden_layers} layers, "
+        f"{n_vit / 1e9:.3f} B params, bf16, built in {time.perf_counter() - t0:.1f} s")
     engine = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE)
     phase_forward(engine, gen)
-    launches = phase_t2i(engine, gen)
+    phase_vit_forward(engine)
+    t2i_launches = phase_t2i(engine, gen)
+    vqa = phase_vqa(engine, card)
 
     main_shape = shapes[0]
-    kernels = [dict(
-        name=KERNEL,
-        route="cuda",
-        source="bagel_tpu_torch/csrc/flash_cached_attention.cu",
-        replaces="bagel_tpu/ops/flash.py:108",
-        launches=launches,
-        max_abs_err=worst,
-        tol=KERNEL_TOL,
-        ms=main_shape["ms"],
-        plain_ms=main_shape["plain_ms"],
-        bound_ms=main_shape["bound_ms"],
-        bound_by=main_shape["bound_by"],
-        library_ms=main_shape["library_ms"],
-        library="torch.nn.functional.scaled_dot_product_attention (bool mask, enable_gqa)",
-        shape=main_shape["shape"],
-        shapes=shapes,
-    )]
+    library = "torch.nn.functional.scaled_dot_product_attention (bool mask, enable_gqa)"
+    kernels = [
+        dict(
+            name="flash_cached_attention",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/flash_cached_attention.cu",
+            replaces="bagel_tpu/ops/flash.py:108",
+            launches=t2i_launches + vqa["b1"],
+            launches_by_path=dict(t2i=t2i_launches, vqa=vqa["b1"]),
+            max_abs_err=worst,
+            tol=KERNEL_TOL,
+            ms=main_shape["ms"],
+            plain_ms=main_shape["plain_ms"],
+            bound_ms=main_shape["bound_ms"],
+            bound_by=main_shape["bound_by"],
+            library_ms=main_shape["library_ms"],
+            library=library,
+            shape=main_shape["shape"],
+            shapes=shapes,
+        ),
+        dict(
+            name="sparse_packed_attention",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/sparse_packed_attention.cu",
+            replaces="bagel_tpu/ops/sparse_flash.py:97",
+            launches=vqa["b3"],
+            launches_by_path=dict(t2i=0, vqa=vqa["b3"]),
+            max_abs_err=worst3,
+            tol=KERNEL_TOL + ", over the rows that see a key",
+            ms=main3["ms"],
+            plain_ms=main3["plain_ms"],
+            bound_ms=main3["bound_ms"],
+            bound_by=main3["bound_by"],
+            library_ms=main3["library_ms"],
+            library=library,
+            shape=main3["shape"],
+            tflops=main3["tflops"],
+        ),
+    ]
+    log(json.dumps({"vqa": vqa}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -115,12 +115,10 @@ def test_update_leaves_sibling_context_untouched(setup):
 
 def test_later_slices_raise(setup):
     _, _, _, teng, _ = setup
-    with pytest.raises(NotImplementedError, match="understanding"):
-        teng(text="x", understanding_output=True)
-    with pytest.raises(NotImplementedError, match="understanding"):
-        teng(text="x", think=True)
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="edit slice"):  # image into generation
         teng(image=np.zeros((32, 32, 3), np.float32), text="x")
+    with pytest.raises(NotImplementedError, match="serving slice"):
+        teng(text="x", understanding_output=True, speculative=4)
     with pytest.raises(NotImplementedError, match="TaylorSeer"):
         teng(text="x", image_shapes=SHAPE, enable_taylorseer=True)
 
@@ -198,6 +196,17 @@ def test_port_init_matches_jax_tree(setup):
     assert np.abs(as_np["llm2vae"]["w"]).max() == 0
     layers = as_np["llm"]["layers"]
     np.testing.assert_array_equal(layers["attn"]["q"]["w"], layers["attn_gen"]["q"]["w"])
-    with pytest.raises(NotImplementedError, match="SigLIP"):
-        tbagel.init_bagel_params(torch.Generator(), dataclasses.replace(cfg, visual_und=True),
-                                 device="cpu")
+    # visual_und=True adds the SigLIP tower, the connector and vit_pos_embed
+    full = dataclasses.replace(cfg, visual_und=True)
+    jleaves = jax.tree_util.tree_leaves_with_path(
+        jbagel.init_bagel_params(jax.random.PRNGKey(0), full, jnp.float32))
+    tleaves = jax.tree_util.tree_leaves_with_path(jax.tree.map(
+        lambda t: t.numpy(),
+        tbagel.init_bagel_params(torch.Generator().manual_seed(0), full, torch.float32,
+                                 device="cpu"),
+        is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    assert [p for p, _ in jleaves] == [p for p, _ in tleaves]
+    for (path, j), (_, t) in zip(jleaves, tleaves):
+        assert t.shape == (j.transpose(3, 2, 0, 1) if j.ndim == 4 else j).shape, path
+        if jax.tree_util.keystr(path).startswith("['vit_pos_embed']"):
+            np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5)  # a frozen table
