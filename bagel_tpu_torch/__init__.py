@@ -8,11 +8,16 @@ never JAX and never `bagel_tpu`.
 
 Entry points (`BagelEngine`, `init_bagel_params`, `kv_cache_init`) run on
 CUDA unless the caller passes `device="cpu"`; with no device and no GPU they
-raise. The hand-written kernels are `ops.flash`'s `flash_cached_attention`
-(`csrc/flash_cached_attention.cu`: every LLM attention) and
-`ops.sparse_flash`'s `sparse_packed_attention`
-(`csrc/sparse_packed_attention.cu`: the SigLIP tower's attention), each
-built with nvcc at first use.
+raise. The hand-written kernels, each built with nvcc at first use:
+`ops.flash`'s `flash_cached_attention` (`csrc/flash_cached_attention.cu`:
+every LLM attention) and `flash_cached_attention_q8`
+(`csrc/flash_cached_attention_q8.cu`: the int8 attention under
+`BAGEL_FLASH_INT8`), `ops.sparse_flash`'s `sparse_packed_attention`
+(`csrc/sparse_packed_attention.cu`: the SigLIP tower's attention),
+`ops.int8_matmul` (`csrc/int8_matmul.cu`: every w8a8 linear) and
+`ops.int4_matmul` (`csrc/int4_matmul.cu`: int4 linears at decode).
+`utils.quant.quantize_bagel_params(params, mode)` quantizes a tree for
+serving ("int8", "w8a8", "int4", "nf4").
 """
 
 __version__ = "0.1.0"

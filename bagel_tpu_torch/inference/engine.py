@@ -231,16 +231,20 @@ class BagelEngine:
         self.device = resolve_device(device)
         self.attn_impl = attn_impl
         emb = params["llm"]["embed"]
-        if emb.device.type != self.device.type:
+        # a quantized embedding ({'w_q', 'row_scale'}, utils.quant) gives
+        # bf16 rows, so the engine computes in bf16, as the JAX engine does
+        quantized = isinstance(emb, dict)
+        emb_dev = emb["w_q"].device if quantized else emb.device
+        if emb_dev.type != self.device.type:
             raise ValueError(
-                f"params are on {emb.device}, the engine runs on {self.device}"
+                f"params are on {emb_dev}, the engine runs on {self.device}"
             )
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.new_token_ids = new_token_ids
         self.max_kv = kv_bucket(max_kv)
-        self.cache_dtype = emb.dtype
+        self.cache_dtype = torch.bfloat16 if quantized else emb.dtype
         if cfg.interpolate_pos:
             self._pos_ids = flattened_position_ids_interpolate
         else:
@@ -248,6 +252,13 @@ class BagelEngine:
 
     def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def _patches(self, patches: np.ndarray) -> torch.Tensor:
+        """Pixel patches rounded to the cache dtype, in the tower's dtype: a
+        quantized LLM computes in bf16 beside an f32 tower, whose products
+        JAX promotes to f32."""
+        tower = self.params["vit"]["patch_embed"]["w"].dtype
+        return self._tensor(patches, self.cache_dtype).to(tower)
 
     # -- context management -------------------------------------------------
 
@@ -328,7 +339,7 @@ class BagelEngine:
         seg[:n] = 1
         _, cache = _prefill_vit(
             self.params, self.cfg, ctx.cache, self._boundary_ids(),
-            self._tensor(patches_p, self.cache_dtype), self._tensor(pos_p, torch.long),
+            self._patches(patches_p), self._tensor(pos_p, torch.long),
             self._tensor(seg), ctx.rope, self._tensor([n + 2]), self.attn_impl,
         )
         return GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1,

@@ -19,11 +19,17 @@
 - On a CUDA tensor with attn_impl="auto" every attention goes through the
   hand-written kernel (`ops.flash.flash_cached_attention`), prefill (causal)
   and denoise (non-causal) alike; any attn_impl other than "auto"/"flash"
-  takes the dense path (`cache_block_mask` + `dot_attention`). Decode steps
-  (T=1) go through the same kernel.
+  takes the plain version (`flash_cached_attention_plain`). Decode steps
+  (T=1) go through the same kernel. With `BAGEL_FLASH_INT8=1` every block of
+  more than one token (prefill, ViT block, gen block) takes the int8
+  attention, as on the JAX package's TPU path; decode steps stay bf16.
+- Quantized weight leaves (`utils.quant`): `w_q` (int8 weight-only) and
+  `w_nf4` dequantize to the activation dtype at use; `w_q8` (w8a8) quantizes
+  the activations per token and runs `ops.int8_matmul`; `w_p4` (int4) runs
+  `ops.int4_matmul` for at most 64 activation rows on CUDA (decode) and
+  dequantizes otherwise, as the JAX package does.
 
-Quantized weight leaves, the int8 KV cache and training come with later
-slices.
+The int8 KV cache and training come with later slices.
 """
 
 from __future__ import annotations
@@ -35,11 +41,14 @@ import torch
 import torch.nn.functional as F
 
 from bagel_tpu_torch.configs import Qwen2Config
-from bagel_tpu_torch.ops.attention import cache_block_mask, dot_attention
-from bagel_tpu_torch.ops.flash import flash_cached_attention
+from bagel_tpu_torch.ops import flash
+from bagel_tpu_torch.ops.flash import flash_cached_attention, flash_cached_attention_plain
+from bagel_tpu_torch.ops.int4_matmul import int4_gemv_eligible, int4_matmul
+from bagel_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
 from bagel_tpu_torch.ops.norms import rms_norm
 from bagel_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from bagel_tpu_torch.utils.device import resolve_device
+from bagel_tpu_torch.utils.quant import dequantize_weight4
 
 
 @dataclasses.dataclass
@@ -61,7 +70,7 @@ def kv_cache_init(
 ) -> KVCache:
     if dtype == torch.int8:
         raise NotImplementedError(
-            "the int8 KV cache comes with the quantization slice"
+            "the int8 KV cache comes with the decode and serving slice"
         )
     device = resolve_device(device)
     shape = (cfg.num_hidden_layers, batch, max_len,
@@ -156,23 +165,87 @@ def init_qwen2_params(
 
 
 def _linear(x: torch.Tensor, p) -> torch.Tensor:
-    """x @ w (+ b) over a plain weight leaf ({'w'[, 'b']} or a bare tensor).
+    """x @ w (+ b) over a weight leaf: {'w'[, 'b']}, a bare tensor, or a
+    quantized dict (`utils.quant`; see the module docstring).
 
-    The bias is added in the matmul's epilogue (torch.addmm), in fp32 before
-    the one rounding to x.dtype, as the JAX `preferred_element_type=f32`
-    product does."""
+    The bias is added in fp32 before the one rounding to x.dtype, as the
+    JAX `preferred_element_type=f32` product does: in the matmul's epilogue
+    (torch.addmm) for a plain or dequantized weight, in the kernel's for
+    w8a8; after the kernel's bf16 result for int4, as JAX does."""
     if not isinstance(p, dict):
         p = {"w": p}
-    for leaf in ("w_q", "w_q8", "w_p4", "w_nf4"):
-        if leaf in p:
-            raise NotImplementedError(
-                f"quantized weight leaf '{leaf}' comes with the quantization slice"
-            )
-    w = p["w"]
+    lead = x.shape[:-1]
+    if "w_q8" in p:
+        xq, xs = quantize_rows(x.reshape(-1, x.shape[-1]))
+        out = int8_matmul(xq, xs, p["w_q8"], p["scale"], p.get("b"), out_dtype=x.dtype)
+        return out.reshape(lead + (out.shape[-1],))
+    if "w_p4" in p:
+        rows = x[..., 0].numel()
+        if int4_gemv_eligible(rows, p, x.device):
+            # bandwidth-bound decode: the kernel reads the packed nibbles
+            # once instead of a dequantized weight in device memory
+            out = int4_matmul(x.reshape(rows, x.shape[-1]), p["w_p4"], p["scale4"]).float()
+            if "b" in p:
+                out = out + p["b"].float()
+            return out.to(x.dtype).reshape(lead + (out.shape[-1],))
+    if "w_q" in p:
+        w = (p["w_q"].float() * p["scale"][..., None, :]).to(x.dtype)
+    elif "w_p4" in p or "w_nf4" in p:
+        w = dequantize_weight4(p, x.dtype)
+    else:
+        w = p["w"]
     if "b" not in p:
         return torch.matmul(x, w)
+    if p["b"].dtype != x.dtype:  # e.g. f32 biases beside a quantized embedding's bf16
+        return (torch.matmul(x, w).float() + p["b"].float()).to(x.dtype)
     out = torch.addmm(p["b"], x.reshape(-1, x.shape[-1]), w)
-    return out.reshape(x.shape[:-1] + (w.shape[-1],))
+    return out.reshape(lead + (w.shape[-1],))
+
+
+# ---------------------------------------------------------------------------
+# Fused projections: one [d, qd+2*kvd] QKV matmul and one [d, 2f] gate-up
+# matmul per expert instead of 3+2 (in w8a8 one activation quantization per
+# group). Every weight, scale and bias leaf has the output dim last, so the
+# fusion commutes with every quantization mode.
+# ---------------------------------------------------------------------------
+
+
+def _concat_leaves(leaves: list) -> dict:
+    """Concat matching weight-dict leaves along the output (last) axis."""
+    keys = set(leaves[0])
+    assert all(set(p) == keys for p in leaves), "heterogeneous leaves"
+    return {k: torch.cat([p[k] for p in leaves], dim=-1) for k in keys}
+
+
+def fuse_llm_params(params: dict, inplace: bool = False) -> dict:
+    """Return params with per-attn 'qkv' and per-mlp 'gate_up' fused leaves
+    (originals dropped). Idempotent; leaves bare norms/lm_head untouched.
+
+    inplace=True mutates the given dicts so that each group's unfused
+    leaves are freed as soon as its fused leaf exists: peak memory is one
+    extra group, not a second tree. Callers that keep references to the
+    original tree must use inplace=False."""
+    out = params if inplace else dict(params)
+    layers = params["layers"] if inplace else dict(params["layers"])
+    for name in list(layers):
+        if name.startswith("attn"):
+            a = layers[name] if inplace else dict(layers[name])
+            if "qkv" not in a:
+                q, k, v = a.pop("q"), a.pop("k"), a.pop("v")
+                a["qkv"] = _concat_leaves([q, k, v])
+                del q, k, v
+            layers[name] = a
+        elif name.startswith("mlp"):
+            m = layers[name] if inplace else dict(layers[name])
+            if "gate_up" not in m:
+                gate, up = m.pop("gate"), m.pop("up")
+                if not isinstance(gate, dict):
+                    gate, up = {"w": gate}, {"w": up}
+                m["gate_up"] = _concat_leaves([gate, up])
+                del gate, up
+            layers[name] = m
+    out["layers"] = layers
+    return out
 
 
 def _proj_qkv(x, attn, h, kh, hd):
@@ -290,13 +363,17 @@ def _layer_extend(
         k_buf[row, off : off + t] = k[row]
         v_buf[row, off : off + t] = v[row]
 
+    # the JAX package sends every block of more than one token to its flash
+    # kernel on the TPU, and so to the int8 one under BAGEL_FLASH_INT8
+    int8 = t > 1 and flash.default_int8()
     if attn_impl == "flash" or (attn_impl == "auto" and q.is_cuda):
         att = flash_cached_attention(
-            q, k_buf, v_buf, past_len, q_valid, causal=causal
+            q, k_buf, v_buf, past_len, q_valid, causal=causal, int8_compute=int8
         )
     else:
-        mask = cache_block_mask(k_buf.shape[1], t, past_len, q_valid, causal)
-        att = dot_attention(q, k_buf, v_buf, mask=mask)
+        att = flash_cached_attention_plain(
+            q, k_buf, v_buf, past_len, q_valid, causal=causal, int8_compute=int8
+        )
     att = att.reshape(b, t, h * hd)
 
     o = _split_apply(
@@ -387,21 +464,21 @@ def llm_extend(
 
 def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
     emb = params["embed"]
-    if isinstance(emb, dict):
-        raise NotImplementedError(
-            "int8 embedding rows come with the quantization slice"
-        )
+    if isinstance(emb, dict):  # int8 rows with per-row scales
+        rows = emb["w_q"][ids].float()
+        return (rows * emb["row_scale"][ids][..., None]).to(torch.bfloat16)
     return emb[ids]
 
 
 def lm_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32 (the inputs upcast, as preferred_element_type=f32)."""
+    """Logits in fp32 (the inputs upcast, as preferred_element_type=f32); an
+    int8 head dequantizes to hidden's dtype first, as in JAX."""
     head = params["lm_head"]
-    if "w" not in head:
-        raise NotImplementedError(
-            "a quantized lm_head comes with the quantization slice"
-        )
-    return torch.matmul(hidden.float(), head["w"].float())
+    if "w_q" in head:
+        w = (head["w_q"].float() * head["scale"][None, :]).to(hidden.dtype)
+    else:
+        w = head["w"]
+    return torch.matmul(hidden.float(), w.float())
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@ from bagel_tpu_torch.ops.embeds import (
 from bagel_tpu_torch.ops.flash import (
     flash_cached_attention,
     flash_cached_attention_plain,
+    flash_cached_attention_q8,
+    flash_q8_plain,
     kv_bucket,
+    q8_prep,
 )
 from bagel_tpu_torch.ops.norms import group_norm, layer_norm, rms_norm
 from bagel_tpu_torch.ops.rope import apply_rope, apply_rope_2d, rope_2d_tables, rope_cos_sin
@@ -34,7 +37,10 @@ __all__ = [
     "timestep_embedding",
     "flash_cached_attention",
     "flash_cached_attention_plain",
+    "flash_cached_attention_q8",
+    "flash_q8_plain",
     "kv_bucket",
+    "q8_prep",
     "group_norm",
     "layer_norm",
     "rms_norm",

@@ -10,11 +10,19 @@ Rows i >= valid give 0. GQA maps query head h to KV head h // (H/KH).
 On a CUDA tensor `flash_cached_attention` launches the hand-written Hopper
 kernel `csrc/flash_cached_attention.cu` (bf16, D=128) or raises; it takes
 the plain version `flash_cached_attention_plain` only for CPU tensors.
+
+With `int8_compute` (the w8a8 attention; by default the JAX package's
+switch `BAGEL_FLASH_INT8`, read at each call) q/k/v are quantized to int8
+with per-(batch, head) scales by `q8_prep` (plain PyTorch, as the JAX
+package leaves it to XLA) and both products run in int8: on CUDA through
+`csrc/flash_cached_attention_q8.cu` (`flash_cached_attention_q8`), on the
+CPU through its plain version `flash_q8_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -23,7 +31,16 @@ from bagel_tpu_torch.ops import _build
 from bagel_tpu_torch.ops.attention import cache_block_mask, dot_attention
 
 KERNEL = "flash_cached_attention"
-HEAD_DIM = 128  # compiled into the kernel
+KERNEL_Q8 = "flash_cached_attention_q8"
+HEAD_DIM = 128  # compiled into the kernels
+Q8_BLOCK_K = 64  # the int8 kernel's key tile: its result depends on it
+NEG_INF = -1e30  # the masked score of the JAX kernels
+
+
+def default_int8() -> bool:
+    """`BAGEL_FLASH_INT8=1` turns the int8 attention on wherever the caller
+    does not choose (the JAX package's switch, read here at call time)."""
+    return bool(int(os.environ.get("BAGEL_FLASH_INT8", "0")))
 
 
 def kv_bucket(n: int) -> int:
@@ -43,12 +60,88 @@ def kv_bucket(n: int) -> int:
 def flash_cached_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     past_len: torch.Tensor, q_valid: torch.Tensor,
-    *, causal: bool, scale: Optional[float] = None,
+    *, causal: bool, scale: Optional[float] = None, int8_compute: bool = False,
+    block_k: int = Q8_BLOCK_K,
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: `cache_block_mask` +
-    `dot_attention` (fp32 products of the working-dtype inputs)."""
+    """The kernels' function in plain PyTorch: `cache_block_mask` +
+    `dot_attention` (fp32 products of the working-dtype inputs); with
+    int8_compute, `q8_prep` + `flash_q8_plain` at key tile `block_k`."""
+    if int8_compute:
+        q8, k8, v8, qs, ks, vs = q8_prep(q, k, v, past_len, q_valid)
+        return flash_q8_plain(q8, k8, v8, qs, ks, vs, past_len, q_valid, causal=causal,
+                              scale=scale, block_k=block_k, out_dtype=q.dtype)
     mask = cache_block_mask(k.shape[1], q.shape[1], past_len, q_valid, causal)
     return dot_attention(q, k, v, mask=mask, scale=scale)
+
+
+def _to_i8(x: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """[B, N, heads, D] / per-(batch, head) scale [B, heads] -> int8 codes."""
+    xf = x.float() / sc[:, None, :, None]
+    return torch.clamp(torch.round(xf), -127, 127).to(torch.int8)
+
+
+def q8_prep(q, k, v, past_len, q_valid):
+    """Symmetric int8 codes and per-(batch, head) f32 scales of q [B, T, H, D]
+    and of the live prefix of k/v [B, S, KH, D], as the JAX wrapper makes
+    them: the q absmax covers every row of the block (invalid rows too), the
+    k/v absmax only each row's [0, past + valid). Returns (q8, k8, v8, qs
+    [B, H], ks [B, KH], vs [B, KH]); k8/v8 hold the first max(past + valid)
+    positions only: no key past them is visible."""
+    ends = past_len.to(torch.int64) + q_valid.to(torch.int64)
+    live = max(int(ends.max()), 1)
+    k, v = k[:, :live], v[:, :live]
+    alive = torch.arange(live, device=k.device)[None, :, None] < ends[:, None, None]
+    qa = q.float().abs().amax(dim=(1, 3))
+    ka = torch.where(alive, k.float().abs().amax(dim=-1), 0.0).amax(dim=1)
+    va = torch.where(alive, v.float().abs().amax(dim=-1), 0.0).amax(dim=1)
+    qs, ks, vs = (torch.clamp(a, min=1e-12) / 127.0 for a in (qa, ka, va))
+    return _to_i8(q, qs), _to_i8(k, ks), _to_i8(v, vs), qs, ks, vs
+
+
+def flash_q8_plain(
+    q8, k8, v8, qs, ks, vs, past_len, q_valid, *, causal: bool,
+    scale: Optional[float] = None, block_k: int = Q8_BLOCK_K, out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """The int8 kernel's function in plain PyTorch, key tile by key tile as
+    `_flash_kernel_q8` runs it (the row max of P, and so the codes, are per
+    tile). Both products are float32 matmuls of the int8 codes, which are
+    exact: |q8 . k8| <= 127^2 D and |codes . v8| <= 127^2 block_k, both
+    under 2^24."""
+    assert block_k * 127 * 127 < 2**24 and q8.shape[-1] * 127 * 127 < 2**24
+    b, t, h, d = q8.shape
+    s_live, kh = k8.shape[1], k8.shape[2]
+    g = h // kh
+    if scale is None:
+        scale = d**-0.5
+    qf = q8.float().transpose(1, 2)  # [B, H, T, D]
+    kf = k8.float().transpose(1, 2).repeat_interleave(g, dim=1)  # [B, H, S, D]
+    vf = v8.float().transpose(1, 2).repeat_interleave(g, dim=1)
+    ksh, vsh = ks.repeat_interleave(g, dim=1), vs.repeat_interleave(g, dim=1)
+    c = (qs * ksh * scale)[:, :, None, None]
+    vs127 = (vsh / 127.0)[:, :, None, None]
+    rows = torch.arange(t, device=q8.device)[None, None, :, None]
+    past = past_len.to(torch.int64)[:, None, None, None]
+    valid = q_valid.to(torch.int64)[:, None, None, None]
+    lim = past + (rows + 1 if causal else valid)
+    m = torch.full((b, h, t, 1), NEG_INF, device=q8.device)
+    l = torch.zeros((b, h, t, 1), device=q8.device)
+    acc = torch.zeros((b, h, t, d), device=q8.device)
+    for k0 in range(0, s_live, block_k):
+        k1 = min(k0 + block_k, s_live)
+        cols = torch.arange(k0, k1, device=q8.device)[None, None, None, :]
+        mask = (cols < lim) & (cols < past + valid) & (rows < valid)
+        s = (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * c
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        row_m = torch.clamp(p.amax(dim=-1, keepdim=True), min=1e-20)
+        codes = torch.round(p * (127.0 / row_m))
+        pv = (codes @ vf[:, :, k0:k1]) * (row_m * vs127)
+        l = l * alpha + codes.sum(dim=-1, keepdim=True) * (row_m / 127.0)
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-20)).transpose(1, 2).to(out_dtype)
 
 
 def _library() -> ctypes.CDLL:
@@ -94,6 +187,84 @@ def _check(q, k, v, past_len, q_valid) -> None:
             raise ValueError(f"{name} must be a contiguous int32 [{b}] tensor")
 
 
+def _library_q8() -> ctypes.CDLL:
+    lib = _build.load(KERNEL_Q8)
+    fn = lib.flash_cached_attention_q8
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        lib.flash_cached_attention_q8_error_string.argtypes = [i]
+        lib.flash_cached_attention_q8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_cached_attention_q8(
+    q8: torch.Tensor,  # [B, T, H, D] int8
+    k8: torch.Tensor,  # [B, S, KH, D] int8, the live prefix
+    v8: torch.Tensor,
+    qs: torch.Tensor,  # [B, H] f32
+    ks: torch.Tensor,  # [B, KH] f32
+    vs: torch.Tensor,
+    past_len: torch.Tensor,
+    q_valid: torch.Tensor,
+    *,
+    causal: bool,
+    scale: Optional[float] = None,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """The int8 attention on `q8_prep`'s codes and scales -> [B, T, H, D] in
+    out_dtype: the CUDA kernel (key tile Q8_BLOCK_K, bf16 out) on a CUDA
+    tensor, the plain version on a CPU tensor.
+
+    `flash_cached_attention_q8.launches` counts kernel launches."""
+    if q8.device.type == "cpu":
+        return flash_q8_plain(q8, k8, v8, qs, ks, vs, past_len, q_valid, causal=causal,
+                              scale=scale, out_dtype=out_dtype)
+    if q8.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q8.device}")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel writes bf16, not {out_dtype}")
+    b, t, h, d = q8.shape
+    s, kh = k8.shape[1], k8.shape[2]
+    for name, x in (("k8", k8), ("v8", v8)):
+        if x.dtype != torch.int8 or x.shape != (b, s, kh, d) or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int8 [{b}, {s}, {kh}, {d}] tensor")
+    if q8.dtype != torch.int8 or not q8.is_contiguous() or d != HEAD_DIM or h % kh:
+        raise ValueError(f"q8 must be a contiguous int8 [B, T, H, {HEAD_DIM}] tensor "
+                         f"with H % KH == 0, got {q8.dtype} {tuple(q8.shape)}")
+    for name, x, n in (("qs", qs, h), ("ks", ks, kh), ("vs", vs, kh)):
+        if x.dtype != torch.float32 or x.shape != (b, n) or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 [{b}, {n}] tensor")
+    for name, x in (("past_len", past_len), ("q_valid", q_valid)):
+        if x.dtype != torch.int32 or x.shape != (b,) or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 [{b}] tensor")
+    for name, x in (("k8", k8), ("v8", v8), ("qs", qs), ("ks", ks), ("vs", vs),
+                    ("past_len", past_len), ("q_valid", q_valid)):
+        if x.device != q8.device:
+            raise ValueError(f"{name} is on {x.device}, q8 on {q8.device}")
+    out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=q8.device)
+    if t == 0:
+        return out
+    lib = _library_q8()
+    with torch.cuda.device(q8.device):
+        stream = torch.cuda.current_stream(q8.device).cuda_stream
+        err = lib.flash_cached_attention_q8(
+            q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), out.data_ptr(),
+            qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), past_len.data_ptr(),
+            q_valid.data_ptr(), b, t, s, h, kh,
+            d**-0.5 if scale is None else scale, int(causal), stream,
+        )
+    if err:
+        msg = lib.flash_cached_attention_q8_error_string(err).decode()
+        raise RuntimeError(f"flash_cached_attention_q8 launch failed: {msg} ({err})")
+    flash_cached_attention_q8.launches += 1
+    return out
+
+
+flash_cached_attention_q8.launches = 0
+
+
 def flash_cached_attention(
     q: torch.Tensor,  # [B, T, H, D]
     k: torch.Tensor,  # [B, S, KH, D] buffer
@@ -103,16 +274,19 @@ def flash_cached_attention(
     *,
     causal: bool,
     scale: Optional[float] = None,
-    int8_compute: bool = False,
+    int8_compute: Optional[bool] = None,
 ) -> torch.Tensor:
     """Attention of the new block over (cache ++ block). Returns [B, T, H, D]
-    in q's dtype. T may be ragged: the kernel masks its own edge.
+    in q's dtype (bf16 on CUDA). T may be ragged: the kernels
+    mask their own edge. int8_compute=None reads `default_int8()`.
 
-    `flash_cached_attention.launches` counts kernel launches."""
+    `flash_cached_attention.launches` counts launches of the bf16 kernel."""
+    if int8_compute is None:
+        int8_compute = default_int8()
     if int8_compute:
-        raise NotImplementedError(
-            "int8 attention (the w8a8 kernel) comes with the quantization slice"
-        )
+        q8, k8, v8, qs, ks, vs = q8_prep(q, k, v, past_len, q_valid)
+        return flash_cached_attention_q8(q8, k8, v8, qs, ks, vs, past_len, q_valid,
+                                         causal=causal, scale=scale, out_dtype=q.dtype)
     if q.device.type == "cpu":
         return flash_cached_attention_plain(
             q, k, v, past_len, q_valid, causal=causal, scale=scale

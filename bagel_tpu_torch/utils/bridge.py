@@ -27,23 +27,28 @@ def _to_tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+# the f32 scales of quantized leaves (utils.quant): never cast
+SCALE_KEYS = frozenset({"scale", "scale4", "absmax", "row_scale"})
+
+
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
     """Dicts and lists are walked; every array leaf becomes a tensor on
     `device`. 4-D leaves, which in this tree are the VAE's conv kernels and
     nothing else (the SigLIP tower's leaves are at most 3-D), are
     transposed HWIO -> OIHW. `dtype`, if given, casts every floating-point
-    leaf."""
+    leaf except the scales of quantized leaves (SCALE_KEYS), which stay
+    f32."""
     device = resolve_device(device)
 
-    def walk(node):
+    def walk(node, key=None):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
         t = _to_tensor(node)
         if t.ndim == 4:
             t = t.permute(3, 2, 0, 1).contiguous()
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() and key not in SCALE_KEYS:
             t = t.to(dtype)
         return t.to(device)
 

@@ -8,13 +8,21 @@ Phases (the first failure exits non-zero, and no result line is printed):
              for fp32 matmuls and convolutions (the VAE runs in full fp32).
   2. build   every kernel in bagel_tpu_torch/csrc with nvcc, for sm_90a, one
              nvcc per source, all started together; ptxas registers/spills.
-  3. kernels each kernel against its plain PyTorch version in bf16: edge
-             cases, then the shapes the main paths give it, with its time, the
-             plain version's, one PyTorch library call's (a yardstick the port
-             never calls) and the roofline bound of the work; and a negative
-             control per kernel that the gate must reject (B1: past taken as
-             0; B3: two packed images merged into one segment); B3's
-             full-tile flags timed against the same launch without them.
+  3. kernels each kernel against its plain PyTorch version: edge cases, then
+             the shapes the main paths give it, with its time, the plain
+             version's, one PyTorch library call's (a yardstick the port never
+             calls) and the roofline bound of the work; and a negative control
+             per kernel that the gate must reject.
+             3a B1 flash_cached_attention (control: past taken as 0);
+             3b B3 sparse_packed_attention (control: two packed images merged
+                into one segment; the full-tile flags timed against the same
+                launch without them);
+             3c B5 int8_matmul, bit for bit at the w8a8 text-to-image shapes,
+                M=1 and a ragged M/N/K (control: ws reversed);
+             3d B4 int4_matmul at every decode linear's shape, M in {1, 3, 64}
+                (control: the nibbles swapped);
+             3e B2 flash_cached_attention_q8 at its key tile, at the denoise
+                and ViT-block shapes (control: V's scale left out).
   4. forward one full-width MoT gen-block forward (512 px, full depth)
              through the kernel and through the dense path: velocity rel.
              error; the full-width SigLIP tower on a 980 px image through
@@ -28,13 +36,25 @@ Phases (the first failure exits non-zero, and no result line is printed):
              tokens at most; B3 launches once per SigLIP layer (27), B1
              L x (2 prefills + decode steps); the first decode step's logits
              through the kernels vs the dense path; the pieces' times.
+  7. w8a8    the weights quantized to w8a8 and fused, text-to-image through
+             __call__ with BAGEL_FLASH_INT8=1: B5 L x (4 x 2 + 8 x 7), B2
+             L x (2 + 7), no B1; a gen-block velocity through the kernels vs
+             the plain versions (and, as a control, the plain path at another
+             key tile), w8a8 vs bf16; seconds per image and peak memory.
+  8. int4    the weights quantized to int4 and fused, the VQA of phase 6
+             through __call__: B4 L x 4 x decode steps, B1 and B3 as in 6; the
+             first decode step's logits through the kernels vs the plain
+             versions; ms per decode token.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -55,7 +75,8 @@ NUM_TIMESTEPS = 8  # timestep_shift 3: 6 steps with CFG (3 branches), 1 without
 CFG = dict(cfg_text_scale=4.0, cfg_img_scale=1.5, timestep_shift=3.0,
            num_timesteps=NUM_TIMESTEPS)
 MAX_KV = 8192
-KERNELS = ("flash_cached_attention", "sparse_packed_attention")
+KERNELS = ("flash_cached_attention", "sparse_packed_attention", "int8_matmul", "int4_matmul",
+           "flash_cached_attention_q8")
 # kernel vs plain, both bf16 out, over the valid rows of each batch row:
 #   elementwise |kernel - plain| <= KERNEL_RTOL |plain| + KERNEL_ATOL_RMS rms(plain)
 #   and ||kernel - plain|| / ||plain|| <= KERNEL_REL.
@@ -81,6 +102,7 @@ VIT_TOL = 5e-2
 # rounding; twice the velocity's limit for the longer chain
 LOGITS_TOL = 1e-1
 PEAK_FLOPS = 989e12  # H100 SXM bf16 dense
+PEAK_INT8 = 1979e12  # H100 SXM int8 dense (operations per second)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
@@ -149,8 +171,9 @@ def phase_build() -> None:
         instance = ""
         for line in reports[name].splitlines():
             if "Compiling entry function" in line:
-                d = re.search(r"ILi(\d+)E", line)  # a head-dim template argument
-                instance = f" (D={d.group(1)})" if d else ""
+                d = re.search(r"ILi(\d+)E", line)  # an int template argument
+                arg = "rows" if name == "int4_matmul" else "D"  # B4's rows per block
+                instance = f" ({arg}={d.group(1)})" if d else ""
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}{instance}: {line.strip()}")
 
@@ -172,9 +195,15 @@ def attention_work(past, valid, t, h, kh, d, causal):
     return flops, bytes_
 
 
-def bound_ms(flops, bytes_):
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, bytes_ / PEAK_BYTES * 1e3
+def bound_ms_at(ops, bytes_, peak):
+    """The least time for `ops` operations at `peak` per second and `bytes_`
+    at the memory rate: (ms, what bounds it)."""
+    t_ops, t_bytes = ops / peak * 1e3, bytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_ms(flops, bytes_):
+    return bound_ms_at(flops, bytes_, PEAK_FLOPS)
 
 
 def attention_inputs(gen, b, t, s, h, kh, past, valid, garbage=None):
@@ -240,9 +269,15 @@ def sdpa_call(q, k, v, mask):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+def cache_mask(t, past, valid, causal):
+    """The attention's boolean mask over an MAX_KV-slot cache, for SDPA."""
+    from bagel_tpu_torch.ops.attention import cache_block_mask
+
+    return cache_block_mask(MAX_KV, t, past, valid, causal)[:, None]
+
+
 def phase_kernels(cfg, prompt_len, prefill_t, vqa):
     from bagel_tpu_torch.ops import flash
-    from bagel_tpu_torch.ops.attention import cache_block_mask
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     worst = 0.0
@@ -303,7 +338,7 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa):
         ms = cuda_ms(lambda: flash.flash_cached_attention(q, k, v, p, vl, causal=causal), 20, 3)
         plain_ms = cuda_ms(
             lambda: flash.flash_cached_attention_plain(q, k, v, p, vl, causal=causal), 2)
-        mask = cache_block_mask(MAX_KV, t, p, vl, causal)[:, None]
+        mask = cache_mask(t, p, vl, causal)
         lib_ms = cuda_ms(sdpa_call(q, k, v, mask), 5)
         flops, bytes_ = attention_work(past, valid, t, 28, 4, 128, causal)
         bms, by = bound_ms(flops, bytes_)
@@ -499,6 +534,283 @@ def phase_sparse_kernels(vit_s, n_patches, heads, head_dim):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: B5 int8_matmul against its plain version
+# ---------------------------------------------------------------------------
+
+
+def int8_operands(gen, m, k, n):
+    dev = DEVICE
+    return (torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8),
+            (torch.rand((m, 1), generator=gen, device=dev) + 0.5) / 127,
+            torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8),
+            (torch.rand((n,), generator=gen, device=dev) + 0.5) / 127,
+            torch.randn((n,), generator=gen, device=dev).bfloat16())
+
+
+def phase_int8_matmul(cfg, prefill_t):
+    """B5 bit for bit against its plain version (float64 products of the
+    codes, exact) at the w8a8 text-to-image shapes, M=1 and a ragged
+    M/N/K; times at the gen-block shapes the main path runs (fused QKV and
+    gate-up leaves) and at the unfused gate."""
+    from bagel_tpu_torch.ops import int8_matmul as m8
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    d, f = cfg.llm.hidden_size, cfg.llm.intermediate_size
+    qkv = (cfg.llm.num_attention_heads + 2 * cfg.llm.num_key_value_heads) * cfg.llm.head_dim
+    kv = cfg.llm.num_key_value_heads * cfg.llm.head_dim
+    # the gen expert's rows of a 1024 px denoise call: 3 CFG branches x 4096
+    # latents (the block's 2 boundary tokens take the und expert: 6 rows)
+    gen_rows = 3 * (PX // cfg.latent_downsample) ** 2
+    cases = [  # label, M, K, N, bias, timed
+        ("gen qkv (fused)", gen_rows, d, qkv, True, True),
+        ("gen o", gen_rows, d, d, False, True),
+        ("gen gate_up (fused)", gen_rows, d, 2 * f, False, True),
+        ("gen down", gen_rows, f, d, False, True),
+        ("gen gate", gen_rows, d, f, False, True),
+        ("gen q", gen_rows, d, d, True, False),
+        ("gen k / v", gen_rows, d, kv, True, False),
+        ("prefill qkv", prefill_t, d, qkv, True, False),
+        ("prefill gate_up", prefill_t, d, 2 * f, False, False),
+        ("prefill down", prefill_t, f, d, False, False),
+        ("und rows of the gen block, qkv", 6, d, qkv, True, False),
+        ("M=1 down", 1, f, d, False, False),
+        ("ragged M/N/K", 77, 1040, 528, True, False),
+    ]
+    results = []
+    for label, m, k, n, with_bias, timed in cases:
+        xq, xs, wq, ws, b = int8_operands(gen, m, k, n)
+        b = b if with_bias else None
+        got = m8.int8_matmul(xq, xs, wq, ws, b)
+        want = m8.int8_matmul_plain(xq, xs, wq, ws, b)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"B5 {label}: kernel differs from the plain version in "
+              f"{int((got != want).sum())} of {got.numel()} values")
+        row = dict(shape=label, M=m, K=k, N=n, bias=with_bias, bit_identical=True)
+        if label == "gen gate":  # negative control: ws reversed across columns
+            blind = m8.int8_matmul_plain(xq, xs, wq, ws.flip(0), b)
+            check(not torch.equal(blind, got), "B5: the gate accepts ws reversed")
+            log(f"[kernels] B5 {label}: control with ws reversed is rejected "
+                f"({int((blind != got).sum())} of {got.numel()} values differ)")
+            del blind
+        if timed:
+            ms = cuda_ms(lambda: m8.int8_matmul(xq, xs, wq, ws, b), 10, 2)
+            plain_ms = cuda_ms(lambda: m8.int8_matmul_plain(xq, xs, wq, ws, b), 2)
+
+            def library():  # torch._int_mm + the same epilogue (a yardstick only)
+                acc = torch._int_mm(xq, wq)
+                out = acc.float() * xs * ws
+                return (out + b.float() if b is not None else out).bfloat16()
+
+            try:
+                lib_ms = cuda_ms(library, 10, 2)
+            except RuntimeError as err:  # the library call refuses the shape
+                lib_ms = None
+                log(f"[kernels] B5 {label}: torch._int_mm refused: {err}")
+            ops = 2 * m * n * k
+            bms, by = bound_ms_at(ops, m * k + k * n + 2 * m * n + 4 * (m + n), PEAK_INT8)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                       tops=ops / ms / 1e9)
+            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            log(f"[kernels] B5 {label}: M={m} K={k} N={n}: bit-identical; kernel {ms:.4f} ms "
+                f"({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.3f} ms, torch._int_mm + "
+                f"epilogue {lib}, bound {bms:.4f} ms ({by})")
+        else:
+            log(f"[kernels] B5 {label}: M={m} K={k} N={n}: bit-identical")
+        results.append(row)
+        del xq, xs, wq, ws, b, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: B4 int4_matmul against its plain version
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp(x):
+    """One bf16 ulp of each value (of the smallest normal near 0)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def int4_error(got, want, x, w):
+    """Worst |kernel - plain| in units of its limit: one bf16 ulp of the
+    plain value plus the f32 sums' own error bound, K 2^-24 sum |x w| (the
+    two add the same exact products in different orders)."""
+    sum_err = x.shape[1] * 2.0 ** -24 * (x.float().abs() @ w.float().abs())
+    limit = bf16_ulp(want.float()) + sum_err
+    d = (got.float() - want.float()).abs()
+    return d.max().item(), (d / limit).max().item()
+
+
+def phase_int4_matmul(cfg):
+    """B4 against its plain version at the decode shapes of every linear
+    (fused and unfused leaves), M in {1, 3, 64}; a control with the nibbles
+    swapped. Times at M=1 (decode); the sum over one decode token's
+    linears."""
+    from bagel_tpu_torch.ops import int4_matmul as m4
+    from bagel_tpu_torch.utils.quant import dequantize_weight4, quantize_weight_int4
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    d, f = cfg.llm.hidden_size, cfg.llm.intermediate_size
+    qkv = (cfg.llm.num_attention_heads + 2 * cfg.llm.num_key_value_heads) * cfg.llm.head_dim
+    kv = cfg.llm.num_key_value_heads * cfg.llm.head_dim
+    fused = [("qkv", d, qkv), ("o", d, d), ("gate_up", d, 2 * f), ("down", f, d)]
+    shapes = fused + [("q", d, d), ("k / v", d, kv), ("gate / up", d, f)]
+    results, worst = [], 0.0
+    for label, k, n in shapes:
+        w = torch.randn((k, n), generator=gen, device=DEVICE) * 0.02
+        leaf = quantize_weight_int4(w)
+        del w
+        wd = dequantize_weight4(leaf, torch.bfloat16)
+        for m in (1, 3, 64):
+            x = torch.randn((m, k), generator=gen, device=DEVICE).bfloat16()
+            got = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
+            want = m4.int4_matmul_plain(x, leaf["w_p4"], leaf["scale4"])
+            torch.cuda.synchronize()
+            err, ratio = int4_error(got, want, x, wd)
+            check(ratio <= 1.0, f"B4 {label} M={m}: max abs {err:.3e} ({ratio:.2f} x the limit)")
+            worst = max(worst, err)
+            row = dict(shape=label, M=m, K=k, N=n, max_abs_err=err, limit_ratio=ratio,
+                       on_main_path=(label, k, n) in fused)
+            if m == 1 and label == "down":  # negative control: nibbles swapped
+                p = leaf["w_p4"]
+                swapped = (p >> 4) | (p << 4)
+                blind = m4.int4_matmul_plain(x, swapped, leaf["scale4"])
+                b_err, b_ratio = int4_error(got, blind, x, wd)
+                check(b_ratio > 1.0, "B4: the gate accepts swapped nibbles")
+                log(f"[kernels] B4 {label}: control with the nibbles swapped is rejected: "
+                    f"max abs {b_err:.3e} ({b_ratio:.1f} x the limit)")
+            if m == 1:
+                ms = cuda_ms(lambda: m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"]), 50, 3)
+                plain_ms = cuda_ms(lambda: m4.int4_matmul_plain(x, leaf["w_p4"], leaf["scale4"]),
+                                   5)
+                lib_ms = cuda_ms(lambda: torch.matmul(x, wd), 50, 3)
+                bytes_ = k * n // 2 + (k // 128) * n * 4 + 2 * m * (k + n)
+                bms, by = bound_ms_at(2 * m * k * n, bytes_, PEAK_FLOPS)
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                           bound_by=by, gb_per_s=bytes_ / ms / 1e6)
+                log(f"[kernels] B4 {label}: K={k} N={n} M=1: max abs err {err:.3e} "
+                    f"({ratio:.2f} x the limit); kernel {ms:.4f} ms ({bytes_ / ms / 1e6:.0f} "
+                    f"GB/s), plain {plain_ms:.3f} ms, torch.matmul on the bf16 weight "
+                    f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            else:
+                log(f"[kernels] B4 {label}: K={k} N={n} M={m}: max abs err {err:.3e} "
+                    f"({ratio:.2f} x the limit)")
+            results.append(row)
+        del leaf, wd
+        torch.cuda.empty_cache()
+    L = cfg.llm.num_hidden_layers
+    token = {key: L * sum(r[key] for r in results if r["on_main_path"] and r["M"] == 1)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"[kernels] B4 one decode token ({L} layers x 4 fused linears): kernel "
+        f"{token['ms']:.3f} ms, plain {token['plain_ms']:.2f} ms, torch.matmul on bf16 "
+        f"weights {token['library_ms']:.3f} ms, bound {token['bound_ms']:.3f} ms (bytes)")
+    return worst, results, token
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: B2 flash_cached_attention_q8 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def q8_compare(flash, args, causal):
+    """The int8 kernel and its plain version on the same codes and scales
+    (at the kernel's key tile): (prepared inputs, kernel out, plain out,
+    err, ratio, rel)."""
+    q, k, v, past, valid = args
+    prep = flash.q8_prep(q, k, v, past, valid)
+    got = flash.flash_cached_attention_q8(*prep, past, valid, causal=causal)
+    want = flash.flash_q8_plain(*prep, past, valid, causal=causal, block_k=flash.Q8_BLOCK_K)
+    torch.cuda.synchronize()
+    err, ratio, rel = kernel_error(got, want, valid.tolist())
+    return prep, got, want, err, ratio, rel
+
+
+def phase_flash_q8(cfg, prompt_len, prefill_t, vqa):
+    from bagel_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    worst = 0.0
+    edge = [
+        ("valid<T, T=100 ragged, mixed past", 2, 100, 256, 4, 2, [0, 30], [77, 100], None),
+        ("GQA 28/4, batch of mixed past", 3, 130, 512, 28, 4, [37, 0, 150], [130, 130, 97], None),
+        ("a row with valid=0", 2, 16, 128, 4, 4, [10, 0], [16, 0], None),
+        ("stale garbage beyond the live region", 2, 70, 256, 8, 4, [20, 5], [70, 40], 3.0e4),
+    ]
+    for label, b, t, s, h, kh, past, valid, garbage in edge:
+        for causal in (True, False):
+            args = attention_inputs(gen, b, t, s, h, kh, past, valid, garbage)
+            name = f"B2 edge {label}, {'causal' if causal else 'non-causal'}"
+            _, got, _, err, ratio, rel = q8_compare(flash, args, causal)
+            check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
+            check(within_tol(ratio, rel), f"{name}: max abs {err:.3e} ({ratio:.2f} x the "
+                  f"elementwise limit), rel {rel:.3e}")
+            for row, n in enumerate(valid):
+                pad = got[row, min(n, t):]
+                check(pad.numel() == 0 or pad.abs().max().item() == 0.0,
+                      f"{name}: padded rows are not exactly 0")
+            if garbage is not None:  # NaN beyond the live region changes nothing
+                q, k, v, p, n = args
+                for row, (pp, nn) in enumerate(zip(past, valid)):
+                    k[row, pp + nn:] = float("nan")
+                    v[row, pp + nn:] = float("nan")
+                again = flash.flash_cached_attention(q, k, v, p, n, causal=causal,
+                                                     int8_compute=True)
+                check(torch.equal(again, got), f"{name}: stale NaN leaked into the output")
+            worst = max(worst, err)
+            log(f"[kernels] {name}: max abs err {err:.3e} ({ratio:.2f} x the elementwise "
+                f"limit), rel err {rel:.3e}")
+
+    n = (PX // cfg.latent_downsample) ** 2 + 2
+    shapes = [
+        ("denoise B=3 (CFG)", 3, n, [prompt_len, 0, prompt_len], [n] * 3, False),
+        ("vit-block prefill", 1, vqa["vit_t"], [0], [vqa["vit_valid"]], False),
+        ("prefill", 1, prefill_t, [0], [prompt_len], True),
+    ]
+    results = []
+    for label, b, t, past, valid, causal in shapes:
+        args = attention_inputs(gen, b, t, MAX_KV, 28, 4, past, valid)
+        prep, got, want, err, ratio, rel = q8_compare(flash, args, causal)
+        check(within_tol(ratio, rel), f"B2 {label}: max abs {err:.3e} ({ratio:.2f} x the "
+              f"elementwise limit), rel {rel:.3e}")
+        worst = max(worst, err)
+        q, k, v, p, vl = args
+        q8, k8, v8, qs, ks, vs = prep
+        if label.startswith("denoise"):  # negative control: V's scale left out
+            blind = flash.flash_q8_plain(q8, k8, v8, qs, ks, torch.ones_like(vs), p, vl,
+                                         causal=causal)
+            b_err, b_ratio, b_rel = kernel_error(got, blind, valid)
+            check(not within_tol(b_ratio, b_rel), "B2: the gate accepts V's scale left out")
+            log(f"[kernels] B2 {label}: control without V's scale is rejected: max abs "
+                f"{b_err:.3e} ({b_ratio:.1f} x the elementwise limit), rel {b_rel:.3e}")
+            del blind
+        del got, want
+        ms = cuda_ms(lambda: flash.flash_cached_attention_q8(q8, k8, v8, qs, ks, vs, p, vl,
+                                                             causal=causal), 20, 3)
+        prep_ms = cuda_ms(lambda: flash.q8_prep(q, k, v, p, vl), 5)
+        plain_ms = cuda_ms(lambda: flash.flash_q8_plain(q8, k8, v8, qs, ks, vs, p, vl,
+                                                        causal=causal), 2)
+        mask = cache_mask(t, p, vl, causal)
+        lib_ms = cuda_ms(sdpa_call(q, k, v, mask), 5)
+        flops, _ = attention_work(past, valid, t, 28, 4, 128, causal)
+        bytes_ = (b * t * 28 * 128 * 3 + 2 * sum(pp + min(nn, t) for pp, nn in zip(past, valid))
+                  * 4 * 128)
+        bms, by = bound_ms_at(flops, bytes_, PEAK_INT8)
+        results.append(dict(shape=label, B=b, T=t, past=past, valid=valid, causal=causal,
+                            max_abs_err=err, limit_ratio=ratio, rel_err=rel, ms=ms,
+                            prep_ms=prep_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bms, bound_by=by, tops=flops / ms / 1e9))
+        log(f"[kernels] B2 {label}: T={t} past={past} max abs err {err:.3e} ({ratio:.2f} x "
+            f"the elementwise limit), rel err {rel:.3e}; kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TOP/s), q8 prep {prep_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"SDPA in bf16 (another function: no int8) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        del args, q, k, v, prep, q8, k8, v8, mask
+        torch.cuda.empty_cache()
+    return worst, results
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: the model
 # ---------------------------------------------------------------------------
 
@@ -560,44 +872,56 @@ def prompt_contexts(engine):
     return [ctx, cfg_text, cfg_img]
 
 
-def phase_forward(engine, gen):
-    """One gen-block forward of the full MoT through the kernel (auto) and
-    the dense path, on the same inputs; relative error of the velocity."""
+def n_latents(cfg, px):
+    return (px // cfg.latent_downsample) ** 2
+
+
+def gen_block_velocity(engine, ctxs, x1, depth, impl):
+    """The velocity of one gen block [start, end, latents x1 at t=0.8] over
+    the contexts' caches (batch = len(ctxs)), through `depth` layers."""
     from bagel_tpu_torch.models import qwen2
     from bagel_tpu_torch.models.bagel import latent_to_llm
 
     cfg, params = engine.cfg, engine.params
-    ctxs = prompt_contexts(engine)
-    side = FORWARD_PX // cfg.latent_downsample
-    n = side * side
+    n = x1.shape[0]
+    px = int(round(n ** 0.5)) * cfg.latent_downsample
     cache = stacked_cache(ctxs)
     b = len(ctxs)
-    lat_pos = torch.as_tensor(engine._pos_ids(FORWARD_PX, FORWARD_PX, cfg.latent_downsample,
+    lat_pos = torch.as_tensor(engine._pos_ids(px, px, cfg.latent_downsample,
                                               cfg.max_latent_size), device=DEVICE)
-    x1 = torch.randn((n, cfg.patch_latent_dim), generator=gen, device=DEVICE)
     lat = latent_to_llm(params, cfg, x1, torch.full((n,), 0.8, device=DEVICE), lat_pos)
     tok = qwen2.embed_tokens(params["llm"], engine._boundary_ids())
     block = torch.cat([tok, lat.to(tok.dtype)])[None].expand(b, n + 2, -1).contiguous()
     pos = torch.tensor([c.rope for c in ctxs], device=DEVICE)[:, None].expand(b, n + 2)
     valid = torch.full((b,), n + 2, dtype=torch.int32, device=DEVICE)
+    llm_cfg = dataclasses.replace(cfg.llm, num_hidden_layers=depth)
+    hidden, _ = qwen2.llm_extend(params["llm"], llm_cfg, block, pos, cache, valid, und_len=2,
+                                 causal=False, update_cache=False, attn_impl=impl)
     head = params["llm2vae"]
+    vel = hidden[:, 2:].float() @ head["w"].float() + head["b"].float()
+    del hidden
+    torch.cuda.empty_cache()
+    return vel
+
+
+def phase_forward(engine, gen):
+    """One gen-block forward of the full MoT through the kernel (auto) and
+    the dense path, on the same inputs; relative error of the velocity."""
+    cfg = engine.cfg
+    ctxs = prompt_contexts(engine)
+    n = n_latents(cfg, FORWARD_PX)
+    x1 = torch.randn((n, cfg.patch_latent_dim), generator=gen, device=DEVICE)
     # depth 1 shows the error one attention leaves; full depth what the
     # random-weight stack makes of it
     for depth, tol in ((1, FORWARD_TOL_1), (cfg.llm.num_hidden_layers, FORWARD_TOL)):
-        llm_cfg = dataclasses.replace(cfg.llm, num_hidden_layers=depth)
-        vel = {}
-        for impl in ("auto", "dense"):
-            hidden, _ = qwen2.llm_extend(params["llm"], llm_cfg, block, pos, cache, valid,
-                                         und_len=2, causal=False, update_cache=False,
-                                         attn_impl=impl)
-            vel[impl] = hidden[:, 2:].float() @ head["w"].float() + head["b"].float()
-            del hidden
-            torch.cuda.empty_cache()
+        vel = {impl: gen_block_velocity(engine, ctxs, x1, depth, impl)
+               for impl in ("auto", "dense")}
         rel = relative_error(vel["auto"], vel["dense"])
         check(bool(torch.isfinite(vel["auto"]).all()), "forward: non-finite velocity")
         check(rel <= tol, f"forward: depth {depth} velocity rel err {rel:.3e} > {tol}")
-        log(f"[forward] {FORWARD_PX} px gen block (T={n + 2}, B={b}), {depth} layer(s): "
-            f"kernel vs dense velocity rel err {rel:.3e} (tol {tol})")
+        log(f"[forward] {FORWARD_PX} px gen block (T={n + 2}, B={len(ctxs)}), {depth} "
+            f"layer(s): kernel vs dense velocity rel err {rel:.3e} (tol {tol})")
+        del vel
 
 
 def vqa_image():
@@ -622,7 +946,7 @@ def vit_block_inputs(engine, image):
     pos_p[:n] = pos
     seg = np.zeros(nb, np.int32)
     seg[:n] = 1
-    return (engine._tensor(patches_p, engine.cache_dtype), engine._tensor(pos_p, torch.long),
+    return (engine._patches(patches_p), engine._tensor(pos_p, torch.long),
             engine._tensor(seg), n)
 
 
@@ -827,6 +1151,256 @@ def phase_vqa(engine, card):
                 steps=steps, logits_rel=rel, tokens_agree=agree)
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: quantized serving
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_linears():
+    """The quantized linears through their kernels' plain versions: the
+    reference path that the kernel path is held against (with
+    attn_impl="dense" for the attention)."""
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.ops import int4_matmul as m4
+    from bagel_tpu_torch.ops import int8_matmul as m8
+
+    saved = qwen2.int8_matmul, qwen2.int4_matmul
+    qwen2.int8_matmul, qwen2.int4_matmul = m8.int8_matmul_plain, m4.int4_matmul_plain
+    try:
+        yield
+    finally:
+        qwen2.int8_matmul, qwen2.int4_matmul = saved
+
+
+@contextlib.contextmanager
+def q8_plain_tile(block_k: int):
+    """The plain int8 attention at another key tile: an equally valid int8
+    attention (the JAX kernel's tile is a tuning choice), the control that
+    shows how far the w8a8 stack carries an attention-level difference."""
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.ops import flash
+
+    saved = qwen2.flash_cached_attention_plain
+    qwen2.flash_cached_attention_plain = functools.partial(flash.flash_cached_attention_plain,
+                                                           block_k=block_k)
+    try:
+        yield
+    finally:
+        qwen2.flash_cached_attention_plain = saved
+
+
+@contextlib.contextmanager
+def flash_int8(on: bool):
+    """BAGEL_FLASH_INT8 for one phase (the wrapper reads it at each call)."""
+    old = os.environ.get("BAGEL_FLASH_INT8")
+    os.environ["BAGEL_FLASH_INT8"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["BAGEL_FLASH_INT8"]
+        else:
+            os.environ["BAGEL_FLASH_INT8"] = old
+
+
+def quantized_engine(engine, mode):
+    """The engine's weights quantized (one stacked layer at a time on the
+    card) and fused, as the JAX package's server does; the non-LLM leaves
+    are shared with the bf16 tree."""
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models.qwen2 import fuse_llm_params
+    from bagel_tpu_torch.utils.quant import quantize_bagel_params
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_bagel_params(engine.params, mode)
+    qparams["llm"] = fuse_llm_params(qparams["llm"], inplace=True)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(qparams["llm"]))
+    log(f"[{mode}] quantized and fused the LLM in {time.perf_counter() - t0:.1f} s: "
+        f"{nbytes / 1e9:.2f} GB (bf16: "
+        f"{sum(t.numel() * t.element_size() for t in leaves(engine.params['llm'])) / 1e9:.2f} GB)")
+    return BagelEngine(qparams, engine.cfg, engine.tokenizer, engine.new_token_ids,
+                       max_kv=MAX_KV, device=DEVICE), nbytes
+
+
+def counts_reset():
+    from bagel_tpu_torch.ops import flash, int4_matmul, int8_matmul, sparse_flash
+
+    fns = dict(b1=flash.flash_cached_attention, b2=flash.flash_cached_attention_q8,
+               b3=sparse_flash.sparse_packed_attention, b4=int4_matmul.int4_matmul,
+               b5=int8_matmul.int8_matmul)
+    for fn in fns.values():
+        fn.launches = 0
+    return lambda: {k: fn.launches for k, fn in fns.items()}
+
+
+def linear_glue(qeng, rows):
+    """One layer's four fused gen-expert w8a8 linears at `rows` tokens: the
+    whole `_linear` (per-token activation quantization + B5) and B5 alone on
+    the same codes, in device time."""
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.ops import int8_matmul as m8
+
+    layers = qeng.params["llm"]["layers"]
+    leaves_ = [layers["attn_gen"]["qkv"], layers["attn_gen"]["o"], layers["mlp_gen"]["gate_up"],
+               layers["mlp_gen"]["down"]]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    linear_ms = b5_ms = 0.0
+    for stacked in leaves_:
+        leaf = {k: v[0] for k, v in stacked.items()}
+        x = torch.randn((rows, leaf["w_q8"].shape[0]), generator=gen, device=DEVICE).bfloat16()
+        linear_ms += cuda_ms(lambda: qwen2._linear(x, leaf), 5, 1)
+        xq, xs = m8.quantize_rows(x)
+        b5_ms += cuda_ms(lambda: m8.int8_matmul(xq, xs, leaf["w_q8"], leaf["scale"],
+                                                leaf.get("b")), 5, 1)
+        del x, xs, xq
+    return dict(linear_ms=linear_ms, b5_ms=b5_ms)
+
+
+def phase_t2i_w8a8(engine, gen):
+    """w8a8 text-to-image through __call__ with BAGEL_FLASH_INT8 on: B5 for
+    every linear, B2 for every attention; one gen-block velocity through
+    the kernels vs the plain versions, and vs the bf16 engine."""
+    from bagel_tpu_torch.inference import engine as tengine
+    from bagel_tpu_torch.ops.flash import Q8_BLOCK_K as tile
+
+    cfg = engine.cfg
+    L = cfg.llm.num_hidden_layers
+    qeng, nbytes = quantized_engine(engine, "w8a8")
+    with flash_int8(True):
+        torch.cuda.reset_peak_memory_stats()
+        read = counts_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = qeng(text=PROMPT, understanding_output=False, image_shapes=(PX, PX),
+                   rng=torch.Generator(device=DEVICE).manual_seed(SEED), **CFG)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = read()
+        peak = torch.cuda.max_memory_allocated()
+        img = out["image"]
+        forwards = NUM_TIMESTEPS - 1
+        # fused leaves: qkv, o, gate_up, down per expert; a prefill runs the
+        # und expert, a gen block both (the 2 boundary tokens take the und one)
+        want = dict(b1=0, b2=L * (2 + forwards), b3=0, b4=0, b5=L * (4 * 2 + 8 * forwards))
+        log(f"[t2i w8a8] __call__ {PX} px, {NUM_TIMESTEPS} timesteps, BAGEL_FLASH_INT8=1: "
+            f"{total_s:.2f} s, peak memory {peak / 2**30:.2f} GiB; launches {counts} "
+            f"(expected B5 {L} x (4 x 2 prefills + 8 x {forwards} forwards) = {want['b5']}, "
+            f"B2 {L} x (2 + {forwards}) = {want['b2']}, no B1)")
+        check(counts == want, f"w8a8 launch counts {counts} != {want}")
+        check(isinstance(img, np.ndarray) and img.shape == (PX, PX, 3) and img.std() > 0,
+              "w8a8 image is not a non-constant 1024 px image")
+
+        # one gen-block velocity, kernel path vs plain path (both w8a8)
+        ctxs = prompt_contexts(qeng)
+        x1 = torch.randn((n_latents(cfg, FORWARD_PX), cfg.patch_latent_dim), generator=gen,
+                         device=DEVICE)
+        # Per-token activation quantization turns a small difference into
+        # whole code steps wherever a value sits near a half, so the w8a8
+        # stack carries an attention's rounding much further than the bf16
+        # one does (PR 3's first run: 8.1e-4 at one layer, 1.0e-1 at 28).
+        # One layer keeps the bf16 gate; at full depth the kernels must stay
+        # as close to the plain path as the plain path at another key tile
+        # is to itself (or within the bf16 gate, if that is wider).
+        rels, controls = {}, {}
+        for depth in (1, L):
+            kern = gen_block_velocity(qeng, ctxs, x1, depth, "auto")
+            with plain_linears():
+                plain = gen_block_velocity(qeng, ctxs, x1, depth, "dense")
+                with q8_plain_tile(2 * tile):
+                    other = gen_block_velocity(qeng, ctxs, x1, depth, "dense")
+            rel, ctrl = relative_error(kern, plain), relative_error(other, plain)
+            tol = FORWARD_TOL_1 if depth == 1 else max(FORWARD_TOL, ctrl)
+            check(bool(torch.isfinite(kern).all()), "w8a8 forward: non-finite velocity")
+            check(rel <= tol, f"w8a8 forward: depth {depth} kernel vs plain rel {rel:.3e} > {tol}")
+            rels[depth], controls[depth] = rel, ctrl
+            log(f"[t2i w8a8] {FORWARD_PX} px gen block (B=3), {depth} layer(s): kernels vs "
+                f"plain versions, velocity rel err {rel:.3e} (tol {tol:.3e}); control, the "
+                f"plain path at key tile {2 * tile} vs {tile}: {ctrl:.3e}")
+            del plain, other
+        quant = kern
+        fwd = dict()
+        rope = torch.tensor([c.rope for c in ctxs], device=DEVICE)
+        side = PX // cfg.latent_downsample
+        lat_pos = torch.as_tensor(qeng._pos_ids(PX, PX, cfg.latent_downsample,
+                                                cfg.max_latent_size), device=DEVICE)
+        noise = torch.randn((1, side * side, cfg.patch_latent_dim), generator=gen, device=DEVICE)
+        flow_v = tengine._make_flow_v(qeng.params, cfg, side * side, 1, 3, engine._boundary_ids(),
+                                      rope, stacked_cache(ctxs), lat_pos)
+        fwd["w8a8"] = cuda_ms(lambda: flow_v(noise, 0.5), 2)
+        glue = linear_glue(qeng, side * side * 3)
+    del ctxs
+    # quantization error: the same forward through the bf16 engine (B1, bf16)
+    bctxs = prompt_contexts(engine)
+    bf16 = gen_block_velocity(engine, bctxs, x1, L, "auto")
+    q_rel = relative_error(quant, bf16)
+    log(f"[t2i w8a8] quantization error, w8a8 (B5 + B2) vs bf16 (B1) engine, {FORWARD_PX} px "
+        f"gen block at {L} layers: velocity rel err {q_rel:.3e} (reported, not gated); "
+        f"denoise forward at {PX} px, B=3: {fwd['w8a8']:.1f} ms; its w8a8 linears, one "
+        f"layer: {glue['linear_ms']:.2f} ms, of which B5 {glue['b5_ms']:.2f} ms (the rest is "
+        f"the per-token activation quantization in plain PyTorch)")
+    del qeng, bctxs, bf16, quant
+    torch.cuda.empty_cache()
+    return dict(launches=counts, total_s=total_s, peak_gib=peak / 2**30, llm_gb=nbytes / 1e9,
+                kernel_vs_plain_rel=rels, other_tile_rel=controls, quant_rel=q_rel,
+                forward_ms=fwd["w8a8"], linears_one_layer=glue)
+
+
+def phase_vqa_int4(engine, card):
+    """int4 VQA through __call__: B4 for every decode-step linear, B1 and B3
+    as on the bf16 path; the first decode step's logits through the kernels
+    vs the plain versions; ms per decode token."""
+    cfg = engine.cfg
+    L, LV = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
+    qeng, nbytes = quantized_engine(engine, "int4")
+    image = vqa_image()
+    with flash_int8(False):
+        torch.cuda.reset_peak_memory_stats()
+        read = counts_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = qeng(image=image, text=QUESTION, understanding_output=True,
+                   max_think_token_n=MAX_THINK)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = read()
+        peak = torch.cuda.max_memory_allocated()
+        answer = out["text"]
+        n_tok = len(answer.split())
+        steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK
+        want = dict(b1=L * (2 + steps), b2=0, b3=LV, b4=L * 4 * steps, b5=0)
+        log(f"[vqa int4] __call__ {VQA_PX} px + question, {MAX_THINK} tokens at most: "
+            f"{total_s:.2f} s, answer of {n_tok} tokens, peak memory {peak / 2**30:.2f} GiB; "
+            f"launches {counts} (expected B4 {L} x 4 fused linears x {steps} decode steps = "
+            f"{want['b4']}, B1 {L} x (2 + {steps}) = {want['b1']}, B3 {LV})")
+        check(out["image"] is None and n_tok > 0, f"int4: empty answer {answer!r}")
+        check(counts == want, f"int4 launch counts {counts} != {want}")
+
+        ctx = vqa_context(qeng, image)
+        kern = first_logits(qeng, ctx, "auto")
+        with plain_linears():
+            plain = first_logits(qeng, ctx, "dense")
+        rel = relative_error(kern, plain)
+        check(bool(torch.isfinite(kern).all()), "int4: non-finite logits")
+        check(rel <= LOGITS_TOL, f"int4 first decode step logits rel err {rel:.3e} > {LOGITS_TOL}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = qeng.gen_text(ctx, max_length=MAX_THINK)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+        check(again == answer, "int4: gen_text on the same context gave another answer")
+        log(f"[vqa int4] on {card}: first decode step logits, kernels vs plain versions "
+            f"(B4 plain, dense attention): rel err {rel:.3e} (tol {LOGITS_TOL}); decode "
+            f"{decode_ms:.2f} ms per token (host clock, {steps} steps); total __call__ "
+            f"{total_s:.2f} s")
+    del qeng, ctx
+    torch.cuda.empty_cache()
+    return dict(launches=counts, total_s=total_s, peak_gib=peak / 2**30, llm_gb=nbytes / 1e9,
+                logits_rel=rel, decode_ms=decode_ms, steps=steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -852,6 +1426,9 @@ def main() -> int:
     worst, shapes = phase_kernels(cfg, prompt_len, _bucket(prompt_len), vqa_shapes)
     worst3, main3 = phase_sparse_kernels(vqa_shapes["vit_t"] - 2, n_patches,
                                          cfg.vit.num_attention_heads, cfg.vit.head_dim)
+    b5_rows = phase_int8_matmul(cfg, _bucket(prompt_len))
+    worst4, b4_rows, b4_token = phase_int4_matmul(cfg)
+    worst2, b2_rows = phase_flash_q8(cfg, prompt_len, _bucket(prompt_len), vqa_shapes)
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -864,21 +1441,33 @@ def main() -> int:
         f"{n_params / 1e9:.2f} B LLM params, SigLIP {cfg.vit.num_hidden_layers} layers, "
         f"{n_vit / 1e9:.3f} B params, bf16, built in {time.perf_counter() - t0:.1f} s")
     engine = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE)
-    phase_forward(engine, gen)
-    phase_vit_forward(engine)
-    t2i_launches = phase_t2i(engine, gen)
-    vqa = phase_vqa(engine, card)
+    with flash_int8(False):
+        phase_forward(engine, gen)
+        phase_vit_forward(engine)
+        t2i_launches = phase_t2i(engine, gen)
+        vqa = phase_vqa(engine, card)
+    w8a8 = phase_t2i_w8a8(engine, gen)
+    int4 = phase_vqa_int4(engine, card)
 
     main_shape = shapes[0]
     library = "torch.nn.functional.scaled_dot_product_attention (bool mask, enable_gqa)"
+    gate = next(r for r in b5_rows if r["shape"] == "gen gate")
+    b4_down = next(r for r in b4_rows if r["shape"] == "down" and r["M"] == 1)
+    b2_main = b2_rows[0]
+
+    def by_path(key):
+        return dict(t2i=t2i_launches if key == "b1" else 0,
+                    vqa=dict(b1=vqa["b1"], b3=vqa["b3"]).get(key, 0),
+                    t2i_w8a8=w8a8["launches"][key], vqa_int4=int4["launches"][key])
+
     kernels = [
         dict(
             name="flash_cached_attention",
             route="cuda",
             source="bagel_tpu_torch/csrc/flash_cached_attention.cu",
             replaces="bagel_tpu/ops/flash.py:108",
-            launches=t2i_launches + vqa["b1"],
-            launches_by_path=dict(t2i=t2i_launches, vqa=vqa["b1"]),
+            launches=sum(by_path("b1").values()),
+            launches_by_path=by_path("b1"),
             max_abs_err=worst,
             tol=KERNEL_TOL,
             ms=main_shape["ms"],
@@ -895,8 +1484,8 @@ def main() -> int:
             route="cuda",
             source="bagel_tpu_torch/csrc/sparse_packed_attention.cu",
             replaces="bagel_tpu/ops/sparse_flash.py:97",
-            launches=vqa["b3"],
-            launches_by_path=dict(t2i=0, vqa=vqa["b3"]),
+            launches=sum(by_path("b3").values()),
+            launches_by_path=by_path("b3"),
             max_abs_err=worst3,
             tol=KERNEL_TOL + ", over the rows that see a key",
             ms=main3["ms"],
@@ -908,8 +1497,63 @@ def main() -> int:
             shape=main3["shape"],
             tflops=main3["tflops"],
         ),
+        dict(
+            name="flash_cached_attention_q8",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/flash_cached_attention_q8.cu",
+            replaces="bagel_tpu/ops/flash.py:178",
+            launches=sum(by_path("b2").values()),
+            launches_by_path=by_path("b2"),
+            max_abs_err=worst2,
+            tol=KERNEL_TOL + ", against the plain version at the kernel's key tile (64)",
+            ms=b2_main["ms"],
+            plain_ms=b2_main["plain_ms"],
+            bound_ms=b2_main["bound_ms"],
+            bound_by=b2_main["bound_by"],
+            library_ms=b2_main["library_ms"],
+            library=library + " in bf16: another function (no int8 products)",
+            shape=b2_main["shape"],
+            shapes=b2_rows,
+        ),
+        dict(
+            name="int4_matmul",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/int4_matmul.cu",
+            replaces="bagel_tpu/ops/int4_matmul.py:58",
+            launches=sum(by_path("b4").values()),
+            launches_by_path=by_path("b4"),
+            max_abs_err=worst4,
+            tol="|err| <= one bf16 ulp of plain + K 2^-24 sum|x w| (the f32 sums' order)",
+            ms=b4_down["ms"],
+            plain_ms=b4_down["plain_ms"],
+            bound_ms=b4_down["bound_ms"],
+            bound_by=b4_down["bound_by"],
+            library_ms=b4_down["library_ms"],
+            library="torch.matmul on the weight dequantized to bf16 beforehand",
+            shape="down K=18944 N=3584 M=1 (decode)",
+            per_decode_token=b4_token,
+            shapes=b4_rows,
+        ),
+        dict(
+            name="int8_matmul",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/int8_matmul.cu",
+            replaces="bagel_tpu/ops/int8_matmul.py:49",
+            launches=sum(by_path("b5").values()),
+            launches_by_path=by_path("b5"),
+            max_abs_err=0.0,
+            tol="bit-identical to the plain version",
+            ms=gate["ms"],
+            plain_ms=gate["plain_ms"],
+            bound_ms=gate["bound_ms"],
+            bound_by=gate["bound_by"],
+            library_ms=gate["library_ms"],
+            library="torch._int_mm + the same f32 epilogue",
+            shape=f"gate M={gate['M']} K={gate['K']} N={gate['N']}",
+            shapes=b5_rows,
+        ),
     ]
-    log(json.dumps({"vqa": vqa}))
+    log(json.dumps({"vqa": vqa, "t2i_w8a8": w8a8, "vqa_int4": int4}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

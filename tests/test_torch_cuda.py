@@ -86,3 +86,78 @@ def test_sparse_kernel_matches_plain_on_card(h, kh, d, train):
     k[~rows] = float("nan")  # stale NaN in keys no query can see
     v[~rows] = float("nan")
     assert torch.equal(sparse_flash.sparse_packed_attention(q, k, v, doc, fan, noise), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bias", [(300, 1040, 528, True), (1, 3584, 512, False),
+                                        (130, 18944, 3584, False)])
+def test_int8_matmul_bit_identical_on_card(m, k, n, bias):
+    """B5 equals its plain version bit for bit (exact int32 sums, the same
+    f32 epilogue), at ragged M/N/K and the down projection's K."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.ops import int8_matmul as m8
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    xs = (torch.rand((m, 1), generator=gen, device="cuda") + 0.5) / 127
+    ws = (torch.rand((n,), generator=gen, device="cuda") + 0.5) / 127
+    b = torch.randn((n,), generator=gen, device="cuda").bfloat16() if bias else None
+    before = m8.int8_matmul.launches
+    got = m8.int8_matmul(xq, xs, wq, ws, b)
+    torch.cuda.synchronize()
+    assert m8.int8_matmul.launches == before + 1
+    assert torch.equal(got, m8.int8_matmul_plain(xq, xs, wq, ws, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 3584, 512), (3, 18944, 3584), (64, 3584, 4608)])
+def test_int4_matmul_matches_plain_on_card(m, k, n):
+    """B4 within one bf16 ulp of its plain version, plus the f32 sums' own
+    error bound (K 2^-24 sum |x w|: the two add the same products in
+    another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.ops import int4_matmul as m4
+    from bagel_tpu_torch.utils.quant import dequantize_weight4, quantize_weight_int4
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    leaf = quantize_weight_int4(torch.randn((k, n), generator=gen, device="cuda") * 0.02)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    before = m4.int4_matmul.launches
+    got = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"]).float()
+    torch.cuda.synchronize()
+    assert m4.int4_matmul.launches == before + 1
+    want = m4.int4_matmul_plain(x, leaf["w_p4"], leaf["scale4"]).float()
+    w = dequantize_weight4(leaf, torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+    assert ((got - want).abs() <= ulp + k * 2.0 ** -24 * (x.float().abs() @ w.abs())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_q8_matches_plain_on_card(causal):
+    """B2 against its plain version at the kernel's key tile, under B1's
+    gate; rows past valid exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, t, s, h, kh, d = 3, 130, 512, 28, 4, 128
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, s, kh, d), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, s, kh, d), generator=gen, device="cuda").bfloat16()
+    past = torch.tensor([70, 0, 300], dtype=torch.int32, device="cuda")
+    valid = torch.tensor([130, 97, 130], dtype=torch.int32, device="cuda")
+    prep = flash.q8_prep(q, k, v, past, valid)
+    before = flash.flash_cached_attention_q8.launches
+    got = flash.flash_cached_attention_q8(*prep, past, valid, causal=causal)
+    torch.cuda.synchronize()
+    assert flash.flash_cached_attention_q8.launches == before + 1
+    want = flash.flash_q8_plain(*prep, past, valid, causal=causal)
+    for row, n in enumerate(valid.tolist()):
+        g, w = got[row, :n].float(), want[row, :n].float()
+        err = (g - w).abs()
+        assert (err <= 2.0 ** -6 * w.abs() + 0.1 * w.pow(2).mean().sqrt()).all()
+        assert err.norm() <= 1e-2 * w.norm()
+    assert got[1, 97:].abs().max().item() == 0.0

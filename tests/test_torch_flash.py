@@ -91,10 +91,15 @@ def test_kv_bucket_matches_jax():
 
 
 def test_int8_compute_is_a_later_slice():
-    q, k, v = (torch.zeros(1, 4, 2, 32), torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32))
+    """int8_compute is ported (tests/test_torch_flash_int8.py): on CPU
+    tensors it runs the int8 kernel's plain version and launches nothing."""
+    q, k, v = _inputs(6, 1, 4, 8, 2, 2, 32)
     one = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tflash.flash_cached_attention(q, k, v, one, one, causal=True, int8_compute=True)
+    args = (torch.tensor(q), torch.tensor(k), torch.tensor(v), one, one)
+    got = tflash.flash_cached_attention(*args, causal=True, int8_compute=True)
+    want = tflash.flash_cached_attention_plain(*args, causal=True, int8_compute=True)
+    assert torch.equal(got, want) and got.abs().max() > 0
+    assert tflash.flash_cached_attention_q8.launches == 0
 
 
 def _no_nvcc_env(tmp_path):

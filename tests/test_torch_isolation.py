@@ -27,6 +27,9 @@ def test_import_pulls_in_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'bagel_tpu' or m.startswith('bagel_tpu.')]\n"
         "assert not bad, bad\n"
+        "new = {'bagel_tpu_torch.utils.quant', 'bagel_tpu_torch.ops.int8_matmul',\n"
+        "       'bagel_tpu_torch.ops.int4_matmul', 'bagel_tpu_torch.ops.flash'}\n"
+        "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "print('modules ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -39,6 +42,7 @@ def test_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|bagel_tpu)(\.|\s|$)", re.M)
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    assert PACKAGE / "utils" / "quant.py" in files and PACKAGE / "ops" / "int4_matmul.py" in files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
 

@@ -118,8 +118,10 @@ def test_cache_overflow_raises():
 
 
 def test_later_slice_features_raise():
+    """The int8 KV cache comes with the decode and serving slice; quantized
+    weight leaves are ported (tests/test_torch_quant.py)."""
     cfg = tiny_qwen2()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="serving slice"):
         tq.kv_cache_init(cfg, 1, 8, torch.int8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tq._linear(torch.zeros(2, 4), {"w_q": torch.zeros(4, 4), "scale": torch.ones(4)})
+    leaf = {"w_q": torch.full((4, 3), 2, dtype=torch.int8), "scale": torch.ones(3)}
+    assert torch.equal(tq._linear(torch.ones(2, 4), leaf), torch.full((2, 3), 8.0))
