@@ -13,60 +13,77 @@
 //   are written as exact 0.
 //
 // Layout: q/out [S, H, D], k/v [S, KH, D], bf16, addressed through their
-// sequence/head strides (the SigLIP tower hands in views of [S, H*D] with
-// strides (H*D, D, 1)); S is ragged: the kernel masks its own edge, so no
-// padded copies are made around the call. doc/fan/noise are int32 [S].
-// D is a template parameter; D = 72 (SigLIP so400m, 1152 / 16 heads) and
-// D = 128 (the LLM's packed training shape, GQA 28/4) are instantiated.
+// sequence/head strides (the SigLIP tower hands in views of a fused [S, *]
+// projection); S is ragged: the tensor maps' bounds mask the edge, so no
+// padded copies are made around the call. doc/fan/noise are int32 [S]. D =
+// 72 (SigLIP so400m, 1152 / 16 heads) and D = 128 (the LLM's packed training
+// shape, GQA 28/4) are instantiated; both run the design below.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): the work
 // is 4*D*H*(visible pairs) FLOPs against one read of q/k/v and one write of
 // out. On the understanding path (one 980 px image: 4900 patches in a
 // 4926-token block, H=16, D=72) that is 1.11e11 FLOP against 45 MB, ~2400
-// FLOP/byte: it is bound by operations, at 0.112 ms.
+// FLOP/byte: it is bound by operations, at 0.112 ms. Next to the products,
+// the softmax's exp2 (16 a clock per SM) costs about as much as QK^T at
+// D = 72, so the products alone do not set the pace.
 //
-// Design (a simple one that is right first):
-// - One thread block of 4 warps per (64-row query tile, head); each warp owns
-//   16 query rows for the whole loop. The block walks only its q tile's live
-//   64-key tiles, read from a table [n_q_tiles, n_kv_tiles] that the wrapper
-//   builds with block_liveness at this tile size (dead tiles cost neither
-//   loads nor math). The next tile's entry is read one iteration ahead.
-// - Each entry also carries a flag (bit 30) that the wrapper sets when every
-//   (query, key) pair of the tile is visible (one document without padding,
-//   and wholly below the diagonal or one full/noise split, and no foreign
-//   noise key). Such a tile skips the per-element mask: on the SigLIP path
-//   that is every tile but those holding the padded tail.
-// - K/V tiles and the key tile's three id vectors stream through a ring of
-//   shared-memory buffers with cp.async (16-byte rows, 4-byte ids), one
-//   commit group per tile: three tiles in flight at D = 72 (79 KB, two
-//   blocks per SM), two at D = 128 (87 KB). Rows past S load as zeros, and
-//   their doc id 0 masks them.
-// - The per-element mask is rebuilt from the ids inside every other live
-//   tile.
-// - QK^T and PV run on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//   fp32 accumulate), fragments by ldmatrix (.trans for V).
-// - D = 72: the QK^T depth is zero-padded to 80 in shared memory (columns
-//   72..79 of the Q and K tiles are cleared once; cp.async never writes
-//   them), so QK^T is five k16 steps. PV keeps exactly 9 n8 output tiles:
-//   four ldmatrix.x4.trans pairs and one ldmatrix.x2.trans.
-// - Bank conflicts: a 72-element row is 144 B; the tiles use a padded pitch
-//   of 88 elements (176 B = 11 16-byte units; 136 elements = 17 units for
-//   D = 128). An odd unit count puts the 8 rows of each ldmatrix phase in 8
-//   distinct 16-byte bank groups, so ldmatrix reads are conflict-free.
+// Design (Hopper's: TMA, mbarriers, warp specialization, wgmma):
+// - A block takes a 128-row query tile of one head: two consumer
+//   warpgroups of 64 rows each and one producer warp (in a third
+//   warpgroup). The block walks only its q tile's live 128-key tiles, read
+//   from a table [n_q_tiles, n_kv_tiles] that the wrapper builds with
+//   block_liveness at 128 x 128; each K/V tile feeds 128 query rows.
+// - The producer warp loads Q once, then each live tile's K and V into a
+//   ring of shared-memory stages with TMA (cp.async.bulk.tensor, one tensor
+//   map per operand and column region, built on the host per call and
+//   passed as a __grid_constant__ parameter), completed on a "full"
+//   mbarrier per stage; the consumers release a stage on its "empty"
+//   mbarrier. Its 32 lanes also copy the key tile's doc/fan/noise ids into
+//   the stage (ids past S as padding) and arrive on the full barrier.
+// - Shared-memory layouts, legal for wgmma's descriptors:
+//   * columns 0..63 (D = 72) or 0..127 (D = 128) in 64-column regions of
+//     128-byte rows with the 128-byte swizzle (TMA box 64 x rows, the
+//     swizzle TMA writes is the one the descriptor reads); Q and K are
+//     read K-major, V MN-major (transposed by the descriptor);
+//   * D = 72's columns 64..71 in a plain region of 16-byte rows (TMA box
+//     8 x rows, no swizzle: wgmma's "interleave" layout of 8 x 8 core
+//     matrices); for Q and K a second such region of zeros stands for
+//     columns 72..79, written once at the start and never by TMA, so QK^T
+//     runs over a depth of 80 (five k16 steps). The tensor maps' column
+//     bound is D: no box reads the next head's columns.
+// - QK^T: wgmma m64n128k16, A = Q and B = K from shared memory. PV: wgmma
+//   with A = P from registers (the S accumulators re-packed as bf16: their
+//   layout is the A fragment's) and B = V from shared memory, N = 64 (D =
+//   72, plus an N = 8 product over the plain region) or N = 128.
+// - Each table entry carries a flag (bit 30) that the wrapper sets when
+//   every (query, key) pair of the tile is visible. Such a tile skips the
+//   per-element mask; on the SigLIP path that is every tile but those
+//   holding the padded tail.
 // - No NaN: masked scores become -inf, a row with no visible key yet uses 0
 //   as its exponent base (exp2(-inf) = 0, never inf - inf), and rows that end
-//   with no visible key write 0. K/V rows of padding keys (doc 0) are zeroed
-//   in shared memory before use, so stale NaN there never meets a zero
-//   probability in PV (0 * NaN); no query can see such a key.
+//   with no visible key write 0. Keys past S arrive as zeros (TMA's
+//   out-of-bounds fill); in a tile without the flag each consumer
+//   warpgroup zeroes the V rows of padding keys (doc 0) before PV, so
+//   stale NaN there never meets a zero probability (0 * NaN). No query
+//   can see such a key, and its masked score never reaches P.
 // - The online softmax state (running max, sum, output accumulator) stays
-//   in fp32 registers; P is rounded to bf16 for the PV product while the row
-//   sum uses fp32 P, as _sparse_kernel does.
+//   in f32 registers; P is rounded to bf16 for the PV product while the row
+//   sum uses f32 P, as _sparse_kernel does.
 //
-// What it leaves on the table: mma.sync cannot reach Hopper's full
-// tensor-core rate (wgmma + TMA with a warp-specialized pipeline is the way
-// to the rest); at D = 72 the exp and softmax work per tile is large next to
-// the products, and each K/V tile feeds only 64 query rows.
+// - Per tile a consumer warpgroup runs QK^T, the softmax and PV in turn;
+//   the two warpgroups overlap each other. A 128-key tile keeps the
+//   per-tile work (barrier waits, row max and sum, the rescale of O) to
+//   half of what 64-key tiles cost, and gives each warp 64 scores to work
+//   on at once. Scores, P and O live in registers: the producer's
+//   warpgroup gives up registers (setmaxnreg) so the consumers have 232.
+//
+// What it leaves on the table: QK^T of the next tile is not issued under
+// this tile's softmax (tried with 64-key tiles: slower than without), no
+// ping-pong ordering of the two warpgroups,
+// and no persistent grid (the 624 blocks of the SigLIP shape run in 4.7
+// waves of 132).
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,79 +91,177 @@
 
 namespace {
 
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per tile
-constexpr int kWarps = kBQ / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kFullTile = 1 << 30;  // table entry flag: every pair visible
+constexpr int kConsumers = 2;              // consumer warpgroups, 64 query rows each
+constexpr int kBQ = 64 * kConsumers;       // query rows per block
+constexpr int kBK = 128;                   // keys per tile
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's warpgroup
+constexpr int kFullTile = 1 << 30;         // table entry flag: every pair visible
+constexpr int kRegionCols = 64;            // bf16 columns of a 128-byte swizzled row
+
+constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 template <int D>
 struct Shape {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  static constexpr int kDP = (D + 15) / 16 * 16;  // QK^T depth, zero-padded
-  static constexpr int kLds = kDP + 8;            // smem row pitch (elements), odd in 16 B units
-  static constexpr int kChunks = D / 8;           // 16-byte chunks of a real row
-  static constexpr int kDPChunks = kDP / 8;
-  static constexpr int kNT = D / 8;               // n8 output tiles of PV
-  static constexpr int kKVPerThread = (kBK * kChunks + kThreads - 1) / kThreads;
-  // K/V tiles in flight: three at D = 72 (79 KB of shared memory, two
-  // blocks per SM); two at D = 128, where a third would leave one block
-  static constexpr int kStages = D <= 80 ? 3 : 2;
-  static constexpr int kSmemBytes =
-      (kBQ + 2 * kStages * kBK) * kLds * 2 + kStages * 3 * kBK * 4;
+  static_assert(D == 72 || D == 128, "instantiated head dims");
+  static constexpr int kRegions = D / kRegionCols;       // swizzled column regions
+  static constexpr bool kTail = D % kRegionCols != 0;    // D = 72: columns 64..71
+  static constexpr int kQkSteps = (D + 15) / 16;         // k16 steps of QK^T (depth 80 or 128)
+  static constexpr int kStages = kTail ? 3 : 2;
+  // bytes of the shared-memory regions
+  static constexpr int kQRegion = kBQ * 128;
+  static constexpr int kQTail = kBQ * 16;                // one 8-column chunk of Q
+  static constexpr int kKvRegion = kBK * 128;
+  static constexpr int kKvTail = kBK * 16;
+  // a stage: K regions, V regions, [K tail, K zeros, V tail], ids
+  static constexpr int kKTailOff = 2 * kRegions * kKvRegion;
+  static constexpr int kVTailOff = kKTailOff + (kTail ? 2 * kKvTail : 0);
+  static constexpr int kIdsOff = kVTailOff + (kTail ? kKvTail : 0);
+  static constexpr int kStageBytes = round_up(kIdsOff + 3 * kBK * 4, 1024);
+  static constexpr int kQBytes = round_up(kRegions * kQRegion + (kTail ? 2 * kQTail : 0), 1024);
+  static constexpr int kSmemBytes = 1024 + kQBytes + kStages * kStageBytes + 128;
+  // bytes TMA delivers: a stage's K and V, and Q
+  static constexpr uint32_t kStageTx = 2 * kRegions * kKvRegion + (kTail ? 2 * kKvTail : 0);
+  static constexpr uint32_t kQTx = kRegions * kQRegion + (kTail ? kQTail : 0);
+  static constexpr int kOMain = 32 * kRegions;           // f32 accumulators of PV's main product
+};
+
+struct Maps {  // one TMA tensor map per operand and column region
+  CUtensorMap q, q_tail, k, k_tail, v, v_tail;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; pred false fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+// --- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
-// 4-byte async copy; pred false writes 0.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
-               "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// wait until the phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// --- TMA -------------------------------------------------------------------
+
+// box at (column c, head h, row r) of a [rows, heads, D] tensor map into dst
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint32_t bar, int c,
+                                         int h, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(h), "r"(r)
+      : "memory");
+}
+
+// --- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), layout (0 interleave, 1 128-byte swizzle).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+constexpr uint32_t kInterleave = 0, kSwizzle128 = 1;
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of an accumulator above the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 128, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
+
+// d (64 x 8, f32) += A (64 x 16, bf16 registers) * B (16 x 8, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// --- the kernel ------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the SFU (ex2.approx.ftz: 2^-inf = 0; ~2 ulp, below the bf16 rounding of P)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -158,14 +273,16 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-struct Strides {  // in elements: sequence, head
-  long long t, h;
-};
-
 // The ids of one query row, and whether key (position j, ids dk/fk/nk) is
 // visible to it.
 struct RowIds {
   int pos, doc, fan, noise;
+  __device__ __forceinline__ void load(int p, int S, const int* d, const int* f, const int* n) {
+    pos = p;
+    doc = p < S ? d[p] : 0;
+    fan = p < S ? f[p] : -1;
+    noise = p < S ? n[p] : -1;
+  }
   __device__ __forceinline__ bool sees(int j, int dk, int fk, int nk) const {
     return doc != 0 && doc == dk && (pos >= j || (fan >= 0 && fan == fk)) &&
            !(nk >= 0 && noise != nk);
@@ -173,191 +290,188 @@ struct RowIds {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-sparse_packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               __nv_bfloat16* __restrict__ o,
-                               const int* __restrict__ doc,
-                               const int* __restrict__ fan,
-                               const int* __restrict__ noise,
-                               const int* __restrict__ live_idx,
-                               const int* __restrict__ live_cnt,
-                               int S, int group, int nk_tab,
-                               Strides qs, Strides ks, Strides vs, Strides os,
+__global__ void __launch_bounds__(kThreads, 1)
+sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ o,
+                               long long o_st, long long o_sh,
+                               const int* __restrict__ doc, const int* __restrict__ fan,
+                               const int* __restrict__ noise, const int* __restrict__ live_idx,
+                               const int* __restrict__ live_cnt, int S, int group, int nk_tab,
                                float scale_log2) {
   using Sh = Shape<D>;
-  constexpr int kLds = Sh::kLds;
-  constexpr int kStages = Sh::kStages;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + kBQ * kLds;  // kStages buffers of kBK rows
-  __nv_bfloat16* sV = sK + kStages * kBK * kLds;
-  int* sIds = reinterpret_cast<int*>(sV + kStages * kBK * kLds);  // [kStages][doc, fan, noise][kBK]
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 B
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sq = smem;
+  unsigned char* stages = smem + Sh::kQBytes;
+  const uint32_t bars = smem_addr(stages + Sh::kStages * Sh::kStageBytes);
+  auto full_bar = [&](int s) { return bars + 8 * s; };
+  auto empty_bar = [&](int s) { return bars + 8 * (Sh::kStages + s); };
+  const uint32_t q_bar = bars + 16 * Sh::kStages;
 
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int q0 = qt * kBQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  const __nv_bfloat16* qb = q + h * qs.h;
-  const __nv_bfloat16* kb = k + (h / group) * ks.h;
-  const __nv_bfloat16* vb = v + (h / group) * vs.h;
-  __nv_bfloat16* ob = o + h * os.h;
-
+  const int qt = blockIdx.x, h = blockIdx.y, q0 = qt * kBQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n_tiles = live_cnt[qt];
   const int* tab = live_idx + static_cast<long long>(qt) * nk_tab;
+  __nv_bfloat16* ob = o + h * o_sh;
 
   if (n_tiles == 0) {  // no live key tile: every row of the tile is 0
     const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int c = tid; c < kBQ * Sh::kChunks; c += kThreads) {
-      const int t = q0 + c / Sh::kChunks;
-      if (t < S) *reinterpret_cast<uint4*>(ob + t * os.t + (c % Sh::kChunks) * 8) = zero;
+    for (int c = tid; c < kBQ * (D / 8); c += kThreads) {
+      const int t = q0 + c / (D / 8);
+      if (t < S) *reinterpret_cast<uint4*>(ob + t * o_st + (c % (D / 8)) * 8) = zero;
     }
     return;
   }
 
-  // columns [D, kDP) of the Q tile and every K buffer: zeros, never written again
-  if (Sh::kDPChunks > Sh::kChunks) {
+  if (tid == 0) {
+    for (int s = 0; s < Sh::kStages; ++s) {
+      mbar_init(full_bar(s), 32);                  // the producer warp's lanes
+      mbar_init(empty_bar(s), kConsumers * 128);   // every consumer thread
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (Sh::kTail) {  // the zero chunks standing for columns 72..79 of Q and K
     const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int r = tid; r < kBQ + kStages * kBK; r += kThreads) {
-      __nv_bfloat16* row = r < kBQ ? sQ + r * kLds : sK + (r - kBQ) * kLds;
-#pragma unroll
-      for (int c = Sh::kChunks; c < Sh::kDPChunks; ++c)
-        *reinterpret_cast<uint4*>(row + c * 8) = zero;
+    for (int c = tid; c < Sh::kQTail / 16; c += kThreads)
+      reinterpret_cast<uint4*>(sq + Sh::kRegions * Sh::kQRegion + Sh::kQTail)[c] = zero;
+    for (int c = tid; c < Sh::kStages * (Sh::kKvTail / 16); c += kThreads) {
+      unsigned char* st = stages + (c / (Sh::kKvTail / 16)) * Sh::kStageBytes;
+      reinterpret_cast<uint4*>(st + Sh::kKTailOff + Sh::kKvTail)[c % (Sh::kKvTail / 16)] = zero;
     }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int c = tid; c < kBQ * Sh::kChunks; c += kThreads) {
-    const int r = c / Sh::kChunks, col = (c % Sh::kChunks) * 8;
-    const bool ok = q0 + r < S;
-    cp_async16(sQ + r * kLds + col, ok ? qb + (q0 + r) * qs.t + col : qb, ok);
-  }
-  cp_async_commit();
-  // One commit group per key tile: its K and V rows and its three id
-  // vectors. Thread tid < kBK copies the doc id of key row tid itself, so
-  // after its own wait it can read that id without a barrier.
-  auto load_kv = [&](int entry, int buf) {
-    __nv_bfloat16* dk = sK + buf * kBK * kLds;
-    __nv_bfloat16* dv = sV + buf * kBK * kLds;
-    const int j0 = (entry & ~kFullTile) * kBK;
-    const __nv_bfloat16* kt = kb + j0 * ks.t;
-    const __nv_bfloat16* vt = vb + j0 * vs.t;
+  if (warp >= 4 * kConsumers) {
+    // ---- producer: one warp of the last warpgroup, which gives its
+    // registers to the consumers (40 + 2 x 232 per thread of each) ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != 4 * kConsumers) return;
+    const int kh = h / group;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_bar, Sh::kQTx);
 #pragma unroll
-    for (int m = 0; m < Sh::kKVPerThread; ++m) {
-      const int c = tid + m * kThreads;
-      if (c < kBK * Sh::kChunks) {
-        const int r = c / Sh::kChunks, col = (c % Sh::kChunks) * 8;
-        const bool ok = j0 + r < S;
-        cp_async16(dk + r * kLds + col, ok ? kt + r * ks.t + col : kb, ok);
-        cp_async16(dv + r * kLds + col, ok ? vt + r * vs.t + col : vb, ok);
-      }
+      for (int r = 0; r < Sh::kRegions; ++r)
+        tma_load(sq + r * Sh::kQRegion, &maps.q, q_bar, r * kRegionCols, h, q0);
+      if (Sh::kTail)
+        tma_load(sq + Sh::kRegions * Sh::kQRegion, &maps.q_tail, q_bar, kRegionCols, h, q0);
     }
-    int* di = sIds + buf * 3 * kBK;
-#pragma unroll
-    for (int m = 0; m < (3 * kBK + kThreads - 1) / kThreads; ++m) {
-      const int e = tid + m * kThreads;
-      if (e < 3 * kBK) {
-        const int a = e / kBK, j = j0 + e % kBK;
-        const int* src = a == 0 ? doc : (a == 1 ? fan : noise);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % Sh::kStages;
+      mbar_wait(empty_bar(s), ((it / Sh::kStages) & 1) ^ 1);  // the first round passes
+      const int j0 = (tab[it] & ~kFullTile) * kBK;
+      unsigned char* st = stages + s * Sh::kStageBytes;
+      int* ids = reinterpret_cast<int*>(st + Sh::kIdsOff);  // [doc, fan, noise][kBK]
+      for (int e = lane; e < kBK; e += 32) {
+        const int j = j0 + e;
         const bool ok = j < S;
-        cp_async4(di + e, src + (ok ? j : 0), ok);
+        ids[e] = ok ? doc[j] : 0;
+        ids[kBK + e] = ok ? fan[j] : -1;
+        ids[2 * kBK + e] = ok ? noise[j] : -1;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full_bar(s), Sh::kStageTx);
+#pragma unroll
+        for (int r = 0; r < Sh::kRegions; ++r) {
+          tma_load(st + r * Sh::kKvRegion, &maps.k, full_bar(s), r * kRegionCols, kh, j0);
+          tma_load(st + (Sh::kRegions + r) * Sh::kKvRegion, &maps.v, full_bar(s),
+                   r * kRegionCols, kh, j0);
+        }
+        if (Sh::kTail) {
+          tma_load(st + Sh::kKTailOff, &maps.k_tail, full_bar(s), kRegionCols, kh, j0);
+          tma_load(st + Sh::kVTailOff, &maps.v_tail, full_bar(s), kRegionCols, kh, j0);
+        }
+      } else {
+        mbar_arrive(full_bar(s));
       }
     }
-    cp_async_commit();
-  };
-  // the first kStages - 1 tiles in flight (an empty group where there is none)
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_tiles) load_kv(tab[st], st);
-    else cp_async_commit();
+    return;
   }
-  int pf = kStages - 1 < n_tiles ? tab[kStages - 1] : 0;  // the next entry to prefetch
 
-  // this thread's two rows (mma accumulator rows lane/4 and lane/4 + 8)
-  RowIds r0, r1;
-  r0.pos = q0 + warp * 16 + lane / 4;
-  r1.pos = r0.pos + 8;
-  r0.doc = r0.pos < S ? doc[r0.pos] : 0;
-  r0.fan = r0.pos < S ? fan[r0.pos] : -1;
-  r0.noise = r0.pos < S ? noise[r0.pos] : -1;
-  r1.doc = r1.pos < S ? doc[r1.pos] : 0;
-  r1.fan = r1.pos < S ? fan[r1.pos] : -1;
-  r1.noise = r1.pos < S ? noise[r1.pos] : -1;
+  // ---- consumers: warpgroup wg takes query rows q0 + 64 wg .. + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp / 4, wt = tid % 128;
+  RowIds r0, r1;  // this thread's two rows (accumulator rows lane/4 and lane/4 + 8)
+  r0.load(q0 + 64 * wg + 16 * (warp % 4) + lane / 4, S, doc, fan, noise);
+  r1.load(r0.pos + 8, S, doc, fan, noise);
 
-  uint32_t qf[Sh::kDP / 16][4];
-  float acc[Sh::kNT][4];
+  float om[Sh::kOMain], ot[4];
 #pragma unroll
-  for (int i = 0; i < Sh::kNT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < Sh::kOMain; ++i) om[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ot[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it % kStages;
-    const int cur = tab[it];  // first used after QK^T: its latency hides there
-    cp_async_wait<kStages - 2>();  // tile it (and Q) landed; later tiles may be in flight
-    const int* sdoc = sIds + buf * 3 * kBK;
-    const int* sfan = sdoc + kBK;
-    const int* snoise = sfan + kBK;
-    __nv_bfloat16* cK = sK + buf * kBK * kLds;
-    __nv_bfloat16* cV = sV + buf * kBK * kLds;
-    // the barrier that publishes the tile also tells whether it holds a
-    // padding key (doc 0); if so, zero that key's K and V rows
-    if (__syncthreads_or(tid < kBK && sdoc[tid] == 0)) {
+  const uint32_t q_main = smem_addr(sq) + wg * 64 * 128;
+  const uint32_t q_tail = smem_addr(sq) + Sh::kRegions * Sh::kQRegion + wg * 64 * 16;
+  mbar_wait(q_bar, 0);
+
+  // tile `it`'s stage, once it has landed; in a tile without the full flag
+  // the V rows of padding keys are zeroed first (0 * stale NaN would be NaN)
+  auto ready = [&](int it) {
+    const int s = it % Sh::kStages;
+    mbar_wait(full_bar(s), (it / Sh::kStages) & 1);
+    unsigned char* st = stages + s * Sh::kStageBytes;
+    if (!(tab[it] & kFullTile)) {
+      const int* sdoc = reinterpret_cast<const int*>(st + Sh::kIdsOff);
       const uint4 zero = make_uint4(0, 0, 0, 0);
-      for (int c = tid; c < kBK * Sh::kChunks; c += kThreads) {
-        const int r = c / Sh::kChunks, col = (c % Sh::kChunks) * 8;
-        if (sdoc[r] == 0) {
-          *reinterpret_cast<uint4*>(cK + r * kLds + col) = zero;
-          *reinterpret_cast<uint4*>(cV + r * kLds + col) = zero;
+      constexpr int kChunks = 8 * Sh::kRegions + (Sh::kTail ? 1 : 0);  // 16-byte chunks a row
+      for (int c = wt; c < kBK * kChunks; c += 128) {
+        const int row = c / kChunks, ch = c % kChunks;
+        if (sdoc[row] == 0) {
+          unsigned char* dst =
+              ch < 8 * Sh::kRegions
+                  ? st + (Sh::kRegions + ch / 8) * Sh::kKvRegion + row * 128 + (ch % 8) * 16
+                  : st + Sh::kVTailOff + row * 16;
+          *reinterpret_cast<uint4*>(dst) = zero;
         }
       }
-      __syncthreads();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     }
-    // every thread is past tile it - 1, so its buffer takes tile it + kStages - 1
-    if (it + kStages - 1 < n_tiles) {
-      load_kv(pf, (it + kStages - 1) % kStages);
-      pf = it + kStages < n_tiles ? tab[it + kStages] : 0;
-    } else {
-      cp_async_commit();  // an empty group keeps the wait count uniform
+  };
+  // S = Q K^T of tile `it`, this warpgroup's 64 rows x 128 keys (issued, not waited)
+  auto issue_qk = [&](int it, float (&sacc)[kBK / 2]) {
+    const uint32_t sta = smem_addr(stages + (it % Sh::kStages) * Sh::kStageBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < Sh::kQkSteps; ++ks) {
+      uint64_t da, db;
+      if (ks < 4 * Sh::kRegions) {  // 128-byte swizzled, K-major: 32 B a k16 step
+        const int r = ks / 4, kk = ks % 4;
+        da = make_desc(q_main + r * Sh::kQRegion + kk * 32, 16, 1024, kSwizzle128);
+        db = make_desc(sta + r * Sh::kKvRegion + kk * 32, 16, 1024, kSwizzle128);
+      } else {  // D = 72's columns 64..79: interleave, K-major, chunks of 8 columns
+        da = make_desc(q_tail, Sh::kQTail, 128, kInterleave);
+        db = make_desc(sta + Sh::kKTailOff, Sh::kKvTail, 128, kInterleave);
+      }
+      wgmma_ss_n128(sacc, da, db, ks > 0);
     }
+    wgmma_commit();
+  };
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % Sh::kStages;
+    const int cur = tab[it];
+    ready(it);
+    float sacc[kBK / 2];
+    issue_qk(it, sacc);
+    wgmma_wait<0>();
+    fence_regs(sacc);
+
+    unsigned char* st = stages + s * Sh::kStageBytes;
+    const uint32_t sta = smem_addr(st);
+    const int* sdoc = reinterpret_cast<const int*>(st + Sh::kIdsOff);
+    const int* sfan = sdoc + kBK;
+    const int* snoise = sfan + kBK;
     const int j0 = (cur & ~kFullTile) * kBK;
-    const bool full = cur & kFullTile;
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < Sh::kDP / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + lane % 16) * kLds + kk * 16 + (lane / 16) * 8);
-    }
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < Sh::kDP / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, cK + (np * 16 + lane % 8 + (lane / 16) * 8) * kLds +
-                            kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
-      }
-    }
-
-    // mask from the ids (unless the whole tile is visible), scale to base
-    // 2, online softmax
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-    if (full) {
-#pragma unroll
-      for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] *= scale_log2;
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-      }
-    } else {
+    // mask from the ids (unless the whole tile is visible), online softmax;
+    // accumulator 4 nt + e holds row lane/4 (e < 2) or lane/4 + 8, key
+    // 8 nt + 2 (lane % 4) + e % 2. The scale (> 0) to base 2 goes into the
+    // exponent's FFMA: the row max of the raw scores, scaled once.
+    if (!(cur & kFullTile)) {
 #pragma unroll
       for (int nt = 0; nt < kBK / 8; ++nt) {
 #pragma unroll
@@ -365,66 +479,78 @@ sparse_packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
           const int jl = nt * 8 + (lane % 4) * 2 + e;
           const int j = j0 + jl;
           const int dk = sdoc[jl], fk = sfan[jl], nk = snoise[jl];
-          s[nt][e] = r0.sees(j, dk, fk, nk) ? s[nt][e] * scale_log2 : -INFINITY;
-          s[nt][2 + e] = r1.sees(j, dk, fk, nk) ? s[nt][2 + e] * scale_log2 : -INFINITY;
+          if (!r0.sees(j, dk, fk, nk)) sacc[4 * nt + e] = -INFINITY;
+          if (!r1.sees(j, dk, fk, nk)) sacc[4 * nt + 2 + e] = -INFINITY;
         }
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
       }
     }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(sacc[4 * nt], sacc[4 * nt + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[4 * nt + 2], sacc[4 * nt + 3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+    const float mn1 = fmaxf(m1, quad_max(mx1) * scale_log2);
     // a row that has seen no visible key yet keeps max -inf: use 0 as the
     // exponent base so that exp2(-inf - base) gives 0, not NaN
     const float base0 = mn0 == -INFINITY ? 0.f : mn0;
     const float base1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float alpha0 = exp2f(m0 - base0);
-    const float alpha1 = exp2f(m1 - base1);
+    const float alpha0 = fast_exp2(m0 - base0);
+    const float alpha1 = fast_exp2(m1 - base1);
     m0 = mn0;
     m1 = mn1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < kBK / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - base0);
-      s[nt][1] = exp2f(s[nt][1] - base0);
-      s[nt][2] = exp2f(s[nt][2] - base1);
-      s[nt][3] = exp2f(s[nt][3] - base1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
+      sacc[4 * nt] = fast_exp2(fmaf(sacc[4 * nt], scale_log2, -base0));
+      sacc[4 * nt + 1] = fast_exp2(fmaf(sacc[4 * nt + 1], scale_log2, -base0));
+      sacc[4 * nt + 2] = fast_exp2(fmaf(sacc[4 * nt + 2], scale_log2, -base1));
+      sacc[4 * nt + 3] = fast_exp2(fmaf(sacc[4 * nt + 3], scale_log2, -base1));
+      sum0 += sacc[4 * nt] + sacc[4 * nt + 1];
+      sum1 += sacc[4 * nt + 2] + sacc[4 * nt + 3];
     }
     l0 = l0 * alpha0 + sum0;  // per-thread partial sums; reduced at the end
     l1 = l1 * alpha1 + sum1;
 #pragma unroll
-    for (int dt = 0; dt < Sh::kNT; ++dt) {
-      acc[dt][0] *= alpha0;
-      acc[dt][1] *= alpha0;
-      acc[dt][2] *= alpha1;
-      acc[dt][3] *= alpha1;
+    for (int i = 0; i < Sh::kOMain; i += 4) {
+      om[i] *= alpha0, om[i + 1] *= alpha0, om[i + 2] *= alpha1, om[i + 3] *= alpha1;
     }
+    ot[0] *= alpha0, ot[1] *= alpha0, ot[2] *= alpha1, ot[3] *= alpha1;
 
-    // O += P V: the S accumulators re-pack as bf16 A fragments
+    // O += P V: the S accumulators of keys 16 ks .. 16 ks + 15 re-pack as
+    // the A fragment of k16 step ks
+    uint32_t pa[kBK / 16][4];
 #pragma unroll
-    for (int ks16 = 0; ks16 < kBK / 16; ++ks16) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * ks16][0], s[2 * ks16][1]),
-          pack_bf16(s[2 * ks16][2], s[2 * ks16][3]),
-          pack_bf16(s[2 * ks16 + 1][0], s[2 * ks16 + 1][1]),
-          pack_bf16(s[2 * ks16 + 1][2], s[2 * ks16 + 1][3]),
-      };
-      const __nv_bfloat16* vrow = cV + (ks16 * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kLds;
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      pa[ks][0] = pack_bf16(sacc[8 * ks], sacc[8 * ks + 1]);
+      pa[ks][1] = pack_bf16(sacc[8 * ks + 2], sacc[8 * ks + 3]);
+      pa[ks][2] = pack_bf16(sacc[8 * ks + 4], sacc[8 * ks + 5]);
+      pa[ks][3] = pack_bf16(sacc[8 * ks + 6], sacc[8 * ks + 7]);
+    }
+    wgmma_fence();
 #pragma unroll
-      for (int dp = 0; dp < Sh::kNT / 2; ++dp) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vrow + dp * 16 + (lane / 16) * 8);
-        mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      // V, MN-major, 128-byte swizzled: 16 keys of 128 B a step; the next
+      // 8 keys 1024 B on (SBO), the next 64 columns a region on (LBO)
+      const uint64_t dv = make_desc(sta + Sh::kRegions * Sh::kKvRegion + ks * 16 * 128,
+                                    Sh::kKvRegion, 1024, kSwizzle128);
+      if constexpr (Sh::kRegions == 2) {
+        wgmma_rs_n128(om, pa[ks], dv);
+      } else {
+        wgmma_rs_n64(om, pa[ks], dv);
       }
-      if (Sh::kNT % 2) {  // the odd last n8 tile (D = 72: columns 64..71)
-        uint32_t bf[2];
-        ldmatrix_x2_trans(bf, vrow + (Sh::kNT - 1) * 8);
-        mma_bf16(acc[Sh::kNT - 1], pa, bf[0], bf[1]);
+      if constexpr (Sh::kTail) {  // columns 64..71: interleave, MN-major, 16 B a key
+        wgmma_rs_n8(ot, pa[ks], make_desc(sta + Sh::kVTailOff + ks * 16 * 16, 128, 128,
+                                          kInterleave));
       }
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(om);
+    fence_regs(ot);
+    fence_regs(pa);
+    mbar_arrive(empty_bar(s));
   }
 
   l0 = quad_sum(l0);
@@ -433,34 +559,89 @@ sparse_packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
 #pragma unroll
-  for (int dt = 0; dt < Sh::kNT; ++dt) {
+  for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + (lane % 4) * 2;
+    const float* a = dt < Sh::kOMain / 4 ? om + 4 * dt : ot;
     if (r0.pos < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0.pos * os.t + col) =
-          l0 > 0.f ? __floats2bfloat162_rn(acc[dt][0] * inv0, acc[dt][1] * inv0)
-                   : __floats2bfloat162_rn(0.f, 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(ob + r0.pos * o_st + col) =
+          __floats2bfloat162_rn(a[0] * inv0, a[1] * inv0);
     if (r1.pos < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1.pos * os.t + col) =
-          l1 > 0.f ? __floats2bfloat162_rn(acc[dt][2] * inv1, acc[dt][3] * inv1)
-                   : __floats2bfloat162_rn(0.f, 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(ob + r1.pos * o_st + col) =
+          __floats2bfloat162_rn(a[2] * inv1, a[3] * inv1);
   }
+}
+
+// --- host side -------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int kEncodeError = 100000;  // + the CUresult: a tensor map was refused
+
+// A [rows, heads, D] bf16 view with element strides (st, sh, 1), boxes of
+// box_cols x 1 x box_rows; 128-byte swizzle or none. Reads past D or rows
+// give zeros.
+int make_map(CUtensorMap* map, const void* base, int D, int heads, int rows, long long st,
+             long long sh, int box_cols, int box_rows, bool swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(st) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), 1,
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, const int* doc,
            const int* fan, const int* noise, const int* live_idx, const int* live_cnt,
-           int S, int H, int KH, int nk_tab, Strides qs, Strides ks, Strides vs,
-           Strides os, float scale, cudaStream_t stream) {
+           int S, int H, int KH, int nk_tab, long long q_st, long long q_sh, long long k_st,
+           long long k_sh, long long v_st, long long v_sh, long long o_st, long long o_sh,
+           float scale, cudaStream_t stream) {
+  Maps maps;
+  int err = 0;
+  err = err ? err : make_map(&maps.q, q, D, H, S, q_st, q_sh, kRegionCols, kBQ, true);
+  err = err ? err : make_map(&maps.k, k, D, KH, S, k_st, k_sh, kRegionCols, kBK, true);
+  err = err ? err : make_map(&maps.v, v, D, KH, S, v_st, v_sh, kRegionCols, kBK, true);
+  if (Shape<D>::kTail) {
+    err = err ? err : make_map(&maps.q_tail, q, D, H, S, q_st, q_sh, 8, kBQ, false);
+    err = err ? err : make_map(&maps.k_tail, k, D, KH, S, k_st, k_sh, 8, kBK, false);
+    err = err ? err : make_map(&maps.v_tail, v, D, KH, S, v_st, v_sh, 8, kBK, false);
+  } else {
+    maps.q_tail = maps.q, maps.k_tail = maps.k, maps.v_tail = maps.v;  // unused
+  }
+  if (err) return err;
   constexpr int smem = Shape<D>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(sparse_packed_attention_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t e = cudaFuncSetAttribute(sparse_packed_attention_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((S + kBQ - 1) / kBQ, H);
   sparse_packed_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), doc, fan,
-      noise, live_idx, live_cnt, S, H / KH, nk_tab, qs, ks, vs, os,
-      scale * 1.4426950408889634f);
+      maps, static_cast<__nv_bfloat16*>(o), o_st, o_sh, doc, fan, noise, live_idx, live_cnt, S,
+      H / KH, nk_tab, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,7 +649,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const int* doc,
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success);
+// Launches on `stream` and returns 0 on success, else cudaGetLastError()'s
+// code, or 100000 + the CUresult of a refused tensor map;
 // cudaErrorInvalidValue for a head dim that is not instantiated.
 int sparse_packed_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                  const int* doc, const int* fan, const int* noise,
@@ -479,21 +661,22 @@ int sparse_packed_attention_bf16(const void* q, const void* k, const void* v, vo
                                  long long v_st, long long v_sh,
                                  long long o_st, long long o_sh,
                                  float scale, void* stream) {
-  const Strides qs{q_st, q_sh}, ks{k_st, k_sh}, vs{v_st, v_sh}, os{o_st, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 72:
-      return launch<72>(q, k, v, o, doc, fan, noise, live_idx, live_cnt, S, H, KH, nk_tab,
-                        qs, ks, vs, os, scale, st);
+      return launch<72>(q, k, v, o, doc, fan, noise, live_idx, live_cnt, S, H, KH, nk_tab, q_st,
+                        q_sh, k_st, k_sh, v_st, v_sh, o_st, o_sh, scale, st);
     case 128:
-      return launch<128>(q, k, v, o, doc, fan, noise, live_idx, live_cnt, S, H, KH, nk_tab,
-                         qs, ks, vs, os, scale, st);
+      return launch<128>(q, k, v, o, doc, fan, noise, live_idx, live_cnt, S, H, KH, nk_tab, q_st,
+                         q_sh, k_st, k_sh, v_st, v_sh, o_st, o_sh, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 const char* sparse_packed_attention_error_string(int code) {
+  if (code >= kEncodeError)
+    return "cuTensorMapEncodeTiled refused a tensor map (code - 100000 is the CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

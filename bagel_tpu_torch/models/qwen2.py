@@ -35,6 +35,7 @@ The int8 KV cache and training come with later slices.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -171,7 +172,8 @@ def _linear(x: torch.Tensor, p) -> torch.Tensor:
     The bias is added in fp32 before the one rounding to x.dtype, as the
     JAX `preferred_element_type=f32` product does: in the matmul's epilogue
     (torch.addmm) for a plain or dequantized weight, in the kernel's for
-    w8a8; after the kernel's bf16 result for int4, as JAX does."""
+    w8a8; after the kernel's bf16 result for int4, as JAX does (in the
+    kernel's epilogue for bf16 activations)."""
     if not isinstance(p, dict):
         p = {"w": p}
     lead = x.shape[:-1]
@@ -180,14 +182,19 @@ def _linear(x: torch.Tensor, p) -> torch.Tensor:
         out = int8_matmul(xq, xs, p["w_q8"], p["scale"], p.get("b"), out_dtype=x.dtype)
         return out.reshape(lead + (out.shape[-1],))
     if "w_p4" in p:
-        rows = x[..., 0].numel()
+        rows = math.prod(lead)
         if int4_gemv_eligible(rows, p, x.device):
             # bandwidth-bound decode: the kernel reads the packed nibbles
             # once instead of a dequantized weight in device memory
-            out = int4_matmul(x.reshape(rows, x.shape[-1]), p["w_p4"], p["scale4"]).float()
-            if "b" in p:
-                out = out + p["b"].float()
-            return out.to(x.dtype).reshape(lead + (out.shape[-1],))
+            x2 = x.reshape(rows, x.shape[-1])
+            if x.dtype == torch.bfloat16:  # one launch: the bias in the epilogue
+                out = int4_matmul(x2, p["w_p4"], p["scale4"], p.get("b"))
+            else:
+                out = int4_matmul(x2, p["w_p4"], p["scale4"]).float()
+                if "b" in p:
+                    out = out + p["b"].float()
+                out = out.to(x.dtype)
+            return out.reshape(lead + (out.shape[-1],))
     if "w_q" in p:
         w = (p["w_q"].float() * p["scale"][..., None, :]).to(x.dtype)
     elif "w_p4" in p or "w_nf4" in p:

@@ -11,11 +11,12 @@ full attention within each image. Rows with no visible key give 0.
 `block_liveness` lists, per query block, the key blocks that can hold a
 visible key. On a CUDA tensor `sparse_packed_attention` launches the
 hand-written Hopper kernel `csrc/sparse_packed_attention.cu` (bf16, head dim
-72 or 128) over that table at the kernel's tile size (`kernel_tables`, which
-also flags the tiles whose every pair is visible), or raises; it takes the
-plain version `sparse_packed_attention_plain` only for CPU tensors. The
-forward only: the backward (a recompute through the chunked path in JAX)
-comes with the training slice.
+72 or 128; TMA and wgmma) over that table at the kernel's tiles, 128 query
+rows by 128 keys (`kernel_tables`, which also flags the tiles whose every
+pair is visible), or raises; it takes the plain version
+`sparse_packed_attention_plain` only for CPU tensors. The forward only: the
+backward (a recompute through the chunked path in JAX) comes with the
+training slice.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from bagel_tpu_torch.ops import _build
 from bagel_tpu_torch.ops.attention import dot_attention, train_packed_mask
 
 KERNEL = "sparse_packed_attention"
-BLOCK = 64  # query rows and keys per tile, compiled into the kernel
+BLOCK_Q = 128  # query rows per tile, compiled into the kernel
+BLOCK_K = 128  # keys per tile, compiled into the kernel
 HEAD_DIMS = (72, 128)  # the kernel's instantiations
 FULL_TILE = 1 << 30  # kernel table flag: every (query, key) pair of the tile is visible
 _BIG = 2**30
@@ -90,8 +92,8 @@ def block_liveness(
 
 
 def _pad_ids(document_id, fan_id, noise_id):
-    """The ids padded (document 0, fan -1, noise -1) to a multiple of BLOCK."""
-    pad = -document_id.shape[0] % BLOCK
+    """The ids padded (document 0, fan -1, noise -1) to a multiple of BLOCK_Q."""
+    pad = -document_id.shape[0] % BLOCK_Q
     if not pad:
         return document_id, fan_id, noise_id
     return (torch.cat([document_id, document_id.new_zeros(pad)]),
@@ -99,36 +101,42 @@ def _pad_ids(document_id, fan_id, noise_id):
             torch.cat([noise_id, noise_id.new_full((pad,), -1)]))
 
 
-def full_tiles(document_id, fan_id, noise_id, block: int) -> torch.Tensor:
+def full_tiles(document_id, fan_id, noise_id, block_q: int, block_k: int) -> torch.Tensor:
     """[nq, nk] bool: True where every (query, key) pair of the tile is
     visible: both blocks lie in one document and hold no padding, and the
     tile lies wholly below the diagonal or both blocks lie in one full/noise
     split, and no key is a noise token of another split. A tile that is not
     flagged is masked element by element, so the test may be conservative."""
-    n = document_id.shape[0] // block
-    d, f, z = (x.reshape(n, block) for x in (document_id, fan_id, noise_id))
-    d0, f0, z0 = d[:, 0], f[:, 0], z[:, 0]
-    d_one = (d == d0[:, None]).all(dim=1) & (d0 != 0)
-    f_one = (f == f0[:, None]).all(dim=1) & (f0 >= 0)
-    z_one = (z == z0[:, None]).all(dim=1)
-    same_doc = d_one[:, None] & d_one[None, :] & (d0[:, None] == d0[None, :])
-    blocks = torch.arange(n, device=d.device) * block
-    below = blocks[:, None] >= blocks[None, :] + block - 1  # first query >= last key
-    same_fan = f_one[:, None] & f_one[None, :] & (f0[:, None] == f0[None, :])
-    no_noise = (z_one & (z0 < 0))[None, :] | (
-        z_one[:, None] & z_one[None, :] & (z0[:, None] == z0[None, :]))
+
+    def blocks(block):  # per block: its first ids, and whether each id is constant
+        d, f, z = (x.reshape(-1, block) for x in (document_id, fan_id, noise_id))
+        d0, f0, z0 = d[:, 0], f[:, 0], z[:, 0]
+        return (d0, (d == d0[:, None]).all(dim=1) & (d0 != 0),
+                f0, (f == f0[:, None]).all(dim=1) & (f0 >= 0),
+                z0, (z == z0[:, None]).all(dim=1))
+
+    dq0, dq_one, fq0, fq_one, zq0, zq_one = blocks(block_q)
+    dk0, dk_one, fk0, fk_one, zk0, zk_one = blocks(block_k)
+    same_doc = dq_one[:, None] & dk_one[None, :] & (dq0[:, None] == dk0[None, :])
+    q_first = torch.arange(dq0.shape[0], device=dq0.device) * block_q
+    k_last = torch.arange(dk0.shape[0], device=dk0.device) * block_k + block_k - 1
+    below = q_first[:, None] >= k_last[None, :]  # first query >= last key
+    same_fan = fq_one[:, None] & fk_one[None, :] & (fq0[:, None] == fk0[None, :])
+    no_noise = (zk_one & (zk0 < 0))[None, :] | (
+        zq_one[:, None] & zk_one[None, :] & (zq0[:, None] == zk0[None, :]))
     return same_doc & (below | same_fan) & no_noise
 
 
 def kernel_tables(document_id, fan_id, noise_id):
     """The kernel's tables for these ids, any S: (entries [nq, nk] int32,
-    counts [nq] int32) — `block_liveness` at the kernel's tile size on the
-    ids padded (document 0, fan -1, noise -1) to a multiple of BLOCK, each
-    entry OR-ed with FULL_TILE where `full_tiles` holds. Depends only on the
-    ids: compute it once for all the layers that share them."""
+    counts [nq] int32) — `block_liveness` at the kernel's tiles (BLOCK_Q
+    query rows, BLOCK_K keys) on the ids padded (document 0, fan -1, noise
+    -1) to a multiple of BLOCK_Q, each entry OR-ed with FULL_TILE where
+    `full_tiles` holds. Depends only on the ids: compute it once for all
+    the layers that share them."""
     doc, fan, noise = _pad_ids(document_id, fan_id, noise_id)
-    live_idx, live_cnt = block_liveness(doc, fan, BLOCK, BLOCK)
-    full = full_tiles(doc, fan, noise, BLOCK).gather(1, live_idx.long())
+    live_idx, live_cnt = block_liveness(doc, fan, BLOCK_Q, BLOCK_K)
+    full = full_tiles(doc, fan, noise, BLOCK_Q, BLOCK_K).gather(1, live_idx.long())
     return torch.where(full, live_idx | FULL_TILE, live_idx), live_cnt
 
 
@@ -169,7 +177,7 @@ def _check(q, k, v, ids) -> None:
             )
         if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:2]) or t.data_ptr() % 16:
             raise ValueError(
-                f"{name}: the kernel loads 16-byte rows; needs a unit last "
+                f"{name}: the kernel's TMA loads need 16-byte rows: a unit last "
                 f"stride, other strides multiples of 8 and a 16-byte aligned "
                 f"base (strides {t.stride()})"
             )
@@ -186,8 +194,9 @@ def _check(q, k, v, ids) -> None:
 
 def _check_tables(tables, s, dev) -> None:
     entries, counts = tables
-    n = -(-s // BLOCK)
-    for name, t, shape in (("entries", entries, (n, n)), ("counts", counts, (n,))):
+    n = -(-s // BLOCK_Q)
+    nk = n * BLOCK_Q // BLOCK_K
+    for name, t, shape in (("entries", entries, (n, nk)), ("counts", counts, (n,))):
         if (t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(
@@ -227,6 +236,9 @@ def sparse_packed_attention(
     out = torch.empty((s, h, d), dtype=q.dtype, device=q.device)
     if s == 0:
         return out
+    scale = d**-0.5 if scale is None else scale
+    if not scale > 0:
+        raise ValueError(f"the kernel takes a positive scale, got {scale}")
     if tables is None:
         tables = kernel_tables(document_id, fan_id, noise_id)
     _check_tables(tables, s, q.device)
@@ -240,7 +252,7 @@ def sparse_packed_attention(
             live_idx.data_ptr(), live_cnt.data_ptr(),
             s, h, k.shape[1], d, live_idx.shape[1],
             *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], *out.stride()[:2],
-            d**-0.5 if scale is None else scale, stream,
+            scale, stream,
         )
     if err:
         msg = lib.sparse_packed_attention_error_string(err).decode()

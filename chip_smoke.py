@@ -7,20 +7,32 @@ Phases (the first failure exits non-zero, and no result line is printed):
   1. device  nvidia-smi's name and power limit, torch's device name; TF32 off
              for fp32 matmuls and convolutions (the VAE runs in full fp32).
   2. build   every kernel in bagel_tpu_torch/csrc with nvcc, for sm_90a, one
-             nvcc per source, all started together; ptxas registers/spills.
+             nvcc per source, all started together; ptxas registers/spills;
+             from `cuobjdump -sass`, B4's dequantization instructions and
+             B3's wgmma (HGMMA) and TMA (UTMALDG) instructions, which must be
+             there.
   3. kernels each kernel against its plain PyTorch version: edge cases, then
-             the shapes the main paths give it, with its time, the plain
-             version's, one PyTorch library call's (a yardstick the port never
-             calls) and the roofline bound of the work; and a negative control
-             per kernel that the gate must reject.
+             the shapes the main paths give it, with its device time (calls
+             captured in a CUDA graph, the replay timed with events: no host
+             work in it), its call time (back-to-back calls of the wrapper,
+             host included), the plain version's, one PyTorch library call's
+             device time (a yardstick the port never calls) and the roofline
+             bound of the work; and a negative control per kernel that the
+             gate must reject.
              3a B1 flash_cached_attention (control: past taken as 0);
              3b B3 sparse_packed_attention (control: two packed images merged
                 into one segment; the full-tile flags timed against the same
-                launch without them);
+                launch without them; the SigLIP shape timed against SDPA in
+                turns);
              3c B5 int8_matmul, bit for bit at the w8a8 text-to-image shapes,
                 M=1 and a ragged M/N/K (control: ws reversed);
-             3d B4 int4_matmul at every decode linear's shape, M in {1, 3, 64}
-                (control: the nibbles swapped);
+             3d B4 int4_matmul at every decode linear's shape, M in {1, 3, 64},
+                one launch a call (the counter, and the card's record of
+                one call through torch.profiler), two calls bit-identical,
+                the fused bias as JAX rounds it (control: the nibbles
+                swapped); one decode token's 112 launches over 28 layers'
+                own weights, cold in L2, against torch.matmul over 28
+                layers' bf16 weights;
              3e B2 flash_cached_attention_q8 at its key tile, at the denoise
                 and ViT-block shapes (control: V's scale left out).
   4. forward one full-width MoT gen-block forward (512 px, full depth)
@@ -46,6 +58,9 @@ Phases (the first failure exits non-zero, and no result line is printed):
              first decode step's logits through the kernels vs the plain
              versions; ms per decode token.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+
+int4_split_sweep() times B4 at every split of K it takes (not run by the
+smoke; its docstring says how to run it).
 """
 
 from __future__ import annotations
@@ -116,7 +131,10 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls."""
+    """Mean time of one call of fn() over `iters` back-to-back calls, between
+    two events on the stream: the "call" time. Where a call's device work
+    is shorter than the host's work to issue it (checks, allocation, the
+    launch), this is host time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -128,6 +146,72 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of one call of fn(): `iters` calls captured in one
+    CUDA graph, whose replay is timed between two events, so that none of
+    the host's work per call is in it. fn must not synchronize with the
+    host. Launch counters count the captured calls once, at capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture wants
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host time of one call of fn(), in µs, over `iters` calls issued
+    back to back (no synchronization inside the window)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def sass_counts(name: str, opcodes) -> dict:
+    """{kernel function: {opcode: count}} in the built library's SASS
+    (`cuobjdump -sass`), counting each instruction whose opcode starts with
+    one of `opcodes` (a static count: an unrolled loop counts once)."""
+    from bagel_tpu_torch.ops import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    run = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                         capture_output=True, text=True, timeout=120)
+    check(run.returncode == 0, f"cuobjdump -sass {name} failed: {run.stderr.strip()[:400]}")
+    counts, fn = {}, None
+    for line in run.stdout.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = {op: 0 for op in opcodes}
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+        if ins and fn is not None:
+            for op in opcodes:
+                if ins.group(1) == op or ins.group(1).startswith(op + "."):
+                    counts[fn][op] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +260,18 @@ def phase_build() -> None:
                 instance = f" ({arg}={d.group(1)})" if d else ""
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}{instance}: {line.strip()}")
+    # what the two redesigned kernels compiled to: B4's dequantization
+    # instructions, and B3's Hopper tensor-core and TMA instructions
+    for name, ops in (("int4_matmul", ("I2F", "I2FP", "F2F", "F2FP", "PRMT", "LOP3", "FFMA",
+                                       "FMUL", "FADD", "LDG")),
+                      ("sparse_packed_attention", ("HGMMA", "UTMALDG", "HMMA", "LDGSTS",
+                                                   "MUFU"))):
+        for fn, counts in sass_counts(name, ops).items():
+            log(f"[build] {name} SASS {fn}: {json.dumps(counts)}")
+            if name == "sparse_packed_attention":  # the Hopper design is the one that runs
+                check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                      f"B3's SASS ({fn}) holds no HGMMA (wgmma) or no UTMALDG (TMA load)")
+                log(f"[build] B3 SASS: wgmma (HGMMA) and TMA loads (UTMALDG) present in {fn}")
 
 
 # ---------------------------------------------------------------------------
@@ -335,21 +431,24 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa):
                 f"max abs {b_err:.3e} ({b_ratio:.1f} x the elementwise limit), rel {b_rel:.3e}")
             del blind
         del got, want
-        ms = cuda_ms(lambda: flash.flash_cached_attention(q, k, v, p, vl, causal=causal), 20, 3)
+        def call():
+            return flash.flash_cached_attention(q, k, v, p, vl, causal=causal)
+
+        ms, call_ms = device_ms(call, 20), cuda_ms(call, 20, 3)
         plain_ms = cuda_ms(
             lambda: flash.flash_cached_attention_plain(q, k, v, p, vl, causal=causal), 2)
         mask = cache_mask(t, p, vl, causal)
-        lib_ms = cuda_ms(sdpa_call(q, k, v, mask), 5)
+        lib_ms = device_ms(sdpa_call(q, k, v, mask), 5)
         flops, bytes_ = attention_work(past, valid, t, 28, 4, 128, causal)
         bms, by = bound_ms(flops, bytes_)
         results.append(dict(shape=label, B=b, T=t, S=MAX_KV, past=past, causal=causal,
-                            max_abs_err=err, limit_ratio=ratio, rel_err=rel, ms=ms,
-                            plain_ms=plain_ms, library_ms=lib_ms,
+                            max_abs_err=err, limit_ratio=ratio, rel_err=rel,
+                            device_ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9))
         log(f"[kernels] {label}: T={t} past={past} max abs err {err:.3e} ({ratio:.2f} x the "
-            f"elementwise limit), rel err {rel:.3e}; "
-            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-            f"SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"elementwise limit), rel err {rel:.3e}; kernel device {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), call {call_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"SDPA device {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         del args, q, k, v, mask
         torch.cuda.empty_cache()
     return worst, results
@@ -435,15 +534,15 @@ def phase_sparse_kernels(vit_s, n_patches, heads, head_dim):
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     worst = 0.0
-    gap = segment_ids([192], 512)  # q tile 3 (rows 192..255) is all padding
-    gap[256:] = 2
+    gap = segment_ids([256], 768)  # q tile 2 (rows 256..383) is all padding
+    gap[384:] = 2
     edge = [
         # label, s, h, kh, d, ids (doc, fan, noise), strided, stale NaN
         ("3 packed images + 50 padding", 1000, 16, 16, 72, "seg:300,250,400", False, True),
         ("ragged S=333, strided q/k/v views", 333, 4, 4, 72, "seg:200,100", True, False),
         ("train predicate D=128, GQA 28/4", 700, 28, 4, 128, "train", False, True),
         ("train predicate D=72", 700, 16, 16, 72, "train", False, False),
-        ("a q tile with no live key tile", 512, 4, 4, 72, "gap", False, False),
+        ("a q tile with no live key tile", 768, 4, 4, 72, "gap", False, False),
     ]
     for label, s, h, kh, d, kind, strided, stale in edge:
         if kind == "train":
@@ -458,7 +557,7 @@ def phase_sparse_kernels(vit_s, n_patches, heads, head_dim):
         got, _, err, ratio, rel = sparse_compare(sf, args, label)
         if kind == "gap":
             _, cnt = sf.kernel_tables(*ids)
-            check(int(cnt[3]) == 0, f"{label}: q tile 3 has {int(cnt[3])} live key tiles")
+            check(int(cnt[2]) == 0, f"{label}: q tile 2 has {int(cnt[2])} live key tiles")
         if stale:  # NaN in K/V rows that no query can see changes nothing
             dead = ids[0] == 0
             k[dead] = float("nan")
@@ -500,34 +599,38 @@ def phase_sparse_kernels(vit_s, n_patches, heads, head_dim):
     # layers: time the launch with them built, and their build alone
     tables_ms = cuda_ms(lambda: sf.kernel_tables(seg, seg, noise), 5)
     tables = sf.kernel_tables(seg, seg, noise)
-    ms = cuda_ms(lambda: sf.sparse_packed_attention(q, k, v, seg, seg, noise, tables=tables),
-                 20, 3)
+
+    def launch(t=tables):
+        return sf.sparse_packed_attention(q, k, v, seg, seg, noise, tables=t)
+
+    call_ms = cuda_ms(launch, 20, 3)
     # A/B of the full-tile flags: the same launch with every flag cleared, so
     # that every tile takes the per-element mask; the output must not change
     masked = (tables[0] & ~sf.FULL_TILE, tables[1])
-    check(torch.equal(sf.sparse_packed_attention(q, k, v, seg, seg, noise, tables=masked),
-                      sf.sparse_packed_attention(q, k, v, seg, seg, noise, tables=tables)),
-          "main path: the full-tile flags change the output")
-    ab = []
-    for t in (masked, tables, tables, masked):
-        ab.append(cuda_ms(lambda: sf.sparse_packed_attention(q, k, v, seg, seg, noise, tables=t),
-                          20, 3))
-    log(f"[kernels] B3 main path A/B of the full-tile flags: masked {ab[0]:.4f}, flagged "
-        f"{ab[1]:.4f}, flagged {ab[2]:.4f}, masked {ab[3]:.4f} ms")
+    check(torch.equal(launch(masked), launch()), "main path: the full-tile flags change the output")
+    ab = [device_ms(lambda: launch(t), 20) for t in (masked, tables, tables, masked)]
+    log(f"[kernels] B3 main path A/B of the full-tile flags, device time: masked {ab[0]:.4f}, "
+        f"flagged {ab[1]:.4f}, flagged {ab[2]:.4f}, masked {ab[3]:.4f} ms")
     plain_ms = cuda_ms(lambda: sf.sparse_packed_attention_plain(q, k, v, seg, seg, noise), 2)
     mask = (seg[:, None] == seg[None, :]) & (seg[:, None] != 0)
-    lib_ms = cuda_ms(sdpa_call(q[None], k[None], v[None], mask[None, None]), 5)
+    sdpa = sdpa_call(q[None], k[None], v[None], mask[None, None])
+    # kernel and SDPA in turns, in device time: SDPA, kernel, kernel, SDPA
+    turns = [device_ms(fn, 20) for fn in (sdpa, launch, launch, sdpa)]
+    ms, lib_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     flops, bytes_ = sparse_work(seg, seg, noise, heads, heads, head_dim)
     bms, by = bound_ms(flops, bytes_)
     log(f"[kernels] B3 main path S={vit_s} ({n_patches} patches), H={heads}, D={head_dim}: "
         f"max abs err {err:.3e} ({ratio:.2f} x the elementwise limit), rel err {rel:.3e}; "
-        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+        f"device time in turns SDPA {turns[0]:.4f}, kernel {turns[1]:.4f}, kernel "
+        f"{turns[2]:.4f}, SDPA {turns[3]:.4f} ms; kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), call {call_ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); the tables, built once per "
         f"image: {tables_ms:.4f} ms")
     main = dict(shape=f"SigLIP S={vit_s}, {n_patches} patches, H={heads}, D={head_dim}",
-                tables_ms=tables_ms, full_tile_ab_ms=ab,
-                max_abs_err=err, limit_ratio=ratio, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9)
+                tables_ms=tables_ms, full_tile_ab_ms=ab, turns_ms=turns,
+                max_abs_err=err, limit_ratio=ratio, rel_err=rel, device_ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, tflops=flops / ms / 1e9)
     del q, k, v, mask
     torch.cuda.empty_cache()
     return worst, main
@@ -594,7 +697,8 @@ def phase_int8_matmul(cfg, prefill_t):
                 f"({int((blind != got).sum())} of {got.numel()} values differ)")
             del blind
         if timed:
-            ms = cuda_ms(lambda: m8.int8_matmul(xq, xs, wq, ws, b), 10, 2)
+            ms = device_ms(lambda: m8.int8_matmul(xq, xs, wq, ws, b), 10)
+            call_ms = cuda_ms(lambda: m8.int8_matmul(xq, xs, wq, ws, b), 10, 2)
             plain_ms = cuda_ms(lambda: m8.int8_matmul_plain(xq, xs, wq, ws, b), 2)
 
             def library():  # torch._int_mm + the same epilogue (a yardstick only)
@@ -603,18 +707,21 @@ def phase_int8_matmul(cfg, prefill_t):
                 return (out + b.float() if b is not None else out).bfloat16()
 
             try:
-                lib_ms = cuda_ms(library, 10, 2)
+                library()
             except RuntimeError as err:  # the library call refuses the shape
                 lib_ms = None
                 log(f"[kernels] B5 {label}: torch._int_mm refused: {err}")
+            else:
+                lib_ms = device_ms(library, 10)
             ops = 2 * m * n * k
             bms, by = bound_ms_at(ops, m * k + k * n + 2 * m * n + 4 * (m + n), PEAK_INT8)
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                       tops=ops / ms / 1e9)
+            row.update(device_ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bms, bound_by=by, tops=ops / ms / 1e9)
             lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-            log(f"[kernels] B5 {label}: M={m} K={k} N={n}: bit-identical; kernel {ms:.4f} ms "
-                f"({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.3f} ms, torch._int_mm + "
-                f"epilogue {lib}, bound {bms:.4f} ms ({by})")
+            log(f"[kernels] B5 {label}: M={m} K={k} N={n}: bit-identical; kernel device "
+                f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), call {call_ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, torch._int_mm + epilogue device {lib}, bound {bms:.4f} ms "
+                f"({by})")
         else:
             log(f"[kernels] B5 {label}: M={m} K={k} N={n}: bit-identical")
         results.append(row)
@@ -643,35 +750,59 @@ def int4_error(got, want, x, w):
     return d.max().item(), (d / limit).max().item()
 
 
+def kernels_on_card(fn) -> list:
+    """The names of the kernels one call of fn() ran on the card, in order,
+    as torch.profiler's CUDA activity records them (memory copies and sets
+    included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase_int4_matmul(cfg):
     """B4 against its plain version at the decode shapes of every linear
     (fused and unfused leaves), M in {1, 3, 64}; a control with the nibbles
-    swapped. Times at M=1 (decode); the sum over one decode token's
-    linears."""
+    swapped. Every call is one launch (the launch counter, and the card's
+    own record of one call through torch.profiler), two calls are
+    bit-identical (a fixed order of the split sums), and the fused bias
+    epilogue equals the unbiased output with JAX's bias rounding after it,
+    bit for bit. Times at M=1 (decode); one decode token's 112 launches as
+    a cold-L2 graph."""
     from bagel_tpu_torch.ops import int4_matmul as m4
     from bagel_tpu_torch.utils.quant import dequantize_weight4, quantize_weight_int4
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    d, f = cfg.llm.hidden_size, cfg.llm.intermediate_size
-    qkv = (cfg.llm.num_attention_heads + 2 * cfg.llm.num_key_value_heads) * cfg.llm.head_dim
-    kv = cfg.llm.num_key_value_heads * cfg.llm.head_dim
-    fused = [("qkv", d, qkv), ("o", d, d), ("gate_up", d, 2 * f), ("down", f, d)]
-    shapes = fused + [("q", d, d), ("k / v", d, kv), ("gate / up", d, f)]
+    fused, shapes = int4_shapes(cfg)
     results, worst = [], 0.0
     for label, k, n in shapes:
         w = torch.randn((k, n), generator=gen, device=DEVICE) * 0.02
         leaf = quantize_weight_int4(w)
         del w
         wd = dequantize_weight4(leaf, torch.bfloat16)
+        bias = torch.randn((n,), generator=gen, device=DEVICE).bfloat16()
         for m in (1, 3, 64):
             x = torch.randn((m, k), generator=gen, device=DEVICE).bfloat16()
+            before = m4.int4_matmul.launches
             got = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
+            again = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
+            biased = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"], bias)
             want = m4.int4_matmul_plain(x, leaf["w_p4"], leaf["scale4"])
             torch.cuda.synchronize()
+            check(m4.int4_matmul.launches == before + 3, f"B4 {label} M={m}: not one launch a call")
+            check(torch.equal(got, again), f"B4 {label} M={m}: two calls differ")
+            check(torch.equal(biased, (got.float() + bias.float()).bfloat16()),
+                  f"B4 {label} M={m}: the bias epilogue does not round as JAX does")
             err, ratio = int4_error(got, want, x, wd)
             check(ratio <= 1.0, f"B4 {label} M={m}: max abs {err:.3e} ({ratio:.2f} x the limit)")
             worst = max(worst, err)
+            rps = m4.grid(k, n, m)
             row = dict(shape=label, M=m, K=k, N=n, max_abs_err=err, limit_ratio=ratio,
+                       split_rows=rps, blocks=m4.blocks(k, n, m, rps),
                        on_main_path=(label, k, n) in fused)
             if m == 1 and label == "down":  # negative control: nibbles swapped
                 p = leaf["w_p4"]
@@ -681,18 +812,33 @@ def phase_int4_matmul(cfg):
                 check(b_ratio > 1.0, "B4: the gate accepts swapped nibbles")
                 log(f"[kernels] B4 {label}: control with the nibbles swapped is rejected: "
                     f"max abs {b_err:.3e} ({b_ratio:.1f} x the limit)")
+                # one launch a call, as the card records it (K split here)
+                names = kernels_on_card(lambda: m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"],
+                                                               bias))
+                check(len(names) == 1 and "int4_matmul_kernel" in names[0],
+                      f"B4 {label}: one biased call ran {names} on the card, not one kernel")
+                log(f"[kernels] B4 {label}: one biased call ran one kernel on the card "
+                    f"(torch.profiler): {names[0][:60]}")
             if m == 1:
-                ms = cuda_ms(lambda: m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"]), 50, 3)
+                def call():
+                    return m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
+
+                # device time over 50 calls on one weight: warm in L2 where
+                # it is smaller than the 50 MB cache (the token below is cold)
+                ms, call_ms, h_us = device_ms(call, 50), cuda_ms(call, 50, 3), host_us(call)
                 plain_ms = cuda_ms(lambda: m4.int4_matmul_plain(x, leaf["w_p4"], leaf["scale4"]),
                                    5)
-                lib_ms = cuda_ms(lambda: torch.matmul(x, wd), 50, 3)
+                lib_ms = device_ms(lambda: torch.matmul(x, wd), 50)
                 bytes_ = k * n // 2 + (k // 128) * n * 4 + 2 * m * (k + n)
                 bms, by = bound_ms_at(2 * m * k * n, bytes_, PEAK_FLOPS)
-                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                           bound_by=by, gb_per_s=bytes_ / ms / 1e6)
-                log(f"[kernels] B4 {label}: K={k} N={n} M=1: max abs err {err:.3e} "
-                    f"({ratio:.2f} x the limit); kernel {ms:.4f} ms ({bytes_ / ms / 1e6:.0f} "
-                    f"GB/s), plain {plain_ms:.3f} ms, torch.matmul on the bf16 weight "
+                row.update(device_ms=ms, call_ms=call_ms, host_us=h_us, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                           gb_per_s=bytes_ / ms / 1e6)
+                log(f"[kernels] B4 {label}: K={k} N={n} M=1, {rps} packed rows a split, "
+                    f"{row['blocks']} blocks: max abs err {err:.3e} ({ratio:.2f} x the limit), "
+                    f"two calls bit-identical, bias epilogue exact; kernel device {ms:.4f} ms "
+                    f"({bytes_ / ms / 1e6:.0f} GB/s), call {call_ms:.4f} ms, host {h_us:.1f} µs "
+                    f"a call, plain {plain_ms:.3f} ms, torch.matmul on the bf16 weight device "
                     f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
             else:
                 log(f"[kernels] B4 {label}: K={k} N={n} M={m}: max abs err {err:.3e} "
@@ -700,13 +846,109 @@ def phase_int4_matmul(cfg):
             results.append(row)
         del leaf, wd
         torch.cuda.empty_cache()
-    L = cfg.llm.num_hidden_layers
-    token = {key: L * sum(r[key] for r in results if r["on_main_path"] and r["M"] == 1)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"[kernels] B4 one decode token ({L} layers x 4 fused linears): kernel "
-        f"{token['ms']:.3f} ms, plain {token['plain_ms']:.2f} ms, torch.matmul on bf16 "
-        f"weights {token['library_ms']:.3f} ms, bound {token['bound_ms']:.3f} ms (bytes)")
+    token = int4_token(cfg, m4, gen, fused, results)
     return worst, results, token
+
+
+def int4_shapes(cfg):
+    """B4's decode shapes (label, K, N): the fused leaves the main path
+    runs, and all of them with the unfused ones."""
+    d, f = cfg.llm.hidden_size, cfg.llm.intermediate_size
+    qkv = (cfg.llm.num_attention_heads + 2 * cfg.llm.num_key_value_heads) * cfg.llm.head_dim
+    kv = cfg.llm.num_key_value_heads * cfg.llm.head_dim
+    fused = [("qkv", d, qkv), ("o", d, d), ("gate_up", d, 2 * f), ("down", f, d)]
+    return fused, fused + [("q", d, d), ("k / v", d, kv), ("gate / up", d, f)]
+
+
+def int4_split_sweep(rounds: int = 2) -> dict:
+    """Not part of the smoke: B4's device time at M=1 at each decode shape
+    for every split of K the kernel takes (16, 32, 64, ... packed rows up
+    to one split, within the workspace), the splits timed in turns,
+    `rounds` times (forward, back, ...), beside the grid helper's choice.
+    Run:  python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build(); c.int4_split_sweep()"
+    """
+    from bagel_tpu_torch.configs import BagelConfig
+    from bagel_tpu_torch.ops import int4_matmul as m4
+    from bagel_tpu_torch.utils.quant import dequantize_weight4, quantize_weight_int4
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    out = {}
+    for label, k, n in int4_shapes(BagelConfig())[1]:
+        leaf = quantize_weight_int4(torch.randn((k, n), generator=gen, device=DEVICE) * 0.02)
+        wd = dequantize_weight4(leaf, torch.bfloat16)
+        x = torch.randn((1, k), generator=gen, device=DEVICE).bfloat16()
+        want = m4.int4_matmul_plain(x, leaf["w_p4"], leaf["scale4"])
+        splits, rps = [], 16
+        while True:
+            if rps >= k // 2 or m4.blocks(k, n, 1, rps) <= m4._MAX_BLOCKS:
+                splits.append(rps)
+            if rps >= k // 2:
+                break
+            rps = 32 if rps == 16 else 64 if rps == 32 else rps * 2
+        times = {r: [] for r in splits}
+        for turn in range(rounds):
+            for r in splits if turn % 2 == 0 else splits[::-1]:
+                def call(r=r):
+                    return m4._run(x, leaf["w_p4"], leaf["scale4"], None, r)
+
+                check(int4_error(call(), want, x, wd)[1] <= 1.0,
+                      f"B4 sweep {label}: split {r} fails the gate")
+                times[r].append(device_ms(call, 50))
+        out[label] = {f"{r} rows, {m4.blocks(k, n, 1, r)} blocks": t for r, t in times.items()}
+        log(f"[sweep] B4 {label} K={k} N={n} M=1, device ms by packed rows a split: "
+            f"{json.dumps(out[label])}; the helper's choice: {m4.grid(k, n)} rows")
+        del leaf, wd
+        torch.cuda.empty_cache()
+    return out
+
+
+def int4_token(cfg, m4, gen, fused, results):
+    """One decode token's B4 work: a CUDA graph of the 112 launches (28
+    layers x the 4 fused linears) over 28 layers' own int4 weights (3.47
+    GB: each weight is cold in the 50 MB L2 when it is read), its device
+    time; the same 112 calls back to back (call time, host included); the
+    plain version over the same weights; and the yardstick, torch.matmul
+    over 28 layers' own bf16 weights, in device time."""
+    L = cfg.llm.num_hidden_layers
+    xs = {k: torch.randn((1, k), generator=gen, device=DEVICE).bfloat16() for _, k, _ in fused}
+    layers = [[(torch.randint(0, 256, (k // 2, n), generator=gen, device=DEVICE,
+                              dtype=torch.uint8),
+                torch.rand((k // 128, n), generator=gen, device=DEVICE) * 1e-2 + 1e-3)
+               for _, k, n in fused] for _ in range(L)]
+    nbytes = sum(w.numel() + s.numel() * 4 for layer in layers for w, s in layer)
+
+    def token(fn=m4.int4_matmul):
+        for layer in layers:
+            for w, s in layer:
+                fn(xs[w.shape[0] * 2], w, s)
+
+    ms = device_ms(token, 3)
+    call_ms = cuda_ms(token, 5, 1)
+    plain_ms = cuda_ms(lambda: token(m4.int4_matmul_plain), 2, 1)
+    del layers
+    torch.cuda.empty_cache()
+    bf16 = [[torch.randn((k, n), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+             for _, k, n in fused] for _ in range(L)]
+
+    def token_lib():
+        for layer in bf16:
+            for w in layer:
+                torch.matmul(xs[w.shape[0]], w)
+
+    lib_ms = device_ms(token_lib, 3)
+    lib_gb = sum(w.numel() * 2 for layer in bf16 for w in layer) / 1e9
+    del bf16
+    torch.cuda.empty_cache()
+    main = [r for r in results if r["on_main_path"] and r["M"] == 1]
+    token = dict(device_ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 weight_gb=nbytes / 1e9, library_weight_gb=lib_gb,
+                 bound_ms=L * sum(r["bound_ms"] for r in main))
+    log(f"[kernels] B4 one decode token ({L} layers x 4 fused linears over {nbytes / 1e9:.2f} GB "
+        f"of distinct int4 weights, cold in L2): kernel device {ms:.3f} ms "
+        f"({nbytes / ms / 1e6:.0f} GB/s, one CUDA graph), call {call_ms:.3f} ms (the 112 calls "
+        f"back to back), plain {plain_ms:.2f} ms; torch.matmul over {lib_gb:.1f} GB of "
+        f"distinct bf16 weights device {lib_ms:.3f} ms; bound {token['bound_ms']:.3f} ms (bytes)")
+    return token
 
 
 # ---------------------------------------------------------------------------
@@ -786,25 +1028,28 @@ def phase_flash_q8(cfg, prompt_len, prefill_t, vqa):
                 f"{b_err:.3e} ({b_ratio:.1f} x the elementwise limit), rel {b_rel:.3e}")
             del blind
         del got, want
-        ms = cuda_ms(lambda: flash.flash_cached_attention_q8(q8, k8, v8, qs, ks, vs, p, vl,
-                                                             causal=causal), 20, 3)
-        prep_ms = cuda_ms(lambda: flash.q8_prep(q, k, v, p, vl), 5)
+        def call():
+            return flash.flash_cached_attention_q8(q8, k8, v8, qs, ks, vs, p, vl, causal=causal)
+
+        ms, call_ms = device_ms(call, 20), cuda_ms(call, 20, 3)
+        prep_ms = cuda_ms(lambda: flash.q8_prep(q, k, v, p, vl), 5)  # syncs: int(ends.max())
         plain_ms = cuda_ms(lambda: flash.flash_q8_plain(q8, k8, v8, qs, ks, vs, p, vl,
                                                         causal=causal), 2)
         mask = cache_mask(t, p, vl, causal)
-        lib_ms = cuda_ms(sdpa_call(q, k, v, mask), 5)
+        lib_ms = device_ms(sdpa_call(q, k, v, mask), 5)
         flops, _ = attention_work(past, valid, t, 28, 4, 128, causal)
         bytes_ = (b * t * 28 * 128 * 3 + 2 * sum(pp + min(nn, t) for pp, nn in zip(past, valid))
                   * 4 * 128)
         bms, by = bound_ms_at(flops, bytes_, PEAK_INT8)
         results.append(dict(shape=label, B=b, T=t, past=past, valid=valid, causal=causal,
-                            max_abs_err=err, limit_ratio=ratio, rel_err=rel, ms=ms,
-                            prep_ms=prep_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=bms, bound_by=by, tops=flops / ms / 1e9))
+                            max_abs_err=err, limit_ratio=ratio, rel_err=rel,
+                            device_ms=ms, call_ms=call_ms, prep_ms=prep_ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=bms, bound_by=by, tops=flops / ms / 1e9))
         log(f"[kernels] B2 {label}: T={t} past={past} max abs err {err:.3e} ({ratio:.2f} x "
-            f"the elementwise limit), rel err {rel:.3e}; kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TOP/s), q8 prep {prep_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"SDPA in bf16 (another function: no int8) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"the elementwise limit), rel err {rel:.3e}; kernel device {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TOP/s), call {call_ms:.4f} ms, q8 prep {prep_ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, SDPA in bf16 (another function: no int8) device "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         del args, q, k, v, prep, q8, k8, v8, mask
         torch.cuda.empty_cache()
     return worst, results
@@ -1401,6 +1646,29 @@ def phase_vqa_int4(engine, card):
                 logits_rel=rel, decode_ms=decode_ms, steps=steps)
 
 
+def phase_all_kernels():
+    """Phase 3 (3a-3e) on the smoke's configuration: (cfg, tokenizer, and
+    each sub-phase's result)."""
+    from bagel_tpu_torch.configs import BagelConfig
+    from bagel_tpu_torch.data.tokenizer import MockTokenizer
+    from bagel_tpu_torch.inference.engine import _bucket
+
+    cfg = BagelConfig()  # BAGEL-7B-MoT widths + SigLIP so400m, both paths
+    tok = MockTokenizer(cfg.llm.vocab_size)
+    prompt_len = len(tok.encode(PROMPT)) + 2
+    n_patches = (VQA_PX // cfg.vit.patch_size) ** 2
+    q_len = len(tok.encode(QUESTION)) + 2
+    vqa_shapes = dict(vit_t=_bucket(n_patches + 2), vit_valid=n_patches + 2,
+                      q_len=q_len, q_t=_bucket(q_len))
+    return (cfg, tok,
+            phase_kernels(cfg, prompt_len, _bucket(prompt_len), vqa_shapes),
+            phase_sparse_kernels(vqa_shapes["vit_t"] - 2, n_patches,
+                                 cfg.vit.num_attention_heads, cfg.vit.head_dim),
+            phase_int8_matmul(cfg, _bucket(prompt_len)),
+            phase_int4_matmul(cfg),
+            phase_flash_q8(cfg, prompt_len, _bucket(prompt_len), vqa_shapes))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1411,24 +1679,11 @@ def main() -> int:
     name, card = phase_device()
     phase_build()
 
-    from bagel_tpu_torch.configs import BagelConfig
-    from bagel_tpu_torch.data.tokenizer import MockTokenizer
-    from bagel_tpu_torch.inference.engine import BagelEngine, _bucket
+    from bagel_tpu_torch.inference.engine import BagelEngine
     from bagel_tpu_torch.models.bagel import init_bagel_params
 
-    cfg = BagelConfig()  # BAGEL-7B-MoT widths + SigLIP so400m, both paths
-    tok = MockTokenizer(cfg.llm.vocab_size)
-    prompt_len = len(tok.encode(PROMPT)) + 2
-    n_patches = (VQA_PX // cfg.vit.patch_size) ** 2
-    q_len = len(tok.encode(QUESTION)) + 2
-    vqa_shapes = dict(vit_t=_bucket(n_patches + 2), vit_valid=n_patches + 2,
-                      q_len=q_len, q_t=_bucket(q_len))
-    worst, shapes = phase_kernels(cfg, prompt_len, _bucket(prompt_len), vqa_shapes)
-    worst3, main3 = phase_sparse_kernels(vqa_shapes["vit_t"] - 2, n_patches,
-                                         cfg.vit.num_attention_heads, cfg.vit.head_dim)
-    b5_rows = phase_int8_matmul(cfg, _bucket(prompt_len))
-    worst4, b4_rows, b4_token = phase_int4_matmul(cfg)
-    worst2, b2_rows = phase_flash_q8(cfg, prompt_len, _bucket(prompt_len), vqa_shapes)
+    cfg, tok, (worst, shapes), (worst3, main3), b5_rows, (worst4, b4_rows, b4_token), \
+        (worst2, b2_rows) = phase_all_kernels()
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1452,7 +1707,6 @@ def main() -> int:
     main_shape = shapes[0]
     library = "torch.nn.functional.scaled_dot_product_attention (bool mask, enable_gqa)"
     gate = next(r for r in b5_rows if r["shape"] == "gen gate")
-    b4_down = next(r for r in b4_rows if r["shape"] == "down" and r["M"] == 1)
     b2_main = b2_rows[0]
 
     def by_path(key):
@@ -1470,7 +1724,9 @@ def main() -> int:
             launches_by_path=by_path("b1"),
             max_abs_err=worst,
             tol=KERNEL_TOL,
-            ms=main_shape["ms"],
+            ms=main_shape["device_ms"],  # the kernel's time: its device time
+            device_ms=main_shape["device_ms"],
+            call_ms=main_shape["call_ms"],
             plain_ms=main_shape["plain_ms"],
             bound_ms=main_shape["bound_ms"],
             bound_by=main_shape["bound_by"],
@@ -1488,7 +1744,9 @@ def main() -> int:
             launches_by_path=by_path("b3"),
             max_abs_err=worst3,
             tol=KERNEL_TOL + ", over the rows that see a key",
-            ms=main3["ms"],
+            ms=main3["device_ms"],  # the kernel's time: its device time
+            device_ms=main3["device_ms"],
+            call_ms=main3["call_ms"],
             plain_ms=main3["plain_ms"],
             bound_ms=main3["bound_ms"],
             bound_by=main3["bound_by"],
@@ -1506,7 +1764,9 @@ def main() -> int:
             launches_by_path=by_path("b2"),
             max_abs_err=worst2,
             tol=KERNEL_TOL + ", against the plain version at the kernel's key tile (64)",
-            ms=b2_main["ms"],
+            ms=b2_main["device_ms"],  # the kernel's time: its device time
+            device_ms=b2_main["device_ms"],
+            call_ms=b2_main["call_ms"],
             plain_ms=b2_main["plain_ms"],
             bound_ms=b2_main["bound_ms"],
             bound_by=b2_main["bound_by"],
@@ -1524,13 +1784,16 @@ def main() -> int:
             launches_by_path=by_path("b4"),
             max_abs_err=worst4,
             tol="|err| <= one bf16 ulp of plain + K 2^-24 sum|x w| (the f32 sums' order)",
-            ms=b4_down["ms"],
-            plain_ms=b4_down["plain_ms"],
-            bound_ms=b4_down["bound_ms"],
-            bound_by=b4_down["bound_by"],
-            library_ms=b4_down["library_ms"],
-            library="torch.matmul on the weight dequantized to bf16 beforehand",
-            shape="down K=18944 N=3584 M=1 (decode)",
+            ms=b4_token["device_ms"],  # the kernel's time: its device time
+            device_ms=b4_token["device_ms"],
+            call_ms=b4_token["call_ms"],
+            plain_ms=b4_token["plain_ms"],
+            bound_ms=b4_token["bound_ms"],
+            bound_by="bytes",
+            library_ms=b4_token["library_ms"],
+            library="torch.matmul on weights dequantized to bf16 beforehand",
+            shape="one decode token: 112 launches (28 layers x qkv, o, gate_up, down), M=1, "
+                  "each layer's own weights (cold in L2)",
             per_decode_token=b4_token,
             shapes=b4_rows,
         ),
@@ -1543,7 +1806,9 @@ def main() -> int:
             launches_by_path=by_path("b5"),
             max_abs_err=0.0,
             tol="bit-identical to the plain version",
-            ms=gate["ms"],
+            ms=gate["device_ms"],  # the kernel's time: its device time
+            device_ms=gate["device_ms"],
+            call_ms=gate["call_ms"],
             plain_ms=gate["plain_ms"],
             bound_ms=gate["bound_ms"],
             bound_by=gate["bound_by"],

@@ -50,11 +50,14 @@ def _segments(lens, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,kh,d,train", [(16, 16, 72, False), (28, 4, 128, True)])
-def test_sparse_kernel_matches_plain_on_card(h, kh, d, train):
-    """B3 at SigLIP's head dim (three packed images and a padded tail) and
-    at the LLM's training shape (GQA 28/4 under the full causal + fan +
-    noise predicate); S is ragged (not a multiple of the 64-row tile)."""
+@pytest.mark.parametrize("h,kh,d,train,strided", [(16, 16, 72, False, False),
+                                                  (16, 16, 72, False, True),
+                                                  (28, 4, 128, True, False)])
+def test_sparse_kernel_matches_plain_on_card(h, kh, d, train, strided):
+    """B3 at SigLIP's head dim (three packed images and a padded tail),
+    also on q/k/v views of one fused projection as the tower hands them in,
+    and at the LLM's training shape (GQA 28/4 under the full causal + fan +
+    noise predicate); S is ragged (not a multiple of either tile)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -67,9 +70,13 @@ def test_sparse_kernel_matches_plain_on_card(h, kh, d, train):
         fan[550:700], fan[700:950], noise[700:950] = 2, 3, 3
     else:
         fan, noise = doc, torch.full_like(doc, -1)
-    q = torch.randn((s, h, d), generator=gen, device="cuda").bfloat16()
-    k = torch.randn((s, kh, d), generator=gen, device="cuda").bfloat16()
-    v = torch.randn((s, kh, d), generator=gen, device="cuda").bfloat16()
+    if strided:  # views of one [s, (h + 2 kh) d] projection, strides ((h + 2 kh) d, d, 1)
+        qkv = torch.randn((s, (h + 2 * kh) * d), generator=gen, device="cuda").bfloat16()
+        q, k, v = (t.view(s, -1, d) for t in qkv.split([h * d, kh * d, kh * d], dim=1))
+    else:
+        q = torch.randn((s, h, d), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((s, kh, d), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((s, kh, d), generator=gen, device="cuda").bfloat16()
     before = sparse_flash.sparse_packed_attention.launches
     got = sparse_flash.sparse_packed_attention(q, k, v, doc, fan, noise)
     torch.cuda.synchronize()
@@ -133,6 +140,84 @@ def test_int4_matmul_matches_plain_on_card(m, k, n):
     w = dequantize_weight4(leaf, torch.bfloat16).float()
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
     assert ((got - want).abs() <= ulp + k * 2.0 ** -24 * (x.float().abs() @ w.abs())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 3584, 3584), (3, 18944, 3584), (1, 128, 528 * 256)])
+def test_int4_matmul_deterministic_with_fused_bias_on_card(m, k, n):
+    """B4 gives the same bits on two calls (the partial sums of a split K
+    are added in split order by whichever block arrives last) where K is
+    split and where it is not (one scale group), its fused bias epilogue
+    equals the unbiased output followed by JAX's rounding, bf16(f32(out) +
+    f32(b)), for bf16 and f32 biases, and a biased call runs one kernel on
+    the card (torch.profiler's record)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from torch.profiler import ProfilerActivity, profile
+
+    from bagel_tpu_torch.ops import int4_matmul as m4
+    from bagel_tpu_torch.utils.quant import quantize_weight_int4
+
+    assert (m4.grid(k, n, m) < k // 2) == (n != 528 * 256)  # K split, or not
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    leaf = quantize_weight_int4(torch.randn((k, n), generator=gen, device="cuda") * 0.02)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    first = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
+    again = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for dtype in (torch.bfloat16, torch.float32):
+        b = torch.randn((n,), generator=gen, device="cuda").to(dtype)
+        before = m4.int4_matmul.launches
+        got = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"], b)
+        torch.cuda.synchronize()
+        assert m4.int4_matmul.launches == before + 1
+        assert torch.equal(got, (first.float() + b.float()).bfloat16())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"], b)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "int4_matmul_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_int4_matmul_workspace_and_graph_capture_on_card():
+    """B4's workspace (the split sums and the arrival counters) is made
+    outside CUDA-graph capture: a device's first call inside capture is
+    refused. Once it exists, a shape first seen inside capture replays
+    right, and eager calls after the replay give the same bits (the
+    counters are back at 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.ops import int4_matmul as m4
+    from bagel_tpu_torch.utils.quant import dequantize_weight4, quantize_weight_int4
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    k, n = 3584, 1536  # a shape no other test uses: K split over 168 blocks
+    leaf = quantize_weight_int4(torch.randn((k, n), generator=gen, device="cuda") * 0.02)
+    x = torch.randn((1, k), generator=gen, device="cuda").bfloat16()
+    assert m4.grid(k, n) < k // 2
+    m4._workspace.pop(torch.cuda.current_device(), None)
+    m4._grids.pop((k, n, 1), None)
+    with pytest.raises(RuntimeError, match="workspace"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
+    small = quantize_weight_int4(torch.randn((256, 512), generator=gen, device="cuda"))
+    m4.int4_matmul(x[:, :256], small["w_p4"], small["scale4"])  # makes the workspace
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = [m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager[0]) and torch.equal(eager[0], eager[1])
+    want = m4.int4_matmul_plain(x, leaf["w_p4"], leaf["scale4"]).float()
+    w = dequantize_weight4(leaf, torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+    assert ((captured.float() - want).abs() <= ulp + k * 2.0 ** -24 * (x.float().abs() @ w.abs())).all()
 
 
 @pytest.mark.cuda

@@ -92,12 +92,83 @@ def test_eligibility_follows_the_jax_rule_on_cuda():
     assert not t4.int4_gemv_eligible(1, odd, cuda)
 
 
-@pytest.mark.parametrize("in_,out", [(3584, 4608), (3584, 512), (3584, 3584),
-                                     (3584, 37888), (18944, 3584)])
-def test_split_k_fills_the_card(in_, out):
-    """Every decode linear of the MoT gets >= 132 blocks and covers each
-    slice of 8 packed rows exactly once."""
-    per, splits = t4.split_k(in_, out)
-    tiles = -(-out // 512)
-    assert tiles * splits >= 132
-    assert (splits - 1) * per < in_ // 16 <= splits * per
+_SHAPES = [(3584, 4608), (3584, 512), (3584, 3584), (3584, 37888), (18944, 3584),
+           (3584, 18944)]
+
+
+@pytest.mark.parametrize("in_,out,rows", [
+    pytest.param(i, o, r, id=f"{i}-{o}" if r == 1 else f"{i}-{o}-rows{r}")
+    for r in (1, 64) for i, o in _SHAPES])
+def test_split_k_fills_the_card(in_, out, rows):
+    """Every decode linear of the MoT (fused qkv, k/v, o and q, fused
+    gate_up, down, gate/up) gets >= 132 blocks; the splits of K cover each
+    packed row exactly once, each 64-row step of a split lies in one scale
+    group, and where K is split the workspace holds a slot for every
+    block."""
+    rps = t4.grid(in_, out, rows)
+    kp, tiles = in_ // 2, -(-out // t4._BN)
+    groups = 1 if rows == 1 else -(-rows // t4._ROWS_PER_BLOCK)
+    splits = -(-kp // rps)
+    assert rps in (16, 32) or rps % 64 == 0
+    n_blocks = t4.blocks(in_, out, rows, rps)
+    assert n_blocks == tiles * groups * splits >= 132
+    covered = np.zeros(kp, np.int64)
+    for s in range(splits):
+        rows_of_split = np.arange(s * rps, min(kp, (s + 1) * rps))
+        covered[rows_of_split] += 1
+        step = min(rps, 64)  # the kernel's step through a split
+        for row0 in range(s * rps, min(kp, (s + 1) * rps), step):
+            assert row0 // 64 == (row0 + step - 1) // 64
+    assert (covered == 1).all()
+    assert splits == 1 or n_blocks <= t4._MAX_BLOCKS
+    assert tiles * groups <= t4._COUNTERS
+
+
+@pytest.mark.parametrize("bias_dtype", [np.float32, "bfloat16"])
+def test_plain_bias_rounds_as_jax(bias_dtype):
+    """The bias epilogue of the plain path (the kernel's function) equals
+    JAX's `_linear` on an int4 leaf with a bias: bf16(f32(bf16 out) +
+    f32(b)) as bagel_tpu/models/qwen2.py:_linear rounds it after its kernel,
+    bit for bit wherever the unbiased outputs agree."""
+    rng = np.random.default_rng(11)
+    in_, out = 256, 512
+    w = (rng.standard_normal((in_, out)) * 0.1).astype(np.float32)
+    x = rng.standard_normal((2, in_)).astype(np.float32)
+    b = rng.standard_normal(out).astype(np.float32)
+    leaf = dict(jquantize_int4(jnp.asarray(w), group=128))
+    leaf["b"] = jnp.asarray(b, dtype=jnp.bfloat16 if bias_dtype == "bfloat16" else jnp.float32)
+    tleaf = params_from_numpy({k: np.asarray(v) for k, v in leaf.items()}, "cpu")
+    xb = jnp.asarray(x, dtype=jnp.bfloat16)
+    # JAX's int4 branch on an eligible leaf: the kernel's bf16 out, then the bias in f32
+    unbiased = j4.int4_matmul(xb, leaf["w_p4"], leaf["scale4"], interpret=True)
+    want = np.asarray((unbiased.astype(jnp.float32) + leaf["b"].astype(jnp.float32))
+                      .astype(jnp.bfloat16).astype(jnp.float32))
+    plain = t4.int4_matmul_plain(torch.tensor(x), tleaf["w_p4"], tleaf["scale4"])
+    got = t4.int4_matmul(torch.tensor(x), tleaf["w_p4"], tleaf["scale4"], tleaf["b"])
+    assert got.dtype == torch.bfloat16
+    same = plain.float().numpy() == np.asarray(unbiased.astype(jnp.float32))
+    assert same.mean() > 0.99  # the unbiased products round alike almost everywhere
+    np.testing.assert_array_equal(got.float().numpy()[same], want[same])
+
+
+def test_wrapper_checks_refuse_what_the_kernel_does_not_take():
+    """The checks the CUDA path runs before it passes pointers: uint8
+    nibbles and f32 scales, matching shapes, at most 64 rows, contiguous
+    16-byte-aligned weights, and a contiguous bf16 or f32 bias of the
+    output's width."""
+    leaf = quantize_weight_int4(torch.zeros((256, 512)))
+    w, s = leaf["w_p4"], leaf["scale4"]
+    x = torch.zeros((2, 256), dtype=torch.bfloat16)
+    for bias in (None, torch.zeros(512, dtype=torch.bfloat16), torch.zeros(512)):
+        t4._check(x, w, s, bias)  # accepted
+    with pytest.raises(TypeError, match="uint8"):
+        t4._check(x, w.to(torch.int8), s, None)
+    with pytest.raises(ValueError, match="shapes"):
+        t4._check(x, w, s[:1], None)
+    with pytest.raises(ValueError, match="rows"):
+        t4._check(torch.zeros((65, 256)), w, s, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        t4._check(x, w.t().contiguous().t(), s, None)
+    for bad in (torch.zeros(512, dtype=torch.float16), torch.zeros(256), torch.zeros(1024)[::2]):
+        with pytest.raises(ValueError, match="bias"):
+            t4._check(x, w, s, bad)

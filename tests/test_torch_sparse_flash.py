@@ -95,50 +95,53 @@ def test_liveness_skips_cross_document_blocks():
 
 
 def test_kernel_tables_pad_a_ragged_sequence():
-    """At the kernel's tile size, a ragged S is padded with document 0 /
-    fan -1: the tile indices equal JAX's block_liveness on the padded ids."""
-    s = 3 * tsf.BLOCK - 17
+    """At the kernel's tiles (BLOCK_Q query rows, BLOCK_K keys), a ragged S
+    is padded with document 0 / fan -1: the tile indices equal JAX's
+    block_liveness on the padded ids."""
+    s = 3 * tsf.BLOCK_Q - 17
     seg = np.zeros(s, np.int32)
     seg[:70] = 1
     seg[70:150] = 2
     noise = np.full(s, -1, np.int32)
     entries, cnt = tsf.kernel_tables(*(torch.tensor(x) for x in (seg, seg, noise)))
-    padded = np.zeros(3 * tsf.BLOCK, np.int32)
+    padded = np.zeros(3 * tsf.BLOCK_Q, np.int32)
     padded[:s] = seg
     want_idx, want_cnt = jsf.block_liveness(jnp.asarray(padded), jnp.asarray(padded),
-                                            tsf.BLOCK, tsf.BLOCK)
+                                            tsf.BLOCK_Q, tsf.BLOCK_K)
     np.testing.assert_array_equal((entries & ~tsf.FULL_TILE).numpy(), np.asarray(want_idx))
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
+    assert int(cnt[2]) == 0  # the last q tile holds padding only
 
 
 @pytest.mark.parametrize("kind", ["train", "segments"])
 def test_full_tile_flags_are_exact_where_set(kind):
     """A tile the kernel's table flags as fully visible has every (query,
     key) pair visible under train_packed_mask; for one image padded to a
-    ragged length every tile but the padded last row and column is flagged."""
+    ragged length every tile but those holding padding is flagged."""
     rng = np.random.default_rng(3)
+    bq, bk = tsf.BLOCK_Q, tsf.BLOCK_K
     if kind == "train":
-        s = 6 * tsf.BLOCK
-        ids = [torch.tensor(x) for x in _meta(s, rng, n_docs=2, pad=tsf.BLOCK + 5)]
+        s = 6 * bq
+        ids = [torch.tensor(x) for x in _meta(s, rng, n_docs=2, pad=bq + 5)]
     else:
-        s = 5 * tsf.BLOCK - 20
+        s = 5 * bq - 20
         seg = torch.zeros(s, dtype=torch.int32)
-        seg[: 5 * tsf.BLOCK - 40] = 1
+        seg[: 5 * bq - 40] = 1
         ids = [seg, seg, torch.full_like(seg, -1)]
     entries, cnt = tsf.kernel_tables(*ids)
-    nq = -(-s // tsf.BLOCK)
-    mask = torch.zeros(nq * tsf.BLOCK, nq * tsf.BLOCK, dtype=torch.bool)
+    nq = -(-s // bq)
+    mask = torch.zeros(nq * bq, nq * bq, dtype=torch.bool)
     mask[:s, :s] = tattn.train_packed_mask(*ids)
     flagged = 0
     for i in range(nq):
         for e in entries[i, : cnt[i]].tolist():
-            tile = mask[i * tsf.BLOCK:(i + 1) * tsf.BLOCK, (e & ~tsf.FULL_TILE) * tsf.BLOCK:]
+            tile = mask[i * bq:(i + 1) * bq, (e & ~tsf.FULL_TILE) * bk:]
             if e & tsf.FULL_TILE:
-                assert tile[:, : tsf.BLOCK].all()
+                assert tile[:, :bk].all()
                 flagged += 1
     assert flagged > 0
-    if kind == "segments":
-        assert flagged == (nq - 1) ** 2
+    if kind == "segments":  # q tiles without padding x key tiles without padding
+        assert flagged == (nq - 1) * ((5 * bq - 40) // bk)
 
 
 def test_all_padding_rows_are_zero():
@@ -239,4 +242,5 @@ def test_wrapper_checks_refuse_what_the_kernel_does_not_take():
     tables = tsf.kernel_tables(seg, seg, -seg)
     tsf._check_tables(tables, s, q.device)  # accepted
     with pytest.raises(ValueError, match="tables"):
-        tsf._check_tables(tsf.kernel_tables(seg[:64], seg[:64], -seg[:64]), s, q.device)
+        big = torch.ones(2 * tsf.BLOCK_Q, dtype=torch.int32)  # tables of another tile count
+        tsf._check_tables(tsf.kernel_tables(big, big, -big), s, q.device)
