@@ -46,6 +46,7 @@ from bagel_tpu_torch.ops.embeds import (
 )
 from bagel_tpu_torch.ops.flash import kv_bucket
 from bagel_tpu_torch.utils.device import resolve_device
+from bagel_tpu_torch.utils.quant import w8a8_kmajor
 
 
 VLM_THINK_SYSTEM_PROMPT = (
@@ -227,7 +228,11 @@ class BagelEngine:
         the CPU; "dense" takes the plain masked attention everywhere. The
         option is the reference switch: `chip_smoke.py` holds the kernel
         path against a "dense" engine on the card; users leave it at
-        "auto"."""
+        "auto".
+
+        On CUDA every w8a8 weight of `params` is made k-major in place
+        (`utils.quant.w8a8_kmajor`, a no-op where it already is), the layout
+        the w8a8 kernel reads."""
         self.device = resolve_device(device)
         self.attn_impl = attn_impl
         emb = params["llm"]["embed"]
@@ -239,6 +244,8 @@ class BagelEngine:
             raise ValueError(
                 f"params are on {emb_dev}, the engine runs on {self.device}"
             )
+        if self.device.type == "cuda":
+            w8a8_kmajor(params["llm"])
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer

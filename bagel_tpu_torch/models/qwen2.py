@@ -49,7 +49,7 @@ from bagel_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
 from bagel_tpu_torch.ops.norms import rms_norm
 from bagel_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from bagel_tpu_torch.utils.device import resolve_device
-from bagel_tpu_torch.utils.quant import dequantize_weight4
+from bagel_tpu_torch.utils.quant import dequantize_weight4, is_kmajor
 
 
 @dataclasses.dataclass
@@ -218,10 +218,18 @@ def _linear(x: torch.Tensor, p) -> torch.Tensor:
 
 
 def _concat_leaves(leaves: list) -> dict:
-    """Concat matching weight-dict leaves along the output (last) axis."""
+    """Concat matching weight-dict leaves along the output (last) axis; k-major
+    w8a8 weights (`utils.quant.w8a8_kmajor`) stay k-major."""
     keys = set(leaves[0])
     assert all(set(p) == keys for p in leaves), "heterogeneous leaves"
-    return {k: torch.cat([p[k] for p in leaves], dim=-1) for k in keys}
+
+    def cat(k):
+        ts = [p[k] for p in leaves]
+        if k == "w_q8" and all(is_kmajor(t) for t in ts):
+            return torch.cat([t.transpose(-1, -2) for t in ts], dim=-2).transpose(-1, -2)
+        return torch.cat(ts, dim=-1)
+
+    return {k: cat(k) for k in keys}
 
 
 def fuse_llm_params(params: dict, inplace: bool = False) -> dict:

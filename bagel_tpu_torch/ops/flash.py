@@ -9,7 +9,11 @@ Rows i >= valid give 0. GQA maps query head h to KV head h // (H/KH).
 
 On a CUDA tensor `flash_cached_attention` launches the hand-written Hopper
 kernel `csrc/flash_cached_attention.cu` (bf16, D=128) or raises; it takes
-the plain version `flash_cached_attention_plain` only for CPU tensors.
+the plain version `flash_cached_attention_plain` only for CPU tensors. A
+decode step (T == 1) takes the source's split-KV pair instead: the GQA group
+packed into one query tile, the live keys split across `decode_splits`
+blocks, then a combine (`flash_decode_split_plain` is its arithmetic in
+plain PyTorch, a test reference).
 
 With `int8_compute` (the w8a8 attention; by default the JAX package's
 switch `BAGEL_FLASH_INT8`, read at each call) q/k/v are quantized to int8
@@ -34,6 +38,9 @@ KERNEL = "flash_cached_attention"
 KERNEL_Q8 = "flash_cached_attention_q8"
 HEAD_DIM = 128  # compiled into the kernels
 Q8_BLOCK_K = 64  # the int8 kernel's key tile: its result depends on it
+DECODE_BLOCK_K = 64  # the decode kernel's key tile: a split takes whole tiles
+DECODE_MAX_GROUP = 16  # query heads per KV head the decode tile holds (m16)
+DECODE_MAX_SPLITS = 256  # the combine kernel's table of split weights
 NEG_INF = -1e30  # the masked score of the JAX kernels
 
 
@@ -72,6 +79,78 @@ def flash_cached_attention_plain(
                               scale=scale, block_k=block_k, out_dtype=q.dtype)
     mask = cache_block_mask(k.shape[1], q.shape[1], past_len, q_valid, causal)
     return dot_attention(q, k, v, mask=mask, scale=scale)
+
+
+def decode_partials_plain(q, k, v, past_len, q_valid, splits: int,
+                          scale: Optional[float] = None):
+    """Each split's softmax state for a decode step (T = 1), as the decode
+    kernel makes it: the row's live keys are j < lim (lim = past + 1 for a
+    valid row, else 0), in n = ceil(lim / 64) tiles, and split s takes the
+    tiles [s n / splits, (s+1) n / splits). Returns (m, l, acc): m
+    [B, H, splits] the split's max visible score (-inf if none), l its sum of
+    f32 exp(score - m), acc [B, H, splits, D] those exps rounded to v's dtype
+    times V, in f32."""
+    b, t, h, d = q.shape
+    assert t == 1, "a decode step has one query row"
+    s_len, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    if scale is None:
+        scale = d**-0.5
+    dev = q.device
+    lim = torch.where(q_valid.to(dev) > 0,
+                      torch.clamp(past_len.to(dev, torch.int64) + 1, max=s_len), 0)
+    n = (lim + DECODE_BLOCK_K - 1) // DECODE_BLOCK_K  # [B]
+    split = torch.arange(splits, device=dev)
+    lo = (split[None] * n[:, None]) // splits  # [B, splits] first tile
+    hi = ((split[None] + 1) * n[:, None]) // splits
+    j = torch.arange(s_len, device=dev)
+    tile = (j // DECODE_BLOCK_K)[None, None]
+    member = (tile >= lo[..., None]) & (tile < hi[..., None]) & (j < lim[:, None, None])
+    kf = k.float().repeat_interleave(g, dim=2)  # [B, S, H, D]
+    vf = v.float().repeat_interleave(g, dim=2)
+    scores = torch.einsum("bhd,bshd->bhs", q[:, 0].float(), kf) * scale
+    sc = scores[:, :, None].masked_fill(~member[:, None], float("-inf"))  # [B, H, splits, S]
+    m = sc.amax(dim=-1)
+    p = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])  # 0 where masked
+    acc = torch.einsum("bhcs,bshd->bhcd", p.to(v.dtype).float(), vf)
+    return m, p.sum(dim=-1), acc
+
+
+def decode_combine_plain(m, l, acc, out_dtype=torch.bfloat16):
+    """The splits' states (`decode_partials_plain`) added as the combine
+    kernel adds them: weights exp(m_s - max m), splits with m = -inf left
+    out; a row with no visible key gives 0. Returns [B, 1, H, D]."""
+    top = m.amax(dim=-1, keepdim=True)
+    w = torch.where(torch.isinf(m), 0.0, torch.exp(m - torch.where(torch.isinf(top), 0.0, top)))
+    total = (w * l).sum(dim=-1)[..., None]
+    out = (w[..., None] * acc).sum(dim=-2)
+    out = torch.where(total > 0, out / torch.where(total > 0, total, 1.0), 0.0)
+    return out[:, None].to(out_dtype)
+
+
+def flash_decode_split_plain(q, k, v, past_len, q_valid, *, splits: int,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """The decode kernel pair's split + combine arithmetic in plain PyTorch,
+    with the number of splits a parameter (a test reference: the main path's
+    plain version stays `flash_cached_attention_plain`). [B, 1, H, D] in
+    q's dtype."""
+    m, l, acc = decode_partials_plain(q, k, v, past_len, q_valid, splits, scale)
+    return decode_combine_plain(m, l, acc, q.dtype)
+
+
+_sm_counts: dict = {}
+
+
+def decode_splits(b: int, kh: int, device) -> int:
+    """Blocks of the decode kernel per (batch row, KV head): enough that
+    B x KH x splits blocks fill the card's SMs once (33 at B=1, KH=4 on an
+    H100's 132), at most DECODE_MAX_SPLITS."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    sms = _sm_counts.get(index)
+    if sms is None:
+        sms = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return min(DECODE_MAX_SPLITS, max(1, -(-sms // (b * kh))))
 
 
 def _to_i8(x: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
@@ -153,6 +232,9 @@ def _library() -> ctypes.CDLL:
             ctypes.c_float, i, p,
         ]
         fn.restype = ctypes.c_int
+        dec = lib.flash_decode_bf16
+        dec.argtypes = [p] * 8 + [i] * 5 + [i64] * 10 + [ctypes.c_float, p]
+        dec.restype = ctypes.c_int
         lib.flash_cached_attention_error_string.argtypes = [i]
         lib.flash_cached_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -185,6 +267,9 @@ def _check(q, k, v, past_len, q_valid) -> None:
     for name, t in (("past_len", past_len), ("q_valid", q_valid)):
         if t.dtype != torch.int32 or t.shape != (b,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 [{b}] tensor")
+    if q.shape[1] == 1 and h // k.shape[2] > DECODE_MAX_GROUP:
+        raise ValueError(f"the decode kernel packs at most {DECODE_MAX_GROUP} query heads "
+                         f"per KV head into its tile, got {h // k.shape[2]}")
 
 
 def _library_q8() -> ctypes.CDLL:
@@ -265,6 +350,22 @@ def flash_cached_attention_q8(
 flash_cached_attention_q8.launches = 0
 
 
+def _decode(lib, q, k, v, out, past_len, q_valid, scale, stream, splits: int) -> int:
+    """Launch the decode pair (T = 1) with `splits` blocks a (row, KV head)
+    into `out`; returns the library's error code."""
+    b, _, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    # f32 partials of every (row, KV head, split, head of its group)
+    part_acc = torch.empty(b * splits * h * d, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(b * splits * h * 2, dtype=torch.float32, device=q.device)
+    return lib.flash_decode_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), past_len.data_ptr(), q_valid.data_ptr(),
+        b, s, h, kh, splits, q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
+        out.stride(0), out.stride(2), scale, stream,
+    )
+
+
 def flash_cached_attention(
     q: torch.Tensor,  # [B, T, H, D]
     k: torch.Tensor,  # [B, S, KH, D] buffer
@@ -280,7 +381,11 @@ def flash_cached_attention(
     in q's dtype (bf16 on CUDA). T may be ragged: the kernels
     mask their own edge. int8_compute=None reads `default_int8()`.
 
-    `flash_cached_attention.launches` counts launches of the bf16 kernel."""
+    On CUDA a decode step (T == 1) runs the split-KV pair (two kernels, one
+    call); a longer block the 64-row kernel.
+
+    `flash_cached_attention.launches` counts calls that launch the bf16
+    kernels."""
     if int8_compute is None:
         int8_compute = default_int8()
     if int8_compute:
@@ -300,15 +405,20 @@ def flash_cached_attention(
     if t == 0:
         return out
     lib = _library()
+    scale = d**-0.5 if scale is None else scale
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_cached_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            past_len.data_ptr(), q_valid.data_ptr(),
-            b, t, s, h, kh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            d**-0.5 if scale is None else scale, int(causal), stream,
-        )
+        if t == 1:  # causal or not: one row sees past + 1 keys
+            err = _decode(lib, q, k, v, out, past_len, q_valid, scale, stream,
+                          decode_splits(b, kh, q.device))
+        else:
+            err = lib.flash_cached_attention_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                past_len.data_ptr(), q_valid.data_ptr(),
+                b, t, s, h, kh,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                scale, int(causal), stream,
+            )
     if err:
         msg = lib.flash_cached_attention_error_string(err).decode()
         raise RuntimeError(f"flash_cached_attention launch failed: {msg} ({err})")

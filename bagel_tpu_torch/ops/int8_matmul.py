@@ -9,9 +9,17 @@ the end: the order of `qwen2._linear`'s w8a8 branch (without a bias it is
 plain version agree bit for bit.
 
 On a CUDA tensor `int8_matmul` launches the hand-written Hopper kernel
-`csrc/int8_matmul.cu` (bf16 out) or raises; it takes the plain version
-`int8_matmul_plain` only for CPU tensors. The JAX kernel's tiles (bm, bn,
-bk) are TPU tiling and are not ported.
+`csrc/int8_matmul.cu` (wgmma + TMA, bf16 out) or raises; it takes the plain
+version `int8_matmul_plain` only for CPU tensors. The kernel reads the
+weight K-major: on CUDA `wq` [K, N] must be a transposed view of a
+contiguous [N, K] tensor, made once at load by `utils.quant.to_kmajor` /
+`w8a8_kmajor` (the wrapper raises on a row-major weight; it never
+transposes per call). The plain version takes either layout. The JAX
+kernel's tiles (bm, bn, bk) are TPU tiling and are not ported.
+
+`quantize_rows` (the per-token activation quantization feeding it) is a
+kernel wrapper too: one pass of `csrc/int8_matmul.cu` on a CUDA tensor,
+`quantize_rows_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -26,13 +34,61 @@ from bagel_tpu_torch.ops import _build
 KERNEL = "int8_matmul"
 
 
-def quantize_rows(x: torch.Tensor):
+def quantize_rows_plain(x: torch.Tensor):
     """Dynamic per-token (per-row) symmetric int8 of activations [..., K]:
     (codes int8, scales f32 [..., 1]), as the JAX package's w8a8 `_linear`
-    makes them (plain PyTorch: XLA's work there)."""
+    makes them (XLA's work there): scale max(absmax, 1e-12) / 127, codes
+    round-half-even(x / scale) clamped to +-127, in f32."""
     xf = x.float()
-    xs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-12) / 127.0
+    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-12)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # product with its reciprocal, which is not the IEEE quotient
+    xs = amax / torch.full_like(amax, 127.0)
     return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
+
+
+def _check_rows(x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA quantization pass reads bf16 rows, not {x.dtype}")
+    if x.ndim != 2 or x.shape[1] % 8:
+        raise ValueError(f"x must be [M, K] with K a multiple of 8 (16-byte loads), "
+                         f"got {tuple(x.shape)}")
+    if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
+        raise ValueError(f"x: the kernel loads 16-byte row pieces; needs a unit last stride, "
+                         f"a row stride that is a multiple of 8 and a 16-byte aligned base "
+                         f"(strides {x.stride()})")
+
+
+def quantize_rows(x: torch.Tensor):
+    """`quantize_rows_plain`'s (codes [M, K] int8, scales [M, 1] f32) of x
+    [M, K]: on a CUDA tensor one launch of the quantization kernel (bf16
+    rows; bit-identical to the plain version), on a CPU tensor the plain
+    version.
+
+    `quantize_rows.launches` counts kernel launches."""
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_rows(x)
+    m, k = x.shape
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    if m == 0 or k == 0:
+        return xq, xs
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.quantize_rows_bf16(x.data_ptr(), x.stride(0), xq.data_ptr(), xs.data_ptr(),
+                                     m, k, stream)
+    if err:
+        msg = lib.int8_matmul_error_string(err).decode()
+        raise RuntimeError(f"quantize_rows launch failed: {msg} ({err})")
+    quantize_rows.launches += 1
+    return xq, xs
+
+
+quantize_rows.launches = 0
 
 
 def int8_products(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -65,6 +121,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.quantize_rows_bf16.argtypes = [p, ctypes.c_int64, p, p, i, i, p]
+        lib.quantize_rows_bf16.restype = ctypes.c_int
         lib.int8_matmul_error_string.argtypes = [i]
         lib.int8_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -88,12 +146,18 @@ def _check(xq, xs, wq, ws, bias, out_dtype) -> None:
                          "must be multiples of 16")
     if out_dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel writes bf16, not {out_dtype}")
+    if not wq.t().is_contiguous():
+        raise ValueError(
+            f"the CUDA kernel reads the weight k-major: wq [K, N] must be a transposed view "
+            f"of a contiguous [N, K] tensor (strides (1, K)), got strides {wq.stride()}; "
+            "make it once at load with bagel_tpu_torch.utils.quant.w8a8_kmajor (a tree) "
+            "or to_kmajor (a tensor)")
 
 
 def int8_matmul(
     xq: torch.Tensor,  # [M, K] int8
     xs: torch.Tensor,  # [M, 1] f32 per-token activation scales
-    wq: torch.Tensor,  # [K, N] int8
+    wq: torch.Tensor,  # [K, N] int8; on CUDA k-major (utils.quant.to_kmajor)
     ws: torch.Tensor,  # [N] f32 per-column weight scales
     bias: Optional[torch.Tensor] = None,  # [N], added in f32
     out_dtype=torch.bfloat16,
@@ -111,9 +175,9 @@ def int8_matmul(
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m == 0 or n == 0:
         return out
-    xq, wq = xq.contiguous(), wq.contiguous()
+    xq = xq.contiguous()
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
-        raise ValueError("xq and wq must start on 16-byte boundaries (16-byte loads)")
+        raise ValueError("xq and wq must start on 16-byte boundaries (TMA)")
     xs, ws = xs.float().contiguous(), ws.float().contiguous()
     b = None if bias is None else bias.float().contiguous()
     lib = _library()

@@ -8,7 +8,9 @@ consumes in place of {'w'}:
   dequantized to the activation dtype at use;
 - "w8a8":  {'w_q8', 'scale'}: the same codes, and the activations are
   quantized per token at each matmul, which then runs int8 x int8 -> int32
-  (`ops.int8_matmul`);
+  (`ops.int8_matmul`). Its kernel reads the weight k-major: on the card
+  `w8a8_kmajor` lays every 'w_q8' out so once, at load (the leaf keeps
+  its [.., in, out] shape and values);
 - "int4":  {'w_p4': uint8 [in/2, out], 'scale4': f32 [in/128, out]},
   symmetric per (128-row group, column), two nibbles a byte
   (`ops.int4_matmul` for few activation rows);
@@ -145,6 +147,35 @@ def dequantize_weight4(q: dict, dtype=torch.bfloat16) -> torch.Tensor:
 def _quantize_weight_a8(w: torch.Tensor) -> dict:
     q = quantize_weight(w)
     return {"w_q8": q["w_q"], "scale": q["scale"]}
+
+
+def is_kmajor(w: torch.Tensor) -> bool:
+    """Whether [..., K, N] w is a transposed view of a contiguous [..., N, K]
+    tensor (k contiguous)."""
+    return w.ndim >= 2 and w.transpose(-1, -2).is_contiguous()
+
+
+def to_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """The same [..., K, N] values laid out k-major (`is_kmajor`), the
+    layout B5's wgmma reads (it takes 8-bit operands only K-major); w itself
+    if it already is."""
+    return w if is_kmajor(w) else w.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def w8a8_kmajor(tree: dict) -> dict:
+    """Make every w8a8 weight ('w_q8') of a params tree k-major (`to_kmajor`),
+    in place, one leaf at a time: peak memory grows by one stacked leaf,
+    since each row-major leaf is dropped as its copy replaces it (unless the
+    caller holds it elsewhere). Shapes and values are unchanged; idempotent.
+    Call it after `qwen2.fuse_llm_params` (fusion also keeps k-major leaves
+    k-major). Returns the tree."""
+    for key, val in tree.items():
+        if key == "w_q8" and torch.is_tensor(val):
+            tree[key] = to_kmajor(val)
+            del val
+        elif isinstance(val, dict):
+            w8a8_kmajor(val)
+    return tree
 
 
 _QUANT = {

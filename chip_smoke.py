@@ -8,9 +8,9 @@ Phases (the first failure exits non-zero, and no result line is printed):
              for fp32 matmuls and convolutions (the VAE runs in full fp32).
   2. build   every kernel in bagel_tpu_torch/csrc with nvcc, for sm_90a, one
              nvcc per source, all started together; ptxas registers/spills;
-             from `cuobjdump -sass`, B4's dequantization instructions and
-             B3's wgmma (HGMMA) and TMA (UTMALDG) instructions, which must be
-             there.
+             from `cuobjdump -sass`, B4's dequantization instructions, B3's
+             wgmma (HGMMA) and B5's integer wgmma (IGMMA) and the TMA loads
+             (UTMALDG) of both, which must be there.
   3. kernels each kernel against its plain PyTorch version: edge cases, then
              the shapes the main paths give it, with its device time (calls
              captured in a CUDA graph, the replay timed with events: no host
@@ -19,13 +19,20 @@ Phases (the first failure exits non-zero, and no result line is printed):
              device time (a yardstick the port never calls) and the roofline
              bound of the work; and a negative control per kernel that the
              gate must reject.
-             3a B1 flash_cached_attention (control: past taken as 0);
+             3a B1 flash_cached_attention (control: past taken as 0); at a
+                decode step (T=1) the split-KV pair: edge cases with stale
+                NaN past the live keys, two kernels a call (torch.profiler),
+                and a control that drops one live split from the combine;
              3b B3 sparse_packed_attention (control: two packed images merged
                 into one segment; the full-tile flags timed against the same
                 launch without them; the SigLIP shape timed against SDPA in
                 turns);
-             3c B5 int8_matmul, bit for bit at the w8a8 text-to-image shapes,
-                M=1 and a ragged M/N/K (control: ws reversed);
+             3c B5 int8_matmul on k-major weights (utils.quant.to_kmajor),
+                bit for bit at the w8a8 text-to-image shapes, M=1 and a
+                ragged M/N/K (control: ws reversed); the activation
+                quantization pass (quantize_rows) bit for bit, codes and
+                scales, at the four path shapes and a ragged one, timed
+                against its bytes bound;
              3d B4 int4_matmul at every decode linear's shape, M in {1, 3, 64},
                 one launch a call (the counter, and the card's record of
                 one call through torch.profiler), two calls bit-identical,
@@ -48,9 +55,11 @@ Phases (the first failure exits non-zero, and no result line is printed):
              tokens at most; B3 launches once per SigLIP layer (27), B1
              L x (2 prefills + decode steps); the first decode step's logits
              through the kernels vs the dense path; the pieces' times.
-  7. w8a8    the weights quantized to w8a8 and fused, text-to-image through
-             __call__ with BAGEL_FLASH_INT8=1: B5 L x (4 x 2 + 8 x 7), B2
-             L x (2 + 7), no B1; a gen-block velocity through the kernels vs
+  7. w8a8    the weights quantized to w8a8, fused and made k-major
+             (utils.quant.w8a8_kmajor), text-to-image through __call__ with
+             BAGEL_FLASH_INT8=1: B5 L x (4 x 2 + 8 x 7) and as many
+             quantization passes, B2 L x (2 + 7), no B1; peak memory at most
+             W8A8_PEAK_GIB; a gen-block velocity through the kernels vs
              the plain versions (and, as a control, the plain path at another
              key tile), w8a8 vs bf16; seconds per image and peak memory.
   8. int4    the weights quantized to int4 and fused, the VQA of phase 6
@@ -59,8 +68,9 @@ Phases (the first failure exits non-zero, and no result line is printed):
              versions; ms per decode token.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
-int4_split_sweep() times B4 at every split of K it takes (not run by the
-smoke; its docstring says how to run it).
+int4_split_sweep() times B4 at every split of K it takes, and
+decode_split_sweep() B1's decode pair at several numbers of splits (not run
+by the smoke; their docstrings say how to run them).
 """
 
 from __future__ import annotations
@@ -116,6 +126,10 @@ VIT_TOL = 5e-2
 # the ViT's error feeds 28 LLM layers, each adding its own attention
 # rounding; twice the velocity's limit for the longer chain
 LOGITS_TOL = 1e-1
+# the w8a8 image's peak memory: the 47.75 GiB that the row-major design
+# reached (NVIDIA H100 80GB HBM3) plus 0.5 GiB; the k-major weights are made
+# before the image, one leaf at a time
+W8A8_PEAK_GIB = 47.75 + 0.5
 PEAK_FLOPS = 989e12  # H100 SXM bf16 dense
 PEAK_INT8 = 1979e12  # H100 SXM int8 dense (operations per second)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -265,13 +279,20 @@ def phase_build() -> None:
     for name, ops in (("int4_matmul", ("I2F", "I2FP", "F2F", "F2FP", "PRMT", "LOP3", "FFMA",
                                        "FMUL", "FADD", "LDG")),
                       ("sparse_packed_attention", ("HGMMA", "UTMALDG", "HMMA", "LDGSTS",
-                                                   "MUFU"))):
+                                                   "MUFU")),
+                      ("int8_matmul", ("IGMMA", "HGMMA", "UTMALDG", "IMMA", "LDGSTS"))):
         for fn, counts in sass_counts(name, ops).items():
             log(f"[build] {name} SASS {fn}: {json.dumps(counts)}")
-            if name == "sparse_packed_attention":  # the Hopper design is the one that runs
+            # the Hopper designs are the ones that run: B3's wgmma, B5's integer wgmma
+            if name == "sparse_packed_attention":
                 check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
                       f"B3's SASS ({fn}) holds no HGMMA (wgmma) or no UTMALDG (TMA load)")
                 log(f"[build] B3 SASS: wgmma (HGMMA) and TMA loads (UTMALDG) present in {fn}")
+            elif "int8_matmul_kernel" in fn:
+                check(counts["IGMMA"] > 0 and counts["UTMALDG"] > 0,
+                      f"B5's SASS ({fn}) holds no IGMMA (integer wgmma) or no UTMALDG (TMA load)")
+                log(f"[build] B5 SASS: integer wgmma (IGMMA) and TMA loads (UTMALDG) present "
+                    f"in {fn}")
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +393,33 @@ def cache_mask(t, past, valid, causal):
     return cache_block_mask(MAX_KV, t, past, valid, causal)[:, None]
 
 
+def decode_checks(flash, args, want, valid, label):
+    """B1 at a decode step: one call runs two kernels on the card (the split
+    kernel, then the combine), and the gate rejects the combine of the
+    kernel's own splits with one live split left out. Returns the splits
+    and each kernel's device µs a call (torch.profiler)."""
+    q, k, v, p, vl = args
+    names = kernels_on_card(lambda: flash.flash_cached_attention(q, k, v, p, vl, causal=True))
+    check(len(names) == 2 and "split" in names[0] and "combine" in names[1],
+          f"{label}: one decode call ran {names} on the card, not the split and combine kernels")
+    splits = flash.decode_splits(q.shape[0], k.shape[2], q.device)
+    m, l, acc = flash.decode_partials_plain(q, k, v, p, vl, splits)
+    live = torch.nonzero(~torch.isinf(m[0, 0])).flatten()
+    gone = int(live[len(live) // 2])
+    m[..., gone], l[..., gone] = float("-inf"), 0.0
+    blind = flash.decode_combine_plain(m, l, acc, q.dtype)
+    b_err, b_ratio, b_rel = kernel_error(blind, want, valid)
+    check(not within_tol(b_ratio, b_rel),
+          f"{label}: the gate accepts a combine that drops live split {gone}")
+    kernel_us = kernel_device_us(lambda: flash.flash_cached_attention(q, k, v, p, vl, causal=True))
+    log(f"[kernels] {label}: one call ran two kernels on the card (torch.profiler): "
+        f"{names[0][:48]}, {names[1][:48]}; their device µs a call {json.dumps(kernel_us)}; "
+        f"{splits} splits a KV head, {len(live)} live; control that drops live split {gone} "
+        f"from the combine is rejected: max abs {b_err:.3e} ({b_ratio:.1f} x the elementwise "
+        f"limit), rel {b_rel:.3e}")
+    return splits, kernel_us
+
+
 def phase_kernels(cfg, prompt_len, prefill_t, vqa):
     from bagel_tpu_torch.ops import flash
 
@@ -385,6 +433,12 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa):
         ("T=1 block", 2, 1, 256, 28, 4, [100, 0], [1, 1], None),
         ("a row with valid=0", 2, 16, 128, 4, 4, [10, 0], [16, 0], None),
         ("stale garbage beyond the live region", 2, 70, 256, 8, 4, [20, 5], [70, 40], 3.0e4),
+        # a decode step (T=1) takes the split-KV pair: ~33 splits a KV head
+        ("decode past=0", 1, 1, 256, 28, 4, [0], [1], 3.0e4),
+        ("decode, a tile boundary at past + 1", 1, 1, 1024, 28, 4, [255], [1], 3.0e4),
+        ("decode, more splits than live tiles", 1, 1, 1024, 28, 4, [70], [1], 3.0e4),
+        ("decode, B=3 of mixed past, a q_valid=0 row", 3, 1, MAX_KV, 28, 4, [37, 4000, 1200],
+         [1, 0, 1], 3.0e4),
     ]
     for label, b, t, s, h, kh, past, valid, garbage in edge:
         for causal in (True, False):
@@ -430,6 +484,8 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa):
             log(f"[kernels] {label}: control that takes past as 0 is rejected: "
                 f"max abs {b_err:.3e} ({b_ratio:.1f} x the elementwise limit), rel {b_rel:.3e}")
             del blind
+        splits, kernel_us = decode_checks(flash, args, want, valid, label) if t == 1 else (None,
+                                                                                        None)
         del got, want
         def call():
             return flash.flash_cached_attention(q, k, v, p, vl, causal=causal)
@@ -442,7 +498,8 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa):
         flops, bytes_ = attention_work(past, valid, t, 28, 4, 128, causal)
         bms, by = bound_ms(flops, bytes_)
         results.append(dict(shape=label, B=b, T=t, S=MAX_KV, past=past, causal=causal,
-                            max_abs_err=err, limit_ratio=ratio, rel_err=rel,
+                            splits=splits, kernel_us=kernel_us, max_abs_err=err,
+                            limit_ratio=ratio, rel_err=rel,
                             device_ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9))
         log(f"[kernels] {label}: T={t} past={past} max abs err {err:.3e} ({ratio:.2f} x the "
@@ -642,10 +699,15 @@ def phase_sparse_kernels(vit_s, n_patches, heads, head_dim):
 
 
 def int8_operands(gen, m, k, n):
+    """Random codes and scales; the weight k-major, as the load-time helper
+    lays every w8a8 weight out (B5 refuses a row-major one)."""
+    from bagel_tpu_torch.utils.quant import to_kmajor
+
     dev = DEVICE
     return (torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8),
             (torch.rand((m, 1), generator=gen, device=dev) + 0.5) / 127,
-            torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8),
+            to_kmajor(torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                                    dtype=torch.int8)),
             (torch.rand((n,), generator=gen, device=dev) + 0.5) / 127,
             torch.randn((n,), generator=gen, device=dev).bfloat16())
 
@@ -730,6 +792,53 @@ def phase_int8_matmul(cfg, prefill_t):
     return results
 
 
+def phase_quantize_rows(cfg):
+    """The w8a8 activation quantization pass against its plain version, bit
+    for bit (codes and scales), at the four path shapes (the gen expert's
+    rows of a 1024 px denoise call into qkv, o, gate_up: K = hidden; into
+    down: K = FFN) and a ragged one; bf16 rows of mixed magnitude with a row
+    of zeros and a row of ties at .5. Device time against the bytes bound
+    (x read once, codes and scales written once)."""
+    from bagel_tpu_torch.ops import int8_matmul as m8
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    d, f = cfg.llm.hidden_size, cfg.llm.intermediate_size
+    rows = 3 * (PX // cfg.latent_downsample) ** 2
+    cases = [("into gen qkv", rows, d), ("into gen o", rows, d), ("into gen gate_up", rows, d),
+             ("into gen down", rows, f), ("ragged", 77, 1040)]
+    results = []
+    for label, m, k in cases:
+        x = (torch.randn((m, k), generator=gen, device=DEVICE)
+             * (torch.rand((m, 1), generator=gen, device=DEVICE) * 50)).bfloat16()
+        x[1] = 0.0
+        x[2] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -126.5],
+                            device=DEVICE).repeat(k // 8).bfloat16()
+        xq, xs = m8.quantize_rows(x)
+        want_q, want_s = m8.quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        check(torch.equal(xq, want_q) and torch.equal(xs, want_s),
+              f"quantize_rows {label}: {int((xq != want_q).sum())} codes and "
+              f"{int((xs != want_s).sum())} scales differ from the plain version")
+        row = dict(shape=label, M=m, K=k, bit_identical=True)
+        if m > 1000:
+            ms = device_ms(lambda: m8.quantize_rows(x), 20)
+            call_ms = cuda_ms(lambda: m8.quantize_rows(x), 20, 2)
+            plain_ms = cuda_ms(lambda: m8.quantize_rows_plain(x), 5)
+            bytes_ = 2 * m * k + m * k + 4 * m
+            bms, by = bound_ms_at(0, bytes_, PEAK_INT8)
+            row.update(device_ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bms, bound_by=by, gb_per_s=bytes_ / ms / 1e6)
+            log(f"[kernels] quantize_rows {label}: M={m} K={k}: codes and scales bit-identical; "
+                f"kernel device {ms:.4f} ms ({bytes_ / ms / 1e6:.0f} GB/s), call {call_ms:.4f} "
+                f"ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+        else:
+            log(f"[kernels] quantize_rows {label}: M={m} K={k}: codes and scales bit-identical")
+        results.append(row)
+        del x, xq, xs, want_q, want_s
+        torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 3d: B4 int4_matmul against its plain version
 # ---------------------------------------------------------------------------
@@ -762,6 +871,23 @@ def kernels_on_card(fn) -> list:
         fn()
         torch.cuda.synchronize()
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_device_us(fn, calls: int = 20) -> dict:
+    """{kernel name: device µs a call} over `calls` calls of fn(), from
+    torch.profiler's record of the card's activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = (e.key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
+             for e in prof.key_averages())
+    return {name: e.device_time_total / calls
+            for name, e in zip(names, prof.key_averages()) if e.device_time_total > 0}
 
 
 def phase_int4_matmul(cfg):
@@ -900,6 +1026,37 @@ def int4_split_sweep(rounds: int = 2) -> dict:
         del leaf, wd
         torch.cuda.empty_cache()
     return out
+
+
+def decode_split_sweep(rounds: int = 2) -> dict:
+    """Not part of the smoke: B1's decode pair at the smoke's decode shape
+    (B=1, S=8192, past 4975, 28/4 heads) for several numbers of splits a KV
+    head, device µs, in turns (forward, back, ...), beside `decode_splits`'
+    choice.
+    Run:  python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build(); c.decode_split_sweep()"
+    """
+    from bagel_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    q, k, v, p, vl = attention_inputs(gen, 1, 1, MAX_KV, 28, 4, [4975], [1])
+    want = flash.flash_cached_attention_plain(q, k, v, p, vl, causal=True)
+    lib, out = flash._library(), torch.empty_like(q)
+    splits = (8, 17, 25, 33, 44, 66, 132)
+    times = {n: [] for n in splits}
+    for turn in range(rounds):
+        for n in splits if turn % 2 == 0 else splits[::-1]:
+            def call(n=n):
+                stream = torch.cuda.current_stream().cuda_stream  # the capture's, in device_ms
+                check(flash._decode(lib, q, k, v, out, p, vl, 128**-0.5, stream, n) == 0,
+                      f"decode sweep: launch with {n} splits failed")
+                return out
+
+            check(within_tol(*kernel_error(call(), want, [1])[1:]),
+                  f"decode sweep: {n} splits fail the gate")
+            times[n].append(device_ms(call, 50) * 1e3)
+    log(f"[sweep] B1 decode pair, device µs by splits a KV head: {json.dumps(times)}; "
+        f"decode_splits' choice: {flash.decode_splits(1, 4, q.device)}")
+    return times
 
 
 def int4_token(cfg, m4, gen, fused, results):
@@ -1410,12 +1567,13 @@ def plain_linears():
     from bagel_tpu_torch.ops import int4_matmul as m4
     from bagel_tpu_torch.ops import int8_matmul as m8
 
-    saved = qwen2.int8_matmul, qwen2.int4_matmul
+    saved = qwen2.int8_matmul, qwen2.int4_matmul, qwen2.quantize_rows
     qwen2.int8_matmul, qwen2.int4_matmul = m8.int8_matmul_plain, m4.int4_matmul_plain
+    qwen2.quantize_rows = m8.quantize_rows_plain
     try:
         yield
     finally:
-        qwen2.int8_matmul, qwen2.int4_matmul = saved
+        qwen2.int8_matmul, qwen2.int4_matmul, qwen2.quantize_rows = saved
 
 
 @contextlib.contextmanager
@@ -1451,16 +1609,23 @@ def flash_int8(on: bool):
 
 def quantized_engine(engine, mode):
     """The engine's weights quantized (one stacked layer at a time on the
-    card) and fused, as the JAX package's server does; the non-LLM leaves
-    are shared with the bf16 tree."""
+    card) and fused, as the JAX package's server does, and w8a8 weights made
+    k-major (one stacked leaf at a time); the non-LLM leaves are shared with
+    the bf16 tree."""
     from bagel_tpu_torch.inference.engine import BagelEngine
     from bagel_tpu_torch.models.qwen2 import fuse_llm_params
-    from bagel_tpu_torch.utils.quant import quantize_bagel_params
+    from bagel_tpu_torch.utils.quant import is_kmajor, quantize_bagel_params, w8a8_kmajor
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     qparams = quantize_bagel_params(engine.params, mode)
     qparams["llm"] = fuse_llm_params(qparams["llm"], inplace=True)
+    if mode == "w8a8":
+        w8a8_kmajor(qparams["llm"])
+        layers = qparams["llm"]["layers"]
+        w8 = [layers[g][n]["w_q8"] for g in ("attn", "attn_gen") for n in ("qkv", "o")]
+        w8 += [layers[g][n]["w_q8"] for g in ("mlp", "mlp_gen") for n in ("gate_up", "down")]
+        check(all(is_kmajor(t) for t in w8), "w8a8: the fused weights are not all k-major")
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size() for t in leaves(qparams["llm"]))
     log(f"[{mode}] quantized and fused the LLM in {time.perf_counter() - t0:.1f} s: "
@@ -1475,7 +1640,7 @@ def counts_reset():
 
     fns = dict(b1=flash.flash_cached_attention, b2=flash.flash_cached_attention_q8,
                b3=sparse_flash.sparse_packed_attention, b4=int4_matmul.int4_matmul,
-               b5=int8_matmul.int8_matmul)
+               b5=int8_matmul.int8_matmul, quant=int8_matmul.quantize_rows)
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -1483,8 +1648,8 @@ def counts_reset():
 
 def linear_glue(qeng, rows):
     """One layer's four fused gen-expert w8a8 linears at `rows` tokens: the
-    whole `_linear` (per-token activation quantization + B5) and B5 alone on
-    the same codes, in device time."""
+    whole `_linear` (the activation quantization pass + B5), B5 alone on the
+    same codes and the quantization pass alone (call times)."""
     from bagel_tpu_torch.models import qwen2
     from bagel_tpu_torch.ops import int8_matmul as m8
 
@@ -1492,16 +1657,17 @@ def linear_glue(qeng, rows):
     leaves_ = [layers["attn_gen"]["qkv"], layers["attn_gen"]["o"], layers["mlp_gen"]["gate_up"],
                layers["mlp_gen"]["down"]]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
-    linear_ms = b5_ms = 0.0
+    linear_ms = b5_ms = quant_ms = 0.0
     for stacked in leaves_:
         leaf = {k: v[0] for k, v in stacked.items()}
         x = torch.randn((rows, leaf["w_q8"].shape[0]), generator=gen, device=DEVICE).bfloat16()
         linear_ms += cuda_ms(lambda: qwen2._linear(x, leaf), 5, 1)
+        quant_ms += cuda_ms(lambda: m8.quantize_rows(x), 5, 1)
         xq, xs = m8.quantize_rows(x)
         b5_ms += cuda_ms(lambda: m8.int8_matmul(xq, xs, leaf["w_q8"], leaf["scale"],
                                                 leaf.get("b")), 5, 1)
         del x, xs, xq
-    return dict(linear_ms=linear_ms, b5_ms=b5_ms)
+    return dict(linear_ms=linear_ms, b5_ms=b5_ms, quant_ms=quant_ms)
 
 
 def phase_t2i_w8a8(engine, gen):
@@ -1529,12 +1695,16 @@ def phase_t2i_w8a8(engine, gen):
         forwards = NUM_TIMESTEPS - 1
         # fused leaves: qkv, o, gate_up, down per expert; a prefill runs the
         # und expert, a gen block both (the 2 boundary tokens take the und one)
-        want = dict(b1=0, b2=L * (2 + forwards), b3=0, b4=0, b5=L * (4 * 2 + 8 * forwards))
+        b5 = L * (4 * 2 + 8 * forwards)
+        want = dict(b1=0, b2=L * (2 + forwards), b3=0, b4=0, b5=b5, quant=b5)
         log(f"[t2i w8a8] __call__ {PX} px, {NUM_TIMESTEPS} timesteps, BAGEL_FLASH_INT8=1: "
-            f"{total_s:.2f} s, peak memory {peak / 2**30:.2f} GiB; launches {counts} "
-            f"(expected B5 {L} x (4 x 2 prefills + 8 x {forwards} forwards) = {want['b5']}, "
-            f"B2 {L} x (2 + {forwards}) = {want['b2']}, no B1)")
+            f"{total_s:.2f} s, peak memory {peak / 2**30:.2f} GiB (at most {W8A8_PEAK_GIB}); "
+            f"launches {counts} (expected B5 {L} x (4 x 2 prefills + 8 x {forwards} forwards) "
+            f"= {b5}, one quantization pass each, B2 {L} x (2 + {forwards}) = {want['b2']}, "
+            f"no B1)")
         check(counts == want, f"w8a8 launch counts {counts} != {want}")
+        check(peak / 2**30 <= W8A8_PEAK_GIB,
+              f"w8a8 peak memory {peak / 2**30:.2f} GiB > {W8A8_PEAK_GIB} GiB")
         check(isinstance(img, np.ndarray) and img.shape == (PX, PX, 3) and img.std() > 0,
               "w8a8 image is not a non-constant 1024 px image")
 
@@ -1584,8 +1754,8 @@ def phase_t2i_w8a8(engine, gen):
     log(f"[t2i w8a8] quantization error, w8a8 (B5 + B2) vs bf16 (B1) engine, {FORWARD_PX} px "
         f"gen block at {L} layers: velocity rel err {q_rel:.3e} (reported, not gated); "
         f"denoise forward at {PX} px, B=3: {fwd['w8a8']:.1f} ms; its w8a8 linears, one "
-        f"layer: {glue['linear_ms']:.2f} ms, of which B5 {glue['b5_ms']:.2f} ms (the rest is "
-        f"the per-token activation quantization in plain PyTorch)")
+        f"layer: {glue['linear_ms']:.2f} ms; alone, B5 {glue['b5_ms']:.2f} ms and the "
+        f"activation quantization pass {glue['quant_ms']:.2f} ms (call times)")
     del qeng, bctxs, bf16, quant
     torch.cuda.empty_cache()
     return dict(launches=counts, total_s=total_s, peak_gib=peak / 2**30, llm_gb=nbytes / 1e9,
@@ -1615,7 +1785,7 @@ def phase_vqa_int4(engine, card):
         answer = out["text"]
         n_tok = len(answer.split())
         steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK
-        want = dict(b1=L * (2 + steps), b2=0, b3=LV, b4=L * 4 * steps, b5=0)
+        want = dict(b1=L * (2 + steps), b2=0, b3=LV, b4=L * 4 * steps, b5=0, quant=0)
         log(f"[vqa int4] __call__ {VQA_PX} px + question, {MAX_THINK} tokens at most: "
             f"{total_s:.2f} s, answer of {n_tok} tokens, peak memory {peak / 2**30:.2f} GiB; "
             f"launches {counts} (expected B4 {L} x 4 fused linears x {steps} decode steps = "
@@ -1665,6 +1835,7 @@ def phase_all_kernels():
             phase_sparse_kernels(vqa_shapes["vit_t"] - 2, n_patches,
                                  cfg.vit.num_attention_heads, cfg.vit.head_dim),
             phase_int8_matmul(cfg, _bucket(prompt_len)),
+            phase_quantize_rows(cfg),
             phase_int4_matmul(cfg),
             phase_flash_q8(cfg, prompt_len, _bucket(prompt_len), vqa_shapes))
 
@@ -1682,8 +1853,8 @@ def main() -> int:
     from bagel_tpu_torch.inference.engine import BagelEngine
     from bagel_tpu_torch.models.bagel import init_bagel_params
 
-    cfg, tok, (worst, shapes), (worst3, main3), b5_rows, (worst4, b4_rows, b4_token), \
-        (worst2, b2_rows) = phase_all_kernels()
+    cfg, tok, (worst, shapes), (worst3, main3), b5_rows, quant_rows, \
+        (worst4, b4_rows, b4_token), (worst2, b2_rows) = phase_all_kernels()
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1705,6 +1876,8 @@ def main() -> int:
     int4 = phase_vqa_int4(engine, card)
 
     main_shape = shapes[0]
+    decode = next(r for r in shapes if r["T"] == 1)
+    quant_main = quant_rows[0]
     library = "torch.nn.functional.scaled_dot_product_attention (bool mask, enable_gqa)"
     gate = next(r for r in b5_rows if r["shape"] == "gen gate")
     b2_main = b2_rows[0]
@@ -1733,6 +1906,10 @@ def main() -> int:
             library_ms=main_shape["library_ms"],
             library=library,
             shape=main_shape["shape"],
+            decode={key: decode[key] for key in ("shape", "past", "splits", "kernel_us",
+                                                 "device_ms",
+                                                 "call_ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by")},
             shapes=shapes,
         ),
         dict(
@@ -1816,6 +1993,27 @@ def main() -> int:
             library="torch._int_mm + the same f32 epilogue",
             shape=f"gate M={gate['M']} K={gate['K']} N={gate['N']}",
             shapes=b5_rows,
+        ),
+        dict(
+            name="quantize_rows",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/int8_matmul.cu",
+            replaces="bagel_tpu/models/qwen2.py:146 (the w8a8 activation quantization: "
+                     "XLA's work in the JAX package, no Pallas kernel)",
+            launches=sum(by_path("quant").values()),
+            launches_by_path=by_path("quant"),
+            max_abs_err=0.0,
+            tol="bit-identical to the plain version (codes and scales)",
+            ms=quant_main["device_ms"],  # the kernel's time: its device time
+            device_ms=quant_main["device_ms"],
+            call_ms=quant_main["call_ms"],
+            plain_ms=quant_main["plain_ms"],
+            bound_ms=quant_main["bound_ms"],
+            bound_by=quant_main["bound_by"],
+            library_ms=None,
+            library="none: no one PyTorch call computes it",
+            shape=f"M={quant_main['M']} K={quant_main['K']}",
+            shapes=quant_rows,
         ),
     ]
     log(json.dumps({"vqa": vqa, "t2i_w8a8": w8a8, "vqa_int4": int4}))

@@ -100,14 +100,17 @@ def test_sparse_kernel_matches_plain_on_card(h, kh, d, train, strided):
                                         (130, 18944, 3584, False)])
 def test_int8_matmul_bit_identical_on_card(m, k, n, bias):
     """B5 equals its plain version bit for bit (exact int32 sums, the same
-    f32 epilogue), at ragged M/N/K and the down projection's K."""
+    f32 epilogue), at ragged M/N/K and the down projection's K, on a k-major
+    weight made by the load-time helper."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     from bagel_tpu_torch.ops import int8_matmul as m8
+    from bagel_tpu_torch.utils.quant import to_kmajor
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
-    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    wq = to_kmajor(torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                                 dtype=torch.int8))
     xs = (torch.rand((m, 1), generator=gen, device="cuda") + 0.5) / 127
     ws = (torch.rand((n,), generator=gen, device="cuda") + 0.5) / 127
     b = torch.randn((n,), generator=gen, device="cuda").bfloat16() if bias else None
@@ -246,3 +249,118 @@ def test_flash_q8_matches_plain_on_card(causal):
         assert (err <= 2.0 ** -6 * w.abs() + 0.1 * w.pow(2).mean().sqrt()).all()
         assert err.norm() <= 1e-2 * w.norm()
     assert got[1, 97:].abs().max().item() == 0.0
+
+
+def _decode_inputs(gen, past, valid, s=1024, h=28, kh=4, nan_beyond=True):
+    b = len(past)
+    q = torch.randn((b, 1, h, 128), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, s, kh, 128), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, s, kh, 128), generator=gen, device="cuda").bfloat16()
+    if nan_beyond:  # stale values past each row's live keys
+        for row, p in enumerate(past):
+            k[row, p + 1:] = float("nan")
+            v[row, p + 1:] = float("nan")
+    return (q, k, v, torch.tensor(past, dtype=torch.int32, device="cuda"),
+            torch.tensor(valid, dtype=torch.int32, device="cuda"))
+
+
+def _assert_attention_gate(got, want, valid):
+    for row, n in enumerate(valid):
+        if n == 0:
+            assert got[row].abs().max().item() == 0.0
+            continue
+        g, w = got[row].float(), want[row].float()
+        err = (g - w).abs()
+        assert (err <= 2.0 ** -6 * w.abs() + 0.1 * w.pow(2).mean().sqrt()).all()
+        assert err.norm() <= 1e-2 * w.norm()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past,valid", [([0], [1]), ([63], [1]), ([4975], [1]),
+                                        ([37, 900, 0], [1, 0, 1])])
+def test_decode_pair_matches_plain_on_card(past, valid):
+    """B1 at T = 1 (the split-KV pair) against its plain version under B1's
+    gate, with stale NaN past the live keys; one call counts once, and runs
+    two kernels; captured in a CUDA graph it replays the eager bits, and an
+    eager call on a shape first seen after the capture is right too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    s = 8192 if max(past) > 1000 else 1024
+    args = _decode_inputs(gen, past, valid, s)
+    before = flash.flash_cached_attention.launches
+    got = flash.flash_cached_attention(*args, causal=True)
+    torch.cuda.synchronize()
+    assert flash.flash_cached_attention.launches == before + 1
+    q, k, v, p, vl = args
+    clean = [t.nan_to_num(0.0) for t in (k, v)]  # the plain version multiplies 0 x NaN
+    want = flash.flash_cached_attention_plain(q, *clean, p, vl, causal=True)
+    _assert_attention_gate(got, want, valid)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash.flash_cached_attention(*args, causal=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
+    fresh = _decode_inputs(gen, [p_ + 7 for p_ in past], valid, s)
+    again = flash.flash_cached_attention(*fresh, causal=False)
+    want2 = flash.flash_cached_attention_plain(fresh[0], *(t.nan_to_num(0.0) for t in fresh[1:3]),
+                                               *fresh[3:], causal=False)
+    torch.cuda.synchronize()
+    _assert_attention_gate(again, want2, valid)
+
+
+@pytest.mark.cuda
+def test_decode_pair_is_two_kernels_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _decode_inputs(torch.Generator(device="cuda").manual_seed(8), [500], [1])
+    flash.flash_cached_attention(*args, causal=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash.flash_cached_attention(*args, causal=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2 and "split" in names[0] and "combine" in names[1], names
+
+
+@pytest.mark.cuda
+def test_int8_matmul_refuses_a_row_major_weight_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.ops import int8_matmul as m8
+
+    xq = torch.zeros((4, 64), dtype=torch.int8, device="cuda")
+    wq = torch.zeros((64, 32), dtype=torch.int8, device="cuda")
+    before = m8.int8_matmul.launches
+    with pytest.raises(ValueError, match="w8a8_kmajor"):
+        m8.int8_matmul(xq, torch.ones((4, 1), device="cuda"), wq, torch.ones(32, device="cuda"))
+    assert m8.int8_matmul.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(1, 3584), (77, 1040), (300, 18944)])
+def test_quantize_rows_bit_identical_on_card(m, k):
+    """The quantization pass gives the plain version's codes and scales bit
+    for bit (IEEE division, round half to even), on a row of zeros, rows
+    with ties at .5 and bf16 rows of mixed magnitude; on a strided view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.ops import int8_matmul as m8
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    base = torch.randn((m, k + 64), generator=gen, device="cuda")
+    base *= torch.rand((m, 1), generator=gen, device="cuda") * 50
+    x = base.bfloat16()[:, 64:]  # a view: row stride k + 64
+    if m > 2:
+        x[1] = 0.0
+        x[2] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -126.5],
+                            device="cuda").repeat(k // 8).bfloat16()
+    before = m8.quantize_rows.launches
+    xq, xs = m8.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert m8.quantize_rows.launches == before + 1
+    want_q, want_s = m8.quantize_rows_plain(x)
+    assert torch.equal(xq, want_q) and torch.equal(xs, want_s)

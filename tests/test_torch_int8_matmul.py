@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from bagel_tpu.ops.int8_matmul import int8_matmul as jint8_matmul
 from bagel_tpu_torch.ops import int8_matmul as t8
+from bagel_tpu_torch.utils.quant import to_kmajor
 
 
 def _inputs(seed, m, k, n):
@@ -84,4 +85,6 @@ def test_wrapper_rejects_bad_inputs_before_launch():
         t8._check(xq[:, :40], xs, wq[:40], ws, None, torch.bfloat16)
     with pytest.raises(TypeError, match="bf16"):
         t8._check(xq, xs, wq, ws, None, torch.float32)
-    t8._check(xq, xs, wq, ws, torch.zeros(16), torch.bfloat16)
+    with pytest.raises(ValueError, match="k-major"):  # the CUDA kernel reads [N, K]
+        t8._check(xq, xs, wq, ws, torch.zeros(16), torch.bfloat16)
+    t8._check(xq, xs, to_kmajor(wq), ws, torch.zeros(16), torch.bfloat16)
