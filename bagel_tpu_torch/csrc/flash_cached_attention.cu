@@ -10,33 +10,62 @@
 //
 // Layout: q/out [B, T, H, 128], k/v [B, S, KH, 128], bf16, addressed through
 // their batch/sequence/head strides (no transposes, no padding of a ragged T:
-// the kernel masks its own edge). past/valid are int32 [B] on the device.
+// the tensor maps' row bound masks the edge). past/valid are int32 [B] on the
+// device: a block reads its batch row's live bound itself, so there is no
+// host read and a call can be captured in a CUDA graph.
 //
-// What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): the work is
-// 4*D*H*sum_b(rows * live keys) FLOPs. On the 1024 px denoise call (B=3,
-// T=4098, H=28, ~4130 live keys) that is ~0.73 TFLOP against ~0.2 GB of
-// q/k/v/o traffic, ~3600 FLOP/byte: it is compute-bound (bound ~0.74 ms).
-//
-// Design (a simple one that is right first):
-// - One thread block of 4 warps per (64-row query tile, head, batch row);
-//   each warp owns 16 query rows for the whole key loop.
-// - The block loops over 64-key tiles only up to its live bound past+valid,
-//   capped at the tile's causal diagonal, so the dead tail of a bucketed
-//   buffer costs neither loads nor math. Keys past the bound load as zeros
-//   (cp.async zero-fill), so stale garbage there never reaches a product.
-// - K/V tiles stream through double-buffered shared memory with cp.async.
-//   QK^T and PV run on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//   fp32 accumulate), fragments loaded by ldmatrix (.trans for V).
-// - The running max, sum and the output accumulator stay in fp32 registers
-//   (online softmax, base-2 exponent); P is rounded to bf16 for the PV
-//   product while the row sum uses fp32 P, as _flash_kernel does.
-//
-// What it leaves on the table: on an H100 SXM (700 W) it runs the 1024 px
-// denoise call at ~243 TFLOP/s, a quarter of the bf16 peak. mma.sync cannot
-// reach Hopper's full tensor-core rate; wgmma with TMA loads and a
-// warp-specialized producer/consumer pipeline (FlashAttention-3 style) is
-// the way to the rest. Two blocks per SM (87 KB of shared memory each) hide
-// little latency, and the exp/max work is not overlapped with the products.
+// A block of T > 1 (flash_cached_attention_kernel):
+// - What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): the work
+//   is 4*D*H*sum_b(rows * visible keys) FLOPs. On the 1024 px denoise call
+//   (B=3, T=4098, H=28, ~4130 live keys a row) that is ~0.73 TFLOP against
+//   ~0.2 GB of q/k/v/o traffic, ~3600 FLOP/byte: it is bound by operations
+//   (0.74 ms). Next to the products, each score costs one exp2 on the SFU
+//   (16 a clock per SM): ~0.39 ms at that shape, which the two consumer
+//   warpgroups hide behind each other's products.
+// - Design (Hopper's: TMA, mbarriers, warp specialization, wgmma), the one
+//   of sparse_packed_attention.cu at D = 128, over the cache:
+//   * A block takes a 128-row query tile of one (batch row, head): two
+//     consumer warpgroups of 64 rows each and one producer warp (in a third
+//     warpgroup that gives its registers away with setmaxnreg, so the
+//     consumers have 232). 128-key tiles.
+//   * The producer loads Q once, then each live tile's K and V into a ring
+//     of two 64 KB shared-memory stages with TMA (one 4-D tensor map per
+//     operand over the strided view, built on the host per call and passed
+//     as a __grid_constant__ parameter; 64-column boxes with the 128-byte
+//     swizzle), completed on a "full" mbarrier per stage; the consumers
+//     release a stage on its "empty" mbarrier.
+//   * The block walks only the tiles below its live bound past + valid,
+//     capped at the q tile's causal diagonal: the dead tail of a bucketed
+//     buffer costs neither loads nor products. A warpgroup whose own rows
+//     end earlier (the causal diagonal, or rows past valid) skips the
+//     tiles beyond its rows and only releases their stages.
+//   * QK^T: wgmma m64n128k16 with Q and K K-major from shared memory. PV:
+//     wgmma with P from registers (the S accumulators re-packed as bf16:
+//     their layout is the A fragment's) and V MN-major from shared memory
+//     (transposed by the descriptor).
+//   * A tile that lies wholly below every valid row's bound of the
+//     warpgroup skips the per-element mask: at the denoise shape that is
+//     every tile but the last live one.
+//   * Stale data: TMA zero-fills only past the tensor's extent (S). Keys in
+//     [past + valid, S) of the last live tile hold the buffer's old
+//     contents, which may be NaN: their scores are masked (a select, never
+//     arithmetic), and each consumer warpgroup zeroes their V rows in shared
+//     memory before PV, so 0 x NaN never happens.
+//   * No NaN from the softmax: masked scores are -inf, a row that has seen
+//     no visible key yet uses 0 as its exponent base (exp2(-inf) = 0, never
+//     inf - inf), and rows past valid or without a visible key write 0.
+//   * The online softmax state stays in f32 registers; P is rounded to bf16
+//     for PV while the row sum uses f32 P, as _flash_kernel does.
+// - The ragged last query tile: 4098 rows are 32 full tiles and one of 2
+//   rows (TMA zero-fills the other 126). That block walks all the live tiles
+//   as a full one does, so at B=3 x 28 heads it costs 84 of 2772 blocks, ~3%
+//   of the call, for 0.05% of the rows.
+// - What it leaves on the table: QK^T of the next tile is not issued under
+//   this tile's softmax, no persistent grid, and each block loads its K/V
+//   tiles on its own (the 7 heads of a GQA group and the q tiles of a row
+//   share them only in L2). B2's turns at the tensor cores (PV of a tile and
+//   QK^T of the next in one turn) made this kernel 20% slower: ptxas
+//   serializes the wgmma when O is rescaled while QK^T is in flight.
 //
 // A decode step (T = 1) takes a second design, flash-decoding written for
 // this card (flash_decode_split_kernel + flash_decode_combine_kernel; the
@@ -46,7 +75,7 @@
 //   do ~7 flops a byte, far below the card's ~295. The work is bound by the
 //   live K/V bytes (10.2 MB for ~5000 keys over 4 KV heads: 3.0 us at
 //   3.35 TB/s), and so by how many bytes are in flight, not by the
-//   products. The 64-row design above reads each KV head once for each of
+//   products. The 128-row design above reads each KV head once for each of
 //   its 7 query heads and runs only B x H = 28 blocks on 132 SMs.
 // - Pack the GQA group into the tile: for one (batch row, KV head) the G
 //   query heads are rows 0..G-1 of one m16 query tile (rows G..15 zero),
@@ -86,20 +115,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kD = 128;                 // head dim, compiled in
-constexpr int kBQ = 64;                 // query rows per block
-constexpr int kBK = 64;                 // keys per tile
-constexpr int kWarps = kBQ / 16;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBK = 64;                 // the decode step's key tile
 constexpr int kLds = kD + 8;            // smem row pitch (272 B): ldmatrix rows hit distinct banks
 constexpr int kChunksPerRow = kD / 8;   // 16-byte chunks per row
-constexpr int kSmemBytes = (kBQ + 4 * kBK) * kLds * 2;  // q + 2 x (k, v)
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using hopper::quad_max;
+using hopper::quad_sum;
+using hopper::smem_addr;
 
 // 16-byte async copy; src_bytes = 0 fills the destination with zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
@@ -140,208 +167,251 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 struct Strides {  // in elements: batch, sequence, head
   long long b, t, h;
 };
 
-__global__ void __launch_bounds__(kThreads)
-flash_cached_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
-                              __nv_bfloat16* __restrict__ o,
-                              const int* __restrict__ past_len,
-                              const int* __restrict__ q_valid,
-                              int T, int S, int group,
-                              Strides qs, Strides ks, Strides vs, Strides os,
+// --- T > 1: TMA + wgmma, warp-specialized ----------------------------------
+
+constexpr int kConsumers = 2;                     // consumer warpgroups, 64 query rows each
+constexpr int kTileQ = 64 * kConsumers;           // query rows a block
+constexpr int kTileK = 128;                       // keys a tile
+constexpr int kThreadsT = 128 * (kConsumers + 1); // + the producer's warpgroup
+constexpr int kStages = 2;
+constexpr int kRegionCols = 64;                   // bf16 columns of a 128-byte swizzled row
+constexpr int kQRegion = kTileQ * 128;            // bytes of one 64-column region of Q
+constexpr int kKvRegion = kTileK * 128;           // ... of K or V
+constexpr int kQBytes = 2 * kQRegion;
+constexpr int kStageBytes = 4 * kKvRegion;        // K's two regions, then V's
+constexpr int kSmemT = 1024 + kQBytes + kStages * kStageBytes + 128;  // alignment, Q, ring, barriers
+
+struct Maps {  // TMA tensor maps of q [B, T, H, D], k and v [B, S, KH, D]
+  CUtensorMap q, k, v;
+};
+
+__global__ void __launch_bounds__(kThreadsT, 1)
+flash_cached_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ o,
+                              Strides os, const int* __restrict__ past_len,
+                              const int* __restrict__ q_valid, int T, int S, int group,
                               float scale_log2, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + kBQ * kLds;   // two buffers of kBK rows
-  __nv_bfloat16* sV = sK + 2 * kBK * kLds;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 B
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sq = smem;
+  unsigned char* stages = smem + kQBytes;
+  const uint32_t bars = smem_addr(stages + kStages * kStageBytes);
+  auto full_bar = [&](int s) { return bars + 8 * s; };
+  auto empty_bar = [&](int s) { return bars + 8 * (kStages + s); };
+  const uint32_t q_bar = bars + 16 * kStages;
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, q0 = qt * kTileQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int past = past_len[b];
   const int valid = min(q_valid[b], T);
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + (h / group) * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + (h / group) * vs.h;
+  const int live = min(past + valid, S);  // keys [0, live): the row's cache and its block
+  // the keys this q tile can see: [0, bound)
+  const int bound = causal ? min(live, past + q0 + kTileQ) : live;
+  const int n_tiles = (q0 < valid && bound > 0) ? (bound + kTileK - 1) / kTileK : 0;
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 
-  // live keys of this tile: [0, bound)
-  int bound = past + valid;
-  if (causal) bound = min(bound, past + q0 + kBQ);
-  bound = min(bound, S);
-  const int n_tiles = (q0 < valid && bound > 0) ? (bound + kBK - 1) / kBK : 0;
-
-  if (n_tiles == 0) {  // padding rows only: write zeros
+  if (n_tiles == 0) {  // rows past valid only: write zeros
     const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int c = tid; c < kBQ * kChunksPerRow; c += kThreads) {
-      const int t = q0 + c / kChunksPerRow;
-      if (t < T)
-        *reinterpret_cast<uint4*>(ob + t * os.t + (c % kChunksPerRow) * 8) = zero;
+    for (int c = tid; c < kTileQ * (kD / 8); c += kThreadsT) {
+      const int t = q0 + c / (kD / 8);
+      if (t < T) *reinterpret_cast<uint4*>(ob + t * os.t + (c % (kD / 8)) * 8) = zero;
     }
     return;
   }
 
-  // each thread copies 8 of the 1024 16-byte chunks of a 64 x 128 tile
-  for (int c = tid; c < kBQ * kChunksPerRow; c += kThreads) {
-    const int r = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
-    const bool ok = q0 + r < T;
-    cp_async16(sQ + r * kLds + col, ok ? qb + (q0 + r) * qs.t + col : qb, ok);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar(s), 1);                  // the producer's expect_tx
+      mbar_init(empty_bar(s), kConsumers * 128);  // every consumer thread
+    }
+    mbar_init(q_bar, 1);
+    mbar_init_fence();
   }
-  cp_async_commit();
-  auto load_kv = [&](int tile, int buf) {
-    __nv_bfloat16* dk = sK + buf * kBK * kLds;
-    __nv_bfloat16* dv = sV + buf * kBK * kLds;
-    for (int c = tid; c < kBK * kChunksPerRow; c += kThreads) {
-      const int r = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
-      const int j = tile * kBK + r;
-      const bool ok = j < bound;
-      cp_async16(dk + r * kLds + col, ok ? kb + j * ks.t + col : kb, ok);
-      cp_async16(dv + r * kLds + col, ok ? vb + j * vs.t + col : vb, ok);
-    }
-    cp_async_commit();
-  };
-  load_kv(0, 0);
+  __syncthreads();
 
-  // this thread's two rows (mma accumulator rows lane/4 and lane/4 + 8) and
-  // the key limit of each: key j is visible iff j < lim (never past the
-  // tile's bound, so keys beyond the buffer end stay invisible)
-  const int row0 = q0 + warp * 16 + lane / 4;
-  const int row1 = row0 + 8;
-  const int lim0 = row0 >= valid ? 0 : min(causal ? past + row0 + 1 : past + valid, bound);
-  const int lim1 = row1 >= valid ? 0 : min(causal ? past + row1 + 1 : past + valid, bound);
-
-  uint32_t qf[kD / 16][4];
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      load_kv(it + 1, (it + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + lane % 16) * kLds + kk * 16 + (lane / 16) * 8);
-    }
-    const __nv_bfloat16* cK = sK + (it & 1) * kBK * kLds;
-    const __nv_bfloat16* cV = sV + (it & 1) * kBK * kLds;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, cK + (np * 16 + lane % 8 + (lane / 16) * 8) * kLds +
-                            kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+  if (warp >= 4 * kConsumers) {
+    // ---- producer: one lane of the last warpgroup, which gives its
+    // registers to the consumers (40 + 2 x 232 per thread of each) ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != 4 * kConsumers || lane != 0) return;
+    const int kh = h / group;
+    mbar_arrive_expect_tx(q_bar, kQBytes);
+    for (int r = 0; r < 2; ++r)
+      tma_load_4d(sq + r * kQRegion, &maps.q, q_bar, r * kRegionCols, h, q0, b);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(empty_bar(s), ((it / kStages) & 1) ^ 1);  // the first round passes
+      unsigned char* st = stages + s * kStageBytes;
+      mbar_arrive_expect_tx(full_bar(s), kStageBytes);
+      for (int r = 0; r < 2; ++r) {
+        tma_load_4d(st + r * kKvRegion, &maps.k, full_bar(s), r * kRegionCols, kh, it * kTileK, b);
+        tma_load_4d(st + (2 + r) * kKvRegion, &maps.v, full_bar(s), r * kRegionCols, kh,
+                    it * kTileK, b);
       }
     }
+    return;
+  }
 
-    // mask, scale to base 2, online softmax
-    const int j0 = it * kBK + (lane % 4) * 2;
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+  // ---- consumers: warpgroup wg takes query rows q0 + 64 wg .. + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp / 4, wt = tid % 128;
+  // this thread's two rows (accumulator rows lane/4 and lane/4 + 8) and the
+  // key limit of each: key j is visible iff j < lim
+  const int row0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4, row1 = row0 + 8;
+  const int lim0 = row0 < valid ? min(causal ? past + row0 + 1 : live, live) : 0;
+  const int lim1 = row1 < valid ? min(causal ? past + row1 + 1 : live, live) : 0;
+  // every valid row of the warpgroup sees the keys below wg_lo; none sees a
+  // key at or past wg_hi
+  const int first = q0 + 64 * wg;
+  const int wg_hi = first < valid ? min(causal ? past + first + 64 : live, live) : 0;
+  const int wg_lo = min(causal ? past + first + 1 : live, live);
+
+  float oacc[64];
 #pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-      const int j = j0 + nt * 8;
-      s[nt][0] = j < lim0 ? s[nt][0] * scale_log2 : -INFINITY;
-      s[nt][1] = j + 1 < lim0 ? s[nt][1] * scale_log2 : -INFINITY;
-      s[nt][2] = j < lim1 ? s[nt][2] * scale_log2 : -INFINITY;
-      s[nt][3] = j + 1 < lim1 ? s[nt][3] * scale_log2 : -INFINITY;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+  for (int i = 0; i < 64; ++i) oacc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const uint32_t q_rows = smem_addr(sq) + wg * 64 * 128;  // this warpgroup's rows of region 0
+  mbar_wait(q_bar, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages, j0 = it * kTileK;
+    mbar_wait(full_bar(s), (it / kStages) & 1);
+    unsigned char* st = stages + s * kStageBytes;
+    const uint32_t sta = smem_addr(st);
+    if (j0 >= wg_hi) {  // past this warpgroup's rows: release the stage only
+      mbar_arrive(empty_bar(s));
+      continue;
     }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
+    if (j0 + kTileK > live) {
+      // keys at or past `live` are the buffer's stale contents (or TMA's
+      // zeros past S): zero their V rows, so that P = 0 never meets a NaN.
+      // A swizzled row is still one 128-byte span of each region.
+      const uint4 zero = make_uint4(0, 0, 0, 0);
+      for (int c = (live - j0) * 16 + wt; c < kTileK * 16; c += 128) {
+        const int row = c / 16, ch = c % 16;
+        *reinterpret_cast<uint4*>(st + (2 + ch / 8) * kKvRegion + row * 128 + (ch % 8) * 16) = zero;
+      }
+      fence_async_smem();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+
+    // S = Q K^T: this warpgroup's 64 rows x 128 keys, 8 k16 steps over the
+    // two 64-column regions
+    float sacc[64];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const int r = ks / 4, kk = ks % 4;
+      wgmma_bf16_ss(sacc, desc_sw128(q_rows + r * kQRegion + kk * 32, 16),
+                    desc_sw128(sta + r * kKvRegion + kk * 32, 16), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+
+    // accumulator 4 nt + e holds row lane/4 (e < 2) or lane/4 + 8, key
+    // j0 + 8 nt + 2 (lane % 4) + e % 2. The mask, unless every valid row
+    // of the warpgroup sees the whole tile.
+    if (j0 + kTileK > wg_lo) {
+#pragma unroll
+      for (int nt = 0; nt < kTileK / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + nt * 8 + (lane % 4) * 2 + e;
+          if (j >= lim0) sacc[4 * nt + e] = -INFINITY;
+          if (j >= lim1) sacc[4 * nt + 2 + e] = -INFINITY;
+        }
+      }
+    }
+    // online softmax in base 2: the scale (> 0) goes into the exponent's
+    // FFMA, the row max is taken over the raw scores and scaled once
+    // (the rows' maxima and sums as trees of four independent chains)
+    float mx0[4], mx1[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mx0[c] = fmaxf(sacc[4 * c], sacc[4 * c + 1]);
+      mx1[c] = fmaxf(sacc[4 * c + 2], sacc[4 * c + 3]);
+    }
+#pragma unroll
+    for (int nt = 4; nt < kTileK / 8; ++nt) {
+      mx0[nt % 4] = fmaxf(mx0[nt % 4], fmaxf(sacc[4 * nt], sacc[4 * nt + 1]));
+      mx1[nt % 4] = fmaxf(mx1[nt % 4], fmaxf(sacc[4 * nt + 2], sacc[4 * nt + 3]));
+    }
+    const float mn0 =
+        fmaxf(m0, quad_max(fmaxf(fmaxf(mx0[0], mx0[1]), fmaxf(mx0[2], mx0[3]))) * scale_log2);
+    const float mn1 =
+        fmaxf(m1, quad_max(fmaxf(fmaxf(mx1[0], mx1[1]), fmaxf(mx1[2], mx1[3]))) * scale_log2);
     // a row that has seen no visible key yet keeps max -inf: use 0 as the
     // exponent base so that exp2(-inf - base) gives 0, not NaN
     const float base0 = mn0 == -INFINITY ? 0.f : mn0;
     const float base1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float alpha0 = exp2f(m0 - base0);
-    const float alpha1 = exp2f(m1 - base1);
+    const float alpha0 = fast_exp2(m0 - base0);
+    const float alpha1 = fast_exp2(m1 - base1);
     m0 = mn0;
     m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
+    float sum0[4] = {0.f, 0.f, 0.f, 0.f}, sum1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - base0);
-      s[nt][1] = exp2f(s[nt][1] - base0);
-      s[nt][2] = exp2f(s[nt][2] - base1);
-      s[nt][3] = exp2f(s[nt][3] - base1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
+    for (int nt = 0; nt < kTileK / 8; ++nt) {
+      sacc[4 * nt] = fast_exp2(fmaf(sacc[4 * nt], scale_log2, -base0));
+      sacc[4 * nt + 1] = fast_exp2(fmaf(sacc[4 * nt + 1], scale_log2, -base0));
+      sacc[4 * nt + 2] = fast_exp2(fmaf(sacc[4 * nt + 2], scale_log2, -base1));
+      sacc[4 * nt + 3] = fast_exp2(fmaf(sacc[4 * nt + 3], scale_log2, -base1));
+      sum0[nt % 4] += sacc[4 * nt] + sacc[4 * nt + 1];
+      sum1[nt % 4] += sacc[4 * nt + 2] + sacc[4 * nt + 3];
     }
-    l0 = l0 * alpha0 + sum0;  // per-thread partial sums; reduced at the end
-    l1 = l1 * alpha1 + sum1;
+    // per-thread partial sums; reduced at the end
+    l0 = l0 * alpha0 + ((sum0[0] + sum0[1]) + (sum0[2] + sum0[3]));
+    l1 = l1 * alpha1 + ((sum1[0] + sum1[1]) + (sum1[2] + sum1[3]));
 #pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      acc[dt][0] *= alpha0;
-      acc[dt][1] *= alpha0;
-      acc[dt][2] *= alpha1;
-      acc[dt][3] *= alpha1;
+    for (int i = 0; i < 64; i += 4) {
+      oacc[i] *= alpha0, oacc[i + 1] *= alpha0, oacc[i + 2] *= alpha1, oacc[i + 3] *= alpha1;
     }
 
-    // O += P V: the S accumulators re-pack as bf16 A fragments
+    // O += P V: the S accumulators of keys 16 ks .. 16 ks + 15 re-pack as
+    // the bf16 A fragment of k16 step ks
+    uint32_t pa[kTileK / 16][4];
 #pragma unroll
-    for (int ks16 = 0; ks16 < kBK / 16; ++ks16) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * ks16][0], s[2 * ks16][1]),
-          pack_bf16(s[2 * ks16][2], s[2 * ks16][3]),
-          pack_bf16(s[2 * ks16 + 1][0], s[2 * ks16 + 1][1]),
-          pack_bf16(s[2 * ks16 + 1][2], s[2 * ks16 + 1][3]),
-      };
-#pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, cV + (ks16 * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kLds +
-                                  dp * 16 + (lane / 16) * 8);
-        mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
-      }
+    for (int ks = 0; ks < kTileK / 16; ++ks) {
+      pa[ks][0] = pack_bf16(sacc[8 * ks], sacc[8 * ks + 1]);
+      pa[ks][1] = pack_bf16(sacc[8 * ks + 2], sacc[8 * ks + 3]);
+      pa[ks][2] = pack_bf16(sacc[8 * ks + 4], sacc[8 * ks + 5]);
+      pa[ks][3] = pack_bf16(sacc[8 * ks + 6], sacc[8 * ks + 7]);
     }
-    __syncthreads();  // this buffer is refilled by the next iteration's load
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kTileK / 16; ++ks) {
+      // V, MN-major, 128-byte swizzled: 16 keys of 128 B a step; the next
+      // 8 keys 1024 B on (SBO), the next 64 columns a region on (LBO)
+      wgmma_bf16_rs(oacc, pa[ks], desc_sw128(sta + 2 * kKvRegion + ks * 16 * 128, kKvRegion));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    fence_regs(pa);
+    mbar_arrive(empty_bar(s));
   }
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  // rows past valid, and rows that saw no key, write 0 whatever their
+  // accumulators hold
+  const float inv0 = row0 < valid && l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = row1 < valid && l1 > 0.f ? 1.f / l1 : 0.f;
 #pragma unroll
   for (int dt = 0; dt < kD / 8; ++dt) {
     const int col = dt * 8 + (lane % 4) * 2;
+    const float* a = oacc + 4 * dt;
     if (row0 < T)
       *reinterpret_cast<__nv_bfloat162*>(ob + row0 * os.t + col) =
-          __floats2bfloat162_rn(acc[dt][0] * inv0, acc[dt][1] * inv0);
+          inv0 > 0.f ? __floats2bfloat162_rn(a[0] * inv0, a[1] * inv0) : __floats2bfloat162_rn(0.f, 0.f);
     if (row1 < T)
       *reinterpret_cast<__nv_bfloat162*>(ob + row1 * os.t + col) =
-          __floats2bfloat162_rn(acc[dt][2] * inv1, acc[dt][3] * inv1);
+          inv1 > 0.f ? __floats2bfloat162_rn(a[2] * inv1, a[3] * inv1) : __floats2bfloat162_rn(0.f, 0.f);
   }
 }
 
@@ -641,7 +711,9 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc, const float* __r
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// A block of T > 1 queries: launches on `stream` and returns 0 on success,
+// else cudaGetLastError()'s code, or 100000 + the CUresult of a refused
+// tensor map.
 int flash_cached_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                 const int* past_len, const int* q_valid,
                                 int B, int T, int S, int H, int KH,
@@ -650,19 +722,26 @@ int flash_cached_attention_bf16(const void* q, const void* k, const void* v, voi
                                 long long v_sb, long long v_st, long long v_sh,
                                 long long o_sb, long long o_st, long long o_sh,
                                 float scale, int causal, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_cached_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  flash_cached_attention_kernel<<<grid, kThreads, kSmemBytes,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      past_len, q_valid, T, S, H / KH,
-      Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
-      Strides{v_sb, v_st, v_sh}, Strides{o_sb, o_st, o_sh},
-      scale * 1.4426950408889634f, causal);
+  using hopper::make_map;
+  constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  Maps maps;
+  // [B, rows, heads, D] views: dims (D, heads, rows, B), byte strides
+  int err = make_map<4>(&maps.q, bf16, q, {kD, H, T, B}, {q_sh * 2, q_st * 2, q_sb * 2},
+                        {kRegionCols, 1, kTileQ, 1});
+  if (!err)
+    err = make_map<4>(&maps.k, bf16, k, {kD, KH, S, B}, {k_sh * 2, k_st * 2, k_sb * 2},
+                      {kRegionCols, 1, kTileK, 1});
+  if (!err)
+    err = make_map<4>(&maps.v, bf16, v, {kD, KH, S, B}, {v_sh * 2, v_st * 2, v_sb * 2},
+                      {kRegionCols, 1, kTileK, 1});
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_cached_attention_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemT);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((T + kTileQ - 1) / kTileQ, H, B);
+  flash_cached_attention_kernel<<<grid, kThreadsT, kSmemT, static_cast<cudaStream_t>(stream)>>>(
+      maps, static_cast<__nv_bfloat16*>(o), Strides{o_sb, o_st, o_sh}, past_len, q_valid, T, S,
+      H / KH, scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -712,6 +791,8 @@ int flash_decode_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 const char* flash_cached_attention_error_string(int code) {
+  if (code >= hopper::kEncodeError)
+    return "cuTensorMapEncodeTiled refused a tensor map (code - 100000 is the CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

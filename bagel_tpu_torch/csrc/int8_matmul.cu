@@ -57,12 +57,15 @@
 // overlap the next tile's loads), no TMA store of the output, one block an
 // SM (the 196 KB ring).
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBM = 128;                 // output rows a block: two consumer warpgroups of 64
 constexpr int kBN = 256;                 // output columns a block: one m64n256 wgmma
@@ -80,79 +83,6 @@ constexpr int kQThreads = 256;           // quantize_rows_kernel: threads a row
 struct Maps {  // TMA tensor maps of xq [M, K] and of the k-major weight [N, K]
   CUtensorMap a, b;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// wait until the phase with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// --- TMA -------------------------------------------------------------------
-
-// box at (k byte c, row r) of a [rows, K] tensor map into dst
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint32_t bar, int c,
-                                         int r) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r)
-      : "memory");
-}
-
-// --- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), layout 1 = 128-byte swizzle.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-constexpr uint32_t kSwizzle128 = 1;
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups of this warpgroup are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads of an accumulator above the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 // d (64 x 256, s32) += A (64 x 32, s8, smem, K-major) * B (32 x 256, s8, smem, K-major)
 __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db) {
@@ -193,7 +123,7 @@ int8_matmul_kernel(const __grid_constant__ Maps maps, const float* __restrict__ 
       mbar_init(full_bar(s), 1);                   // the producer, with TMA's bytes
       mbar_init(empty_bar(s), kConsumers * 128);   // every consumer thread
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -207,8 +137,8 @@ int8_matmul_kernel(const __grid_constant__ Maps maps, const float* __restrict__ 
         mbar_wait(empty_bar(s), ((it / kStages) & 1) ^ 1);  // the first round passes
         unsigned char* st = smem + s * kStageBytes;
         mbar_arrive_expect_tx(full_bar(s), kStageBytes);  // boxes count whole, zero fill too
-        tma_load(st, &maps.a, full_bar(s), it * kBK, m0);
-        tma_load(st + kABytes, &maps.b, full_bar(s), it * kBK, n0);
+        tma_load_2d(st, &maps.a, full_bar(s), it * kBK, m0);
+        tma_load_2d(st + kABytes, &maps.b, full_bar(s), it * kBK, n0);
       }
     }
     return;
@@ -309,41 +239,11 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, long long x_st,
 
 // --- host side -------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-constexpr int kEncodeError = 100000;  // + the CUresult: a tensor map was refused
-
-// A row-major [rows, K] byte matrix, boxes of 128 k bytes x box_rows rows,
-// 128-byte swizzle; reads past K or rows give zeros.
-int make_map(CUtensorMap* map, const void* base, int K, int rows, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+// an int8 [rows, K] row-major view (a row stride of K bytes), boxes of
+// kBK bytes x box_rows rows with the 128-byte swizzle
+int make_rows_map(CUtensorMap* map, const void* base, int K, int rows, int box_rows) {
+  return make_map<2>(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, {K, rows}, {K}, {kBK, box_rows},
+                     true, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 }  // namespace
@@ -356,8 +256,8 @@ extern "C" {
 int int8_matmul_bf16(const void* xq, const void* xs, const void* wq, const void* ws,
                      const void* bias, void* out, int M, int N, int K, void* stream) {
   Maps maps;
-  int err = make_map(&maps.a, xq, K, M, kBM);
-  err = err ? err : make_map(&maps.b, wq, K, N, kBN);
+  int err = make_rows_map(&maps.a, xq, K, M, kBM);
+  err = err ? err : make_rows_map(&maps.b, wq, K, N, kBN);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(int8_matmul_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);

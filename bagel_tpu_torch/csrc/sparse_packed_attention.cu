@@ -83,13 +83,16 @@
 // and no persistent grid (the 624 blocks of the SigLIP shape run in 4.7
 // waves of 132).
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kConsumers = 2;              // consumer warpgroups, 64 query rows each
 constexpr int kBQ = 64 * kConsumers;       // query rows per block
@@ -129,97 +132,6 @@ struct Maps {  // one TMA tensor map per operand and column region
   CUtensorMap q, q_tail, k, k_tail, v, v_tail;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// wait until the phase with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// --- TMA -------------------------------------------------------------------
-
-// box at (column c, head h, row r) of a [rows, heads, D] tensor map into dst
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint32_t bar, int c,
-                                         int h, int r) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(h), "r"(r)
-      : "memory");
-}
-
-// --- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), layout (0 interleave, 1 128-byte swizzle).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-constexpr uint32_t kInterleave = 0, kSwizzle128 = 1;
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups of this warpgroup are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads of an accumulator above the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d (64 x 128, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 128, smem, K-major)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 // d (64 x 8, f32) += A (64 x 16, bf16 registers) * B (16 x 8, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -240,37 +152,11 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // --- the kernel ------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the SFU (ex2.approx.ftz: 2^-inf = 0; ~2 ulp, below the bf16 rounding of P)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // The ids of one query row, and whether key (position j, ids dk/fk/nk) is
@@ -329,7 +215,7 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
       mbar_init(empty_bar(s), kConsumers * 128);   // every consumer thread
     }
     mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   if (Sh::kTail) {  // the zero chunks standing for columns 72..79 of Q and K
     const uint4 zero = make_uint4(0, 0, 0, 0);
@@ -339,7 +225,7 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
       unsigned char* st = stages + (c / (Sh::kKvTail / 16)) * Sh::kStageBytes;
       reinterpret_cast<uint4*>(st + Sh::kKTailOff + Sh::kKvTail)[c % (Sh::kKvTail / 16)] = zero;
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_async_smem();
   }
   __syncthreads();
 
@@ -353,9 +239,9 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
       mbar_arrive_expect_tx(q_bar, Sh::kQTx);
 #pragma unroll
       for (int r = 0; r < Sh::kRegions; ++r)
-        tma_load(sq + r * Sh::kQRegion, &maps.q, q_bar, r * kRegionCols, h, q0);
+        tma_load_3d(sq + r * Sh::kQRegion, &maps.q, q_bar, r * kRegionCols, h, q0);
       if (Sh::kTail)
-        tma_load(sq + Sh::kRegions * Sh::kQRegion, &maps.q_tail, q_bar, kRegionCols, h, q0);
+        tma_load_3d(sq + Sh::kRegions * Sh::kQRegion, &maps.q_tail, q_bar, kRegionCols, h, q0);
     }
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % Sh::kStages;
@@ -374,13 +260,13 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
         mbar_arrive_expect_tx(full_bar(s), Sh::kStageTx);
 #pragma unroll
         for (int r = 0; r < Sh::kRegions; ++r) {
-          tma_load(st + r * Sh::kKvRegion, &maps.k, full_bar(s), r * kRegionCols, kh, j0);
-          tma_load(st + (Sh::kRegions + r) * Sh::kKvRegion, &maps.v, full_bar(s),
+          tma_load_3d(st + r * Sh::kKvRegion, &maps.k, full_bar(s), r * kRegionCols, kh, j0);
+          tma_load_3d(st + (Sh::kRegions + r) * Sh::kKvRegion, &maps.v, full_bar(s),
                    r * kRegionCols, kh, j0);
         }
         if (Sh::kTail) {
-          tma_load(st + Sh::kKTailOff, &maps.k_tail, full_bar(s), kRegionCols, kh, j0);
-          tma_load(st + Sh::kVTailOff, &maps.v_tail, full_bar(s), kRegionCols, kh, j0);
+          tma_load_3d(st + Sh::kKTailOff, &maps.k_tail, full_bar(s), kRegionCols, kh, j0);
+          tma_load_3d(st + Sh::kVTailOff, &maps.v_tail, full_bar(s), kRegionCols, kh, j0);
         }
       } else {
         mbar_arrive(full_bar(s));
@@ -427,7 +313,7 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
           *reinterpret_cast<uint4*>(dst) = zero;
         }
       }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_async_smem();
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     }
   };
@@ -446,7 +332,7 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
         da = make_desc(q_tail, Sh::kQTail, 128, kInterleave);
         db = make_desc(sta + Sh::kKTailOff, Sh::kKvTail, 128, kInterleave);
       }
-      wgmma_ss_n128(sacc, da, db, ks > 0);
+      wgmma_bf16_ss(sacc, da, db, ks > 0);
     }
     wgmma_commit();
   };
@@ -536,7 +422,7 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
       const uint64_t dv = make_desc(sta + Sh::kRegions * Sh::kKvRegion + ks * 16 * 128,
                                     Sh::kKvRegion, 1024, kSwizzle128);
       if constexpr (Sh::kRegions == 2) {
-        wgmma_rs_n128(om, pa[ks], dv);
+        wgmma_bf16_rs(om, pa[ks], dv);
       } else {
         wgmma_rs_n64(om, pa[ks], dv);
       }
@@ -573,46 +459,13 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
 
 // --- host side -------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-constexpr int kEncodeError = 100000;  // + the CUresult: a tensor map was refused
-
 // A [rows, heads, D] bf16 view with element strides (st, sh, 1), boxes of
 // box_cols x 1 x box_rows; 128-byte swizzle or none. Reads past D or rows
 // give zeros.
-int make_map(CUtensorMap* map, const void* base, int D, int heads, int rows, long long st,
-             long long sh, int box_cols, int box_rows, bool swizzle) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(st) * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), 1,
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+int make_view_map(CUtensorMap* map, const void* base, int D, int heads, int rows, long long st,
+                  long long sh, int box_cols, int box_rows, bool swizzle) {
+  return make_map<3>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, {D, heads, rows},
+                     {sh * 2, st * 2}, {box_cols, 1, box_rows}, swizzle);
 }
 
 template <int D>
@@ -623,13 +476,13 @@ int launch(const void* q, const void* k, const void* v, void* o, const int* doc,
            float scale, cudaStream_t stream) {
   Maps maps;
   int err = 0;
-  err = err ? err : make_map(&maps.q, q, D, H, S, q_st, q_sh, kRegionCols, kBQ, true);
-  err = err ? err : make_map(&maps.k, k, D, KH, S, k_st, k_sh, kRegionCols, kBK, true);
-  err = err ? err : make_map(&maps.v, v, D, KH, S, v_st, v_sh, kRegionCols, kBK, true);
+  err = err ? err : make_view_map(&maps.q, q, D, H, S, q_st, q_sh, kRegionCols, kBQ, true);
+  err = err ? err : make_view_map(&maps.k, k, D, KH, S, k_st, k_sh, kRegionCols, kBK, true);
+  err = err ? err : make_view_map(&maps.v, v, D, KH, S, v_st, v_sh, kRegionCols, kBK, true);
   if (Shape<D>::kTail) {
-    err = err ? err : make_map(&maps.q_tail, q, D, H, S, q_st, q_sh, 8, kBQ, false);
-    err = err ? err : make_map(&maps.k_tail, k, D, KH, S, k_st, k_sh, 8, kBK, false);
-    err = err ? err : make_map(&maps.v_tail, v, D, KH, S, v_st, v_sh, 8, kBK, false);
+    err = err ? err : make_view_map(&maps.q_tail, q, D, H, S, q_st, q_sh, 8, kBQ, false);
+    err = err ? err : make_view_map(&maps.k_tail, k, D, KH, S, k_st, k_sh, 8, kBK, false);
+    err = err ? err : make_view_map(&maps.v_tail, v, D, KH, S, v_st, v_sh, 8, kBK, false);
   } else {
     maps.q_tail = maps.q, maps.k_tail = maps.k, maps.v_tail = maps.v;  // unused
   }

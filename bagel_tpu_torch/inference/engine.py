@@ -210,7 +210,16 @@ def _initial_noise(job: dict, shape, device) -> torch.Tensor:
 
 
 class BagelEngine:
-    """User-facing session API: understanding and text-to-image."""
+    """User-facing session API: understanding and text-to-image.
+
+    Random numbers differ from `bagel_tpu`'s: without `init_noise` a job's
+    x_1 is drawn from a `torch.Generator` (`rng`, by default one seeded 0),
+    and sampled decoding draws tokens with `torch.multinomial`, where the
+    JAX engine uses `jax.random.normal(PRNGKey(0))` and
+    `jax.random.categorical`. So on the same weights an image made without
+    `init_noise`, or a text sampled rather than decoded greedily, differs
+    from `bagel_tpu`'s; with `init_noise` and greedy decoding the two agree
+    (the parity tests run that way)."""
 
     def __init__(
         self,

@@ -17,6 +17,7 @@ from bagel_tpu_torch.ops.flash import (
     flash_q8_plain,
     kv_bucket,
     q8_prep,
+    q8_prep_plain,
 )
 from bagel_tpu_torch.ops.norms import group_norm, layer_norm, rms_norm
 from bagel_tpu_torch.ops.rope import apply_rope, apply_rope_2d, rope_2d_tables, rope_cos_sin
@@ -41,6 +42,7 @@ __all__ = [
     "flash_q8_plain",
     "kv_bucket",
     "q8_prep",
+    "q8_prep_plain",
     "group_norm",
     "layer_norm",
     "rms_norm",

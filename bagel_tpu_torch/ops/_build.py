@@ -2,7 +2,9 @@
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a plain
 C interface, `build/<name>-<hash>.so` at the root of the checkout, keyed by a
-hash of its source and the compiler flags, with nvcc's ptxas report beside it
+hash of its source, of every shared header `csrc/*.cuh` (so that an edited
+header rebuilds the kernels) and of the compiler flags, with nvcc's ptxas
+report beside it
 (`build/<name>-<hash>.ptxas.txt`); ctypes loads it. Nothing here runs
 at import time. A missing or failing nvcc raises with nvcc's own error
 output: there is no fallback.
@@ -52,7 +54,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.name.encode() + p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 

@@ -10,17 +10,21 @@ Rows i >= valid give 0. GQA maps query head h to KV head h // (H/KH).
 On a CUDA tensor `flash_cached_attention` launches the hand-written Hopper
 kernel `csrc/flash_cached_attention.cu` (bf16, D=128) or raises; it takes
 the plain version `flash_cached_attention_plain` only for CPU tensors. A
-decode step (T == 1) takes the source's split-KV pair instead: the GQA group
-packed into one query tile, the live keys split across `decode_splits`
-blocks, then a combine (`flash_decode_split_plain` is its arithmetic in
-plain PyTorch, a test reference).
+block of T > 1 queries runs the TMA + wgmma kernel (128-row query tiles,
+128-key tiles); a decode step (T == 1) takes the source's split-KV pair
+instead: the GQA group packed into one query tile, the live keys split
+across `decode_splits` blocks, then a combine (`flash_decode_split_plain`
+is its arithmetic in plain PyTorch, a test reference).
 
 With `int8_compute` (the w8a8 attention; by default the JAX package's
 switch `BAGEL_FLASH_INT8`, read at each call) q/k/v are quantized to int8
-with per-(batch, head) scales by `q8_prep` (plain PyTorch, as the JAX
-package leaves it to XLA) and both products run in int8: on CUDA through
-`csrc/flash_cached_attention_q8.cu` (`flash_cached_attention_q8`), on the
-CPU through its plain version `flash_q8_plain`.
+with per-(batch, head) scales by `q8_prep` (on CUDA one hand-written pass of
+two kernels in `csrc/flash_cached_attention_q8.cu`, with no host read; its
+plain version `q8_prep_plain`) and both products run in int8: on CUDA
+through the same source's integer-wgmma kernel (`flash_cached_attention_q8`),
+on the CPU through its plain version `flash_q8_plain`. The prep writes V
+transposed with its keys permuted within each 32-key group (`q8_v_order`),
+the layout the kernel's PV product reads.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from bagel_tpu_torch.ops.attention import cache_block_mask, dot_attention
 KERNEL = "flash_cached_attention"
 KERNEL_Q8 = "flash_cached_attention_q8"
 HEAD_DIM = 128  # compiled into the kernels
-Q8_BLOCK_K = 64  # the int8 kernel's key tile: its result depends on it
+Q8_BLOCK_K = 128  # the int8 kernel's key tile: its result depends on it
+Q8_KEY_GROUP = 32  # the int8 kernel's V^T keys are permuted within groups of 32
 DECODE_BLOCK_K = 64  # the decode kernel's key tile: a split takes whole tiles
 DECODE_MAX_GROUP = 16  # query heads per KV head the decode tile holds (m16)
 DECODE_MAX_SPLITS = 256  # the combine kernel's table of split weights
@@ -72,9 +77,9 @@ def flash_cached_attention_plain(
 ) -> torch.Tensor:
     """The kernels' function in plain PyTorch: `cache_block_mask` +
     `dot_attention` (fp32 products of the working-dtype inputs); with
-    int8_compute, `q8_prep` + `flash_q8_plain` at key tile `block_k`."""
+    int8_compute, `q8_prep_plain` + `flash_q8_plain` at key tile `block_k`."""
     if int8_compute:
-        q8, k8, v8, qs, ks, vs = q8_prep(q, k, v, past_len, q_valid)
+        q8, k8, v8, qs, ks, vs = q8_prep_plain(q, k, v, past_len, q_valid)
         return flash_q8_plain(q8, k8, v8, qs, ks, vs, past_len, q_valid, causal=causal,
                               scale=scale, block_k=block_k, out_dtype=q.dtype)
     mask = cache_block_mask(k.shape[1], q.shape[1], past_len, q_valid, causal)
@@ -159,36 +164,141 @@ def _to_i8(x: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(xf), -127, 127).to(torch.int8)
 
 
-def q8_prep(q, k, v, past_len, q_valid):
-    """Symmetric int8 codes and per-(batch, head) f32 scales of q [B, T, H, D]
-    and of the live prefix of k/v [B, S, KH, D], as the JAX wrapper makes
-    them: the q absmax covers every row of the block (invalid rows too), the
-    k/v absmax only each row's [0, past + valid). Returns (q8, k8, v8, qs
-    [B, H], ks [B, KH], vs [B, KH]); k8/v8 hold the first max(past + valid)
-    positions only: no key past them is visible."""
+def q8_v_order(n: int, device=None) -> torch.Tensor:
+    """[n] int64 (n a multiple of Q8_KEY_GROUP): the key that position p of a
+    row of the int8 kernel's V^T holds. Within each group of 32 keys,
+    position 16 h + 4 t + e holds key 16 h + 2 t + e % 2 + 8 (e // 2): the
+    keys that thread t of an accumulator row holds in wgmma's int32 S
+    fragment, in the order of the 8-bit A fragment it feeds to PV (so the
+    kernel packs P's codes without shuffles; the sum over keys does not
+    care about their order)."""
+    p = torch.arange(n, device=device)
+    return (p & ~15) | ((p & 12) >> 1) | ((p & 2) << 2) | (p & 1)
+
+
+def q8_v_layout(v8: torch.Tensor) -> torch.Tensor:
+    """int8 V [B, S, KH, D] -> the kernel's V^T [B, KH, D, S32] (S32 = S
+    rounded up to 32, zeros past S), keys permuted by `q8_v_order`."""
+    b, s, kh, d = v8.shape
+    s32 = -(-s // Q8_KEY_GROUP) * Q8_KEY_GROUP
+    vt = torch.zeros((b, kh, d, s32), dtype=v8.dtype, device=v8.device)
+    vt[..., :s] = v8.permute(0, 2, 3, 1)
+    return vt[..., q8_v_order(s32, v8.device)].contiguous()
+
+
+def q8_v_rows(v8t: torch.Tensor, s: int) -> torch.Tensor:
+    """The kernel's V^T [B, KH, D, S32] back to V [B, S, KH, D]: the inverse
+    of `q8_v_layout`."""
+    inverse = torch.argsort(q8_v_order(v8t.shape[-1], v8t.device))
+    return v8t[..., inverse][..., :s].permute(0, 3, 1, 2).contiguous()
+
+
+def q8_prep_plain(q, k, v, past_len, q_valid):
+    """`q8_prep` in plain PyTorch (no host read): symmetric int8 codes and
+    per-(batch, head) f32 scales of q [B, T, H, D] and of the live keys of
+    k/v [B, S, KH, D], as the JAX wrapper makes them: q's absmax covers every
+    row of the block (invalid rows too), k's and v's only each row's keys
+    [0, past + valid); scale max(absmax, 1e-12) / 127, codes
+    round-half-even(x / scale) clamped to +-127, in f32. Returns (q8
+    [B, T, H, D], k8 [B, S, KH, D], v8t [B, KH, D, S32] in `q8_v_layout`,
+    qs [B, H], ks [B, KH], vs [B, KH]); codes past a row's live keys are 0
+    (the pass on the card leaves them unspecified: `q8_prep`)."""
+    s = k.shape[1]
     ends = past_len.to(torch.int64) + q_valid.to(torch.int64)
-    live = max(int(ends.max()), 1)
-    k, v = k[:, :live], v[:, :live]
-    alive = torch.arange(live, device=k.device)[None, :, None] < ends[:, None, None]
+    alive = torch.arange(s, device=k.device)[None, :, None] < ends[:, None, None]  # [B, S, 1]
     qa = q.float().abs().amax(dim=(1, 3))
     ka = torch.where(alive, k.float().abs().amax(dim=-1), 0.0).amax(dim=1)
     va = torch.where(alive, v.float().abs().amax(dim=-1), 0.0).amax(dim=1)
-    qs, ks, vs = (torch.clamp(a, min=1e-12) / 127.0 for a in (qa, ka, va))
-    return _to_i8(q, qs), _to_i8(k, ks), _to_i8(v, vs), qs, ks, vs
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # product with its reciprocal, which is not the IEEE quotient
+    qs, ks, vs = (torch.clamp(a, min=1e-12) / torch.full_like(a, 127.0) for a in (qa, ka, va))
+    zero = torch.zeros((), dtype=torch.int8, device=k.device)
+    k8 = torch.where(alive[..., None], _to_i8(k, ks), zero)
+    v8 = torch.where(alive[..., None], _to_i8(v, vs), zero)
+    return _to_i8(q, qs), k8, q8_v_layout(v8), qs, ks, vs
+
+
+def q8_live(k8, v8t, past_len, q_valid):
+    """Copies of k8 and v8t (`q8_prep`'s layouts) with every code past each
+    row's live keys [0, past + valid) set to 0: what the plain version
+    writes there, where the pass leaves codes unspecified."""
+    s = k8.shape[1]
+    ends = (past_len.to(torch.int64) + q_valid.to(torch.int64)).to(k8.device)
+    alive = torch.arange(s, device=k8.device)[None, :] < ends[:, None]  # [B, S]
+    order = q8_v_order(v8t.shape[-1], v8t.device)
+    alive_t = order[None, :] < ends[:, None]  # [B, S32]: the key at each V^T position
+    zero = torch.zeros((), dtype=k8.dtype, device=k8.device)
+    return (torch.where(alive[:, :, None, None], k8, zero),
+            torch.where(alive_t[:, None, None, :], v8t, zero))
+
+
+def q8_prep(q, k, v, past_len, q_valid):
+    """The int8 attention's inputs (see `q8_prep_plain`, its function): on a
+    CUDA tensor one hand-written pass (two kernels, no host read, so a call
+    can be captured in a CUDA graph), on a CPU tensor the plain version.
+    The pass leaves the codes past a row's live keys unspecified (0 up to
+    the end of the 64-key chunk that holds the live end, unwritten beyond):
+    nothing reads them unmasked; `q8_live` zeroes them for a comparison.
+
+    `q8_prep.launches` counts calls that launch the pass."""
+    if q.device.type == "cpu":
+        return q8_prep_plain(q, k, v, past_len, q_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check(q, k, v, past_len, q_valid)
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    s32 = -(-s // Q8_KEY_GROUP) * Q8_KEY_GROUP
+    dev = q.device
+    q8 = torch.empty((b, t, h, d), dtype=torch.int8, device=dev)
+    k8 = torch.empty((b, s, kh, d), dtype=torch.int8, device=dev)
+    v8t = torch.empty((b, kh, d, s32), dtype=torch.int8, device=dev)
+    qs = torch.empty((b, h), dtype=torch.float32, device=dev)
+    ks = torch.empty((b, kh), dtype=torch.float32, device=dev)
+    vs = torch.empty((b, kh), dtype=torch.float32, device=dev)
+    lib = _library_q8()
+    scratch = torch.empty(lib.flash_q8_prep_scratch(b, t, s, h, kh) // 4, dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        err = lib.flash_q8_prep(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q8.data_ptr(), k8.data_ptr(),
+            v8t.data_ptr(), qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), scratch.data_ptr(),
+            past_len.data_ptr(), q_valid.data_ptr(), b, t, s, h, kh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        msg = lib.flash_cached_attention_q8_error_string(err).decode()
+        raise RuntimeError(f"q8_prep launch failed: {msg} ({err})")
+    q8_prep.launches += 1
+    return q8, k8, v8t, qs, ks, vs
+
+
+q8_prep.launches = 0
 
 
 def flash_q8_plain(
-    q8, k8, v8, qs, ks, vs, past_len, q_valid, *, causal: bool,
+    q8, k8, v8t, qs, ks, vs, past_len, q_valid, *, causal: bool,
     scale: Optional[float] = None, block_k: int = Q8_BLOCK_K, out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    """The int8 kernel's function in plain PyTorch, key tile by key tile as
+    """The int8 kernel's function in plain PyTorch on `q8_prep`'s codes and
+    scales (V^T in `q8_v_layout`), key tile by key tile as
     `_flash_kernel_q8` runs it (the row max of P, and so the codes, are per
-    tile). Both products are float32 matmuls of the int8 codes, which are
-    exact: |q8 . k8| <= 127^2 D and |codes . v8| <= 127^2 block_k, both
-    under 2^24."""
+    tile)."""
+    return _flash_q8_rows(q8, k8, q8_v_rows(v8t, k8.shape[1]), qs, ks, vs, past_len, q_valid,
+                          causal=causal, scale=scale, block_k=block_k, out_dtype=out_dtype)
+
+
+def _flash_q8_rows(q8, k8, v8, qs, ks, vs, past_len, q_valid, *, causal, scale, block_k,
+                   out_dtype):
+    """`flash_q8_plain` with V as [B, S, KH, D]. Both products are float32
+    matmuls of the int8 codes, which are exact: |q8 . k8| <= 127^2 D and
+    |codes . v8| <= 127^2 block_k, both under 2^24. Tiles past every row's
+    live keys change nothing and are not run (a host read of the bound)."""
     assert block_k * 127 * 127 < 2**24 and q8.shape[-1] * 127 * 127 < 2**24
     b, t, h, d = q8.shape
-    s_live, kh = k8.shape[1], k8.shape[2]
+    kh = k8.shape[2]
+    s_live = min(k8.shape[1], int((past_len.to(torch.int64) + q_valid.to(torch.int64)).max()))
     g = h // kh
     if scale is None:
         scale = d**-0.5
@@ -279,6 +389,11 @@ def _library_q8() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
+        prep = lib.flash_q8_prep
+        prep.argtypes = [p] * 12 + [i] * 5 + [ctypes.c_int64] * 9 + [p]
+        prep.restype = ctypes.c_int
+        lib.flash_q8_prep_scratch.argtypes = [i] * 5
+        lib.flash_q8_prep_scratch.restype = ctypes.c_int64
         lib.flash_cached_attention_q8_error_string.argtypes = [i]
         lib.flash_cached_attention_q8_error_string.restype = ctypes.c_char_p
     return lib
@@ -286,8 +401,8 @@ def _library_q8() -> ctypes.CDLL:
 
 def flash_cached_attention_q8(
     q8: torch.Tensor,  # [B, T, H, D] int8
-    k8: torch.Tensor,  # [B, S, KH, D] int8, the live prefix
-    v8: torch.Tensor,
+    k8: torch.Tensor,  # [B, S, KH, D] int8
+    v8: torch.Tensor,  # [B, KH, D, S32] int8 in `q8_v_layout`
     qs: torch.Tensor,  # [B, H] f32
     ks: torch.Tensor,  # [B, KH] f32
     vs: torch.Tensor,
@@ -300,7 +415,8 @@ def flash_cached_attention_q8(
 ) -> torch.Tensor:
     """The int8 attention on `q8_prep`'s codes and scales -> [B, T, H, D] in
     out_dtype: the CUDA kernel (key tile Q8_BLOCK_K, bf16 out) on a CUDA
-    tensor, the plain version on a CPU tensor.
+    tensor, the plain version on a CPU tensor. The codes past a row's live
+    keys are never read unmasked.
 
     `flash_cached_attention_q8.launches` counts kernel launches."""
     if q8.device.type == "cpu":
@@ -312,9 +428,11 @@ def flash_cached_attention_q8(
         raise TypeError(f"the CUDA kernel writes bf16, not {out_dtype}")
     b, t, h, d = q8.shape
     s, kh = k8.shape[1], k8.shape[2]
-    for name, x in (("k8", k8), ("v8", v8)):
-        if x.dtype != torch.int8 or x.shape != (b, s, kh, d) or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int8 [{b}, {s}, {kh}, {d}] tensor")
+    s32 = -(-s // Q8_KEY_GROUP) * Q8_KEY_GROUP
+    for name, x, shape in (("k8", k8, (b, s, kh, d)), ("v8", v8, (b, kh, d, s32))):
+        if x.dtype != torch.int8 or x.shape != shape or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int8 {list(shape)} tensor, "
+                             f"got {x.dtype} {tuple(x.shape)}")
     if q8.dtype != torch.int8 or not q8.is_contiguous() or d != HEAD_DIM or h % kh:
         raise ValueError(f"q8 must be a contiguous int8 [B, T, H, {HEAD_DIM}] tensor "
                          f"with H % KH == 0, got {q8.dtype} {tuple(q8.shape)}")
@@ -382,7 +500,7 @@ def flash_cached_attention(
     mask their own edge. int8_compute=None reads `default_int8()`.
 
     On CUDA a decode step (T == 1) runs the split-KV pair (two kernels, one
-    call); a longer block the 64-row kernel.
+    call); a longer block the 128-row TMA + wgmma kernel.
 
     `flash_cached_attention.launches` counts calls that launch the bf16
     kernels."""

@@ -8,9 +8,10 @@ Phases (the first failure exits non-zero, and no result line is printed):
              for fp32 matmuls and convolutions (the VAE runs in full fp32).
   2. build   every kernel in bagel_tpu_torch/csrc with nvcc, for sm_90a, one
              nvcc per source, all started together; ptxas registers/spills;
-             from `cuobjdump -sass`, B4's dequantization instructions, B3's
-             wgmma (HGMMA) and B5's integer wgmma (IGMMA) and the TMA loads
-             (UTMALDG) of both, which must be there.
+             from `cuobjdump -sass`, B4's dequantization instructions, the
+             wgmma (HGMMA) of B3 and of B1 at T > 1, the integer wgmma
+             (IGMMA) of B5 and B2, and the TMA loads (UTMALDG) of all four,
+             which must be there.
   3. kernels each kernel against its plain PyTorch version: edge cases, then
              the shapes the main paths give it, with its device time (calls
              captured in a CUDA graph, the replay timed with events: no host
@@ -19,10 +20,12 @@ Phases (the first failure exits non-zero, and no result line is printed):
              device time (a yardstick the port never calls) and the roofline
              bound of the work; and a negative control per kernel that the
              gate must reject.
-             3a B1 flash_cached_attention (control: past taken as 0); at a
-                decode step (T=1) the split-KV pair: edge cases with stale
-                NaN past the live keys, two kernels a call (torch.profiler),
-                and a control that drops one live split from the combine;
+             3a B1 flash_cached_attention (control: past taken as 0): at
+                T > 1 the TMA + wgmma kernel, edge cases with stale NaN
+                past the live keys and a strided q; at a decode step (T=1)
+                the split-KV pair: edge cases with stale NaN past the live
+                keys, two kernels a call (torch.profiler), and a control
+                that drops one live split from the combine;
              3b B3 sparse_packed_attention (control: two packed images merged
                 into one segment; the full-tile flags timed against the same
                 launch without them; the SigLIP shape timed against SDPA in
@@ -40,8 +43,11 @@ Phases (the first failure exits non-zero, and no result line is printed):
                 swapped); one decode token's 112 launches over 28 layers'
                 own weights, cold in L2, against torch.matmul over 28
                 layers' bf16 weights;
-             3e B2 flash_cached_attention_q8 at its key tile, at the denoise
-                and ViT-block shapes (control: V's scale left out).
+             3e B2 flash_cached_attention_q8 at its key tile (128), at the
+                denoise and ViT-block shapes (control: V's scale left out),
+                on the codes of its prep pass q8_prep (two kernels), which
+                is held bit for bit against its plain version (codes, V^T
+                layout, scales) and timed against its bytes bound.
   4. forward one full-width MoT gen-block forward (512 px, full depth)
              through the kernel and through the dense path: velocity rel.
              error; the full-width SigLIP tower on a 980 px image through
@@ -58,7 +64,8 @@ Phases (the first failure exits non-zero, and no result line is printed):
   7. w8a8    the weights quantized to w8a8, fused and made k-major
              (utils.quant.w8a8_kmajor), text-to-image through __call__ with
              BAGEL_FLASH_INT8=1: B5 L x (4 x 2 + 8 x 7) and as many
-             quantization passes, B2 L x (2 + 7), no B1; peak memory at most
+             quantization passes, B2 L x (2 + 7) and as many q8_prep
+             passes, no B1; peak memory at most
              W8A8_PEAK_GIB; a gen-block velocity through the kernels vs
              the plain versions (and, as a control, the plain path at another
              key tile), w8a8 vs bf16; seconds per image and peak memory.
@@ -274,25 +281,37 @@ def phase_build() -> None:
                 instance = f" ({arg}={d.group(1)})" if d else ""
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}{instance}: {line.strip()}")
-    # what the two redesigned kernels compiled to: B4's dequantization
-    # instructions, and B3's Hopper tensor-core and TMA instructions
+    # what the redesigned kernels compiled to: B4's dequantization
+    # instructions, and the Hopper tensor-core and TMA instructions of the
+    # others; the Hopper designs are the ones that run: wgmma (HGMMA) or
+    # integer wgmma (IGMMA), and TMA loads (UTMALDG), in each kernel function
+    # named here
+    required = {
+        "sparse_packed_attention": ("sparse_packed_attention_kernel", ("HGMMA", "UTMALDG"), "B3"),
+        "int8_matmul": ("int8_matmul_kernel", ("IGMMA", "UTMALDG"), "B5"),
+        "flash_cached_attention": ("flash_cached_attention_kernel", ("HGMMA", "UTMALDG"),
+                                   "B1 at T > 1"),
+        "flash_cached_attention_q8": ("flash_q8_kernel", ("IGMMA", "UTMALDG"), "B2"),
+    }
     for name, ops in (("int4_matmul", ("I2F", "I2FP", "F2F", "F2FP", "PRMT", "LOP3", "FFMA",
                                        "FMUL", "FADD", "LDG")),
                       ("sparse_packed_attention", ("HGMMA", "UTMALDG", "HMMA", "LDGSTS",
                                                    "MUFU")),
-                      ("int8_matmul", ("IGMMA", "HGMMA", "UTMALDG", "IMMA", "LDGSTS"))):
+                      ("int8_matmul", ("IGMMA", "HGMMA", "UTMALDG", "IMMA", "LDGSTS")),
+                      ("flash_cached_attention", ("HGMMA", "UTMALDG", "HMMA", "LDGSTS", "MUFU")),
+                      ("flash_cached_attention_q8", ("IGMMA", "UTMALDG", "IMMA", "MUFU", "I2F",
+                                                     "F2I", "IDP", "PRMT"))):
+        found = set()
         for fn, counts in sass_counts(name, ops).items():
             log(f"[build] {name} SASS {fn}: {json.dumps(counts)}")
-            # the Hopper designs are the ones that run: B3's wgmma, B5's integer wgmma
-            if name == "sparse_packed_attention":
-                check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-                      f"B3's SASS ({fn}) holds no HGMMA (wgmma) or no UTMALDG (TMA load)")
-                log(f"[build] B3 SASS: wgmma (HGMMA) and TMA loads (UTMALDG) present in {fn}")
-            elif "int8_matmul_kernel" in fn:
-                check(counts["IGMMA"] > 0 and counts["UTMALDG"] > 0,
-                      f"B5's SASS ({fn}) holds no IGMMA (integer wgmma) or no UTMALDG (TMA load)")
-                log(f"[build] B5 SASS: integer wgmma (IGMMA) and TMA loads (UTMALDG) present "
-                    f"in {fn}")
+            if name in required and required[name][0] in fn:
+                _, need, label = required[name]
+                check(all(counts[op] > 0 for op in need),
+                      f"{label}'s SASS ({fn}) lacks one of {need}: {json.dumps(counts)}")
+                log(f"[build] {label} SASS: {' and '.join(need)} present in {fn}")
+                found.add(name)
+        check(name not in required or name in found,
+              f"no function {required.get(name, ('',))[0]} in {name}'s SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -433,6 +452,8 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa):
         ("T=1 block", 2, 1, 256, 28, 4, [100, 0], [1, 1], None),
         ("a row with valid=0", 2, 16, 128, 4, 4, [10, 0], [16, 0], None),
         ("stale garbage beyond the live region", 2, 70, 256, 8, 4, [20, 5], [70, 40], 3.0e4),
+        ("strided q (a fused projection's view), a causal diagonal at past > 0, a partial "
+         "last live tile", 2, 300, 1024, 28, 4, [200, 37], [300, 250], 3.0e4),
         # a decode step (T=1) takes the split-KV pair: ~33 splits a KV head
         ("decode past=0", 1, 1, 256, 28, 4, [0], [1], 3.0e4),
         ("decode, a tile boundary at past + 1", 1, 1, 1024, 28, 4, [255], [1], 3.0e4),
@@ -443,6 +464,11 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa):
     for label, b, t, s, h, kh, past, valid, garbage in edge:
         for causal in (True, False):
             args = attention_inputs(gen, b, t, s, h, kh, past, valid, garbage)
+            if label.startswith("strided q"):  # rows of a wider [B, T, H D + 2 KH D] tensor
+                wide = torch.zeros((b, t, (h + 2 * kh) * 128), dtype=torch.bfloat16,
+                                   device=DEVICE)
+                wide[..., : h * 128] = args[0].reshape(b, t, h * 128)
+                args = (wide[..., : h * 128].view(b, t, h, 128), *args[1:])
             name = f"{label}, {'causal' if causal else 'non-causal'}"
             got, _, err, ratio, rel = compare(flash, args, causal, name)
             if garbage is not None:  # NaN beyond the live region changes nothing
@@ -1114,16 +1140,33 @@ def int4_token(cfg, m4, gen, fused, results):
 
 
 def q8_compare(flash, args, causal):
-    """The int8 kernel and its plain version on the same codes and scales
-    (at the kernel's key tile): (prepared inputs, kernel out, plain out,
-    err, ratio, rel)."""
+    """The prep pass against its plain version (every code of every row's
+    live keys and every scale, bit for bit; `q8_live` zeroes the codes past
+    the live keys, which the pass leaves unspecified), then the int8
+    kernel and its plain version on the same codes and scales at the
+    kernel's key tile: (prepared inputs, kernel out, plain out, err, ratio,
+    rel)."""
     q, k, v, past, valid = args
     prep = flash.q8_prep(q, k, v, past, valid)
+    plain_prep = flash.q8_prep_plain(q, k, v, past, valid)
+    live = (prep[0], *flash.q8_live(prep[1], prep[2], past, valid), *prep[3:])
+    for name, got_, want_ in zip(("q8", "k8", "v8t", "qs", "ks", "vs"), live, plain_prep):
+        check(got_.shape == want_.shape and torch.equal(got_, want_),
+              f"q8_prep: {name} differs from the plain version's")
+    del plain_prep, live
     got = flash.flash_cached_attention_q8(*prep, past, valid, causal=causal)
     want = flash.flash_q8_plain(*prep, past, valid, causal=causal, block_k=flash.Q8_BLOCK_K)
     torch.cuda.synchronize()
     err, ratio, rel = kernel_error(got, want, valid.tolist())
     return prep, got, want, err, ratio, rel
+
+
+def prep_bytes(b, t, s, h, kh, past, valid):
+    """Bytes the prep must move: q and each row's live k/v read once (bf16),
+    the codes written once (q8, and the live keys' codes of k8 and V^T) and
+    the scales."""
+    live = sum(min(p + n, s) for p, n in zip(past, valid))
+    return 3 * b * t * h * 128 + 3 * 2 * live * kh * 128 + 4 * b * (h + 2 * kh)
 
 
 def phase_flash_q8(cfg, prompt_len, prefill_t, vqa):
@@ -1136,6 +1179,8 @@ def phase_flash_q8(cfg, prompt_len, prefill_t, vqa):
         ("GQA 28/4, batch of mixed past", 3, 130, 512, 28, 4, [37, 0, 150], [130, 130, 97], None),
         ("a row with valid=0", 2, 16, 128, 4, 4, [10, 0], [16, 0], None),
         ("stale garbage beyond the live region", 2, 70, 256, 8, 4, [20, 5], [70, 40], 3.0e4),
+        ("a partial last live tile deep in the buffer, S not a multiple of 128", 1, 300, 4200,
+         28, 4, [3900], [290], 3.0e4),
     ]
     for label, b, t, s, h, kh, past, valid, garbage in edge:
         for causal in (True, False):
@@ -1158,8 +1203,8 @@ def phase_flash_q8(cfg, prompt_len, prefill_t, vqa):
                                                      int8_compute=True)
                 check(torch.equal(again, got), f"{name}: stale NaN leaked into the output")
             worst = max(worst, err)
-            log(f"[kernels] {name}: max abs err {err:.3e} ({ratio:.2f} x the elementwise "
-                f"limit), rel err {rel:.3e}")
+            log(f"[kernels] {name}: q8_prep bit-identical to its plain version; B2 max abs err "
+                f"{err:.3e} ({ratio:.2f} x the elementwise limit), rel err {rel:.3e}")
 
     n = (PX // cfg.latent_downsample) ** 2 + 2
     shapes = [
@@ -1167,7 +1212,7 @@ def phase_flash_q8(cfg, prompt_len, prefill_t, vqa):
         ("vit-block prefill", 1, vqa["vit_t"], [0], [vqa["vit_valid"]], False),
         ("prefill", 1, prefill_t, [0], [prompt_len], True),
     ]
-    results = []
+    results, preps = [], []
     for label, b, t, past, valid, causal in shapes:
         args = attention_inputs(gen, b, t, MAX_KV, 28, 4, past, valid)
         prep, got, want, err, ratio, rel = q8_compare(flash, args, causal)
@@ -1188,8 +1233,12 @@ def phase_flash_q8(cfg, prompt_len, prefill_t, vqa):
         def call():
             return flash.flash_cached_attention_q8(q8, k8, v8, qs, ks, vs, p, vl, causal=causal)
 
+        def prep_call():
+            return flash.q8_prep(q, k, v, p, vl)
+
         ms, call_ms = device_ms(call, 20), cuda_ms(call, 20, 3)
-        prep_ms = cuda_ms(lambda: flash.q8_prep(q, k, v, p, vl), 5)  # syncs: int(ends.max())
+        prep_ms, prep_call_ms = device_ms(prep_call, 20), cuda_ms(prep_call, 20, 3)
+        prep_plain_ms = cuda_ms(lambda: flash.q8_prep_plain(q, k, v, p, vl), 3)
         plain_ms = cuda_ms(lambda: flash.flash_q8_plain(q8, k8, v8, qs, ks, vs, p, vl,
                                                         causal=causal), 2)
         mask = cache_mask(t, p, vl, causal)
@@ -1198,18 +1247,28 @@ def phase_flash_q8(cfg, prompt_len, prefill_t, vqa):
         bytes_ = (b * t * 28 * 128 * 3 + 2 * sum(pp + min(nn, t) for pp, nn in zip(past, valid))
                   * 4 * 128)
         bms, by = bound_ms_at(flops, bytes_, PEAK_INT8)
+        pbytes = prep_bytes(b, t, MAX_KV, 28, 4, past, valid)
+        pbms = pbytes / PEAK_BYTES * 1e3
         results.append(dict(shape=label, B=b, T=t, past=past, valid=valid, causal=causal,
                             max_abs_err=err, limit_ratio=ratio, rel_err=rel,
                             device_ms=ms, call_ms=call_ms, prep_ms=prep_ms, plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=bms, bound_by=by, tops=flops / ms / 1e9))
+        preps.append(dict(shape=label, B=b, T=t, S=MAX_KV, past=past, valid=valid,
+                          device_ms=prep_ms, call_ms=prep_call_ms, plain_ms=prep_plain_ms,
+                          bound_ms=pbms, bound_by="bytes", bytes=pbytes,
+                          gbps=pbytes / prep_ms / 1e6))
         log(f"[kernels] B2 {label}: T={t} past={past} max abs err {err:.3e} ({ratio:.2f} x "
             f"the elementwise limit), rel err {rel:.3e}; kernel device {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TOP/s), call {call_ms:.4f} ms, q8 prep {prep_ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, SDPA in bf16 (another function: no int8) device "
-            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"({flops / ms / 1e9:.1f} TOP/s), call {call_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"SDPA in bf16 (another function: no int8) device {lib_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+        log(f"[kernels] q8_prep {label}: bit-identical to its plain version; device "
+            f"{prep_ms:.4f} ms ({pbytes / prep_ms / 1e6:.0f} GB/s of the bytes it must move), "
+            f"call {prep_call_ms:.4f} ms, plain {prep_plain_ms:.3f} ms, bound {pbms:.4f} ms "
+            f"({pbytes / 1e6:.1f} MB)")
         del args, q, k, v, prep, q8, k8, v8, mask
         torch.cuda.empty_cache()
-    return worst, results
+    return worst, results, preps
 
 
 # ---------------------------------------------------------------------------
@@ -1640,7 +1699,8 @@ def counts_reset():
 
     fns = dict(b1=flash.flash_cached_attention, b2=flash.flash_cached_attention_q8,
                b3=sparse_flash.sparse_packed_attention, b4=int4_matmul.int4_matmul,
-               b5=int8_matmul.int8_matmul, quant=int8_matmul.quantize_rows)
+               b5=int8_matmul.int8_matmul, quant=int8_matmul.quantize_rows,
+               prep=flash.q8_prep)
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -1696,12 +1756,13 @@ def phase_t2i_w8a8(engine, gen):
         # fused leaves: qkv, o, gate_up, down per expert; a prefill runs the
         # und expert, a gen block both (the 2 boundary tokens take the und one)
         b5 = L * (4 * 2 + 8 * forwards)
-        want = dict(b1=0, b2=L * (2 + forwards), b3=0, b4=0, b5=b5, quant=b5)
+        want = dict(b1=0, b2=L * (2 + forwards), b3=0, b4=0, b5=b5, quant=b5,
+                    prep=L * (2 + forwards))
         log(f"[t2i w8a8] __call__ {PX} px, {NUM_TIMESTEPS} timesteps, BAGEL_FLASH_INT8=1: "
             f"{total_s:.2f} s, peak memory {peak / 2**30:.2f} GiB (at most {W8A8_PEAK_GIB}); "
             f"launches {counts} (expected B5 {L} x (4 x 2 prefills + 8 x {forwards} forwards) "
-            f"= {b5}, one quantization pass each, B2 {L} x (2 + {forwards}) = {want['b2']}, "
-            f"no B1)")
+            f"= {b5}, one quantization pass each, B2 {L} x (2 + {forwards}) = {want['b2']} "
+            f"and as many q/k/v prep passes, no B1)")
         check(counts == want, f"w8a8 launch counts {counts} != {want}")
         check(peak / 2**30 <= W8A8_PEAK_GIB,
               f"w8a8 peak memory {peak / 2**30:.2f} GiB > {W8A8_PEAK_GIB} GiB")
@@ -1785,7 +1846,7 @@ def phase_vqa_int4(engine, card):
         answer = out["text"]
         n_tok = len(answer.split())
         steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK
-        want = dict(b1=L * (2 + steps), b2=0, b3=LV, b4=L * 4 * steps, b5=0, quant=0)
+        want = dict(b1=L * (2 + steps), b2=0, b3=LV, b4=L * 4 * steps, b5=0, quant=0, prep=0)
         log(f"[vqa int4] __call__ {VQA_PX} px + question, {MAX_THINK} tokens at most: "
             f"{total_s:.2f} s, answer of {n_tok} tokens, peak memory {peak / 2**30:.2f} GiB; "
             f"launches {counts} (expected B4 {L} x 4 fused linears x {steps} decode steps = "
@@ -1854,7 +1915,7 @@ def main() -> int:
     from bagel_tpu_torch.models.bagel import init_bagel_params
 
     cfg, tok, (worst, shapes), (worst3, main3), b5_rows, quant_rows, \
-        (worst4, b4_rows, b4_token), (worst2, b2_rows) = phase_all_kernels()
+        (worst4, b4_rows, b4_token), (worst2, b2_rows, prep_rows) = phase_all_kernels()
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1880,7 +1941,8 @@ def main() -> int:
     quant_main = quant_rows[0]
     library = "torch.nn.functional.scaled_dot_product_attention (bool mask, enable_gqa)"
     gate = next(r for r in b5_rows if r["shape"] == "gen gate")
-    b2_main = b2_rows[0]
+    b2_main, prep_main = b2_rows[0], prep_rows[0]
+    from bagel_tpu_torch.ops.flash import Q8_BLOCK_K
 
     def by_path(key):
         return dict(t2i=t2i_launches if key == "b1" else 0,
@@ -1940,7 +2002,8 @@ def main() -> int:
             launches=sum(by_path("b2").values()),
             launches_by_path=by_path("b2"),
             max_abs_err=worst2,
-            tol=KERNEL_TOL + ", against the plain version at the kernel's key tile (64)",
+            tol=KERNEL_TOL + f", against the plain version at the kernel's key tile "
+                             f"({Q8_BLOCK_K})",
             ms=b2_main["device_ms"],  # the kernel's time: its device time
             device_ms=b2_main["device_ms"],
             call_ms=b2_main["call_ms"],
@@ -1951,6 +2014,27 @@ def main() -> int:
             library=library + " in bf16: another function (no int8 products)",
             shape=b2_main["shape"],
             shapes=b2_rows,
+        ),
+        dict(
+            name="q8_prep",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/flash_cached_attention_q8.cu",
+            replaces="bagel_tpu/ops/flash.py:351-377 (B2's q/k/v quantization: XLA's work in "
+                     "the JAX package, no Pallas kernel)",
+            launches=sum(by_path("prep").values()),
+            launches_by_path=by_path("prep"),
+            max_abs_err=0.0,
+            tol="bit-identical to the plain version (codes, V^T layout and scales)",
+            ms=prep_main["device_ms"],  # the pass's time: its device time (two kernels)
+            device_ms=prep_main["device_ms"],
+            call_ms=prep_main["call_ms"],
+            plain_ms=prep_main["plain_ms"],
+            bound_ms=prep_main["bound_ms"],
+            bound_by=prep_main["bound_by"],
+            library_ms=None,
+            library="none: no one PyTorch call computes it",
+            shape=prep_main["shape"],
+            shapes=prep_rows,
         ),
         dict(
             name="int4_matmul",

@@ -364,3 +364,131 @@ def test_quantize_rows_bit_identical_on_card(m, k):
     assert m8.quantize_rows.launches == before + 1
     want_q, want_s = m8.quantize_rows_plain(x)
     assert torch.equal(xq, want_q) and torch.equal(xs, want_s)
+
+
+def _block_inputs(gen, b, t, s, past, valid, h=28, kh=4, strided_q=False):
+    """q [B, T, H, 128] (a view of a fused [B, T, (H + 2 KH) 128] projection
+    with strided_q) and k/v [B, S, KH, 128] with NaN past each row's live
+    keys (the buffer's stale contents)."""
+    d = 128
+    if strided_q:
+        fused = torch.randn((b, t, (h + 2 * kh) * d), generator=gen, device="cuda").bfloat16()
+        q = fused[..., : h * d].view(b, t, h, d)
+    else:
+        q = torch.randn((b, t, h, d), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, s, kh, d), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, s, kh, d), generator=gen, device="cuda").bfloat16()
+    for row, (p, n) in enumerate(zip(past, valid)):
+        k[row, p + n:] = float("nan")
+        v[row, p + n:] = float("nan")
+    return (q, k, v, torch.tensor(past, dtype=torch.int32, device="cuda"),
+            torch.tensor(valid, dtype=torch.int32, device="cuda"))
+
+
+def _assert_block_gate(got, want, valid):
+    """B1's gate over each row's valid rows; rows past valid exactly 0."""
+    for row, n in enumerate(valid):
+        tail = got[row, n:]
+        assert tail.numel() == 0 or tail.abs().max().item() == 0.0
+        if n:
+            g, w = got[row, :n].float(), want[row, :n].float()
+            err = (g - w).abs()
+            assert (err <= 2.0 ** -6 * w.abs() + 0.1 * w.pow(2).mean().sqrt()).all()
+            assert err.norm() <= 1e-2 * w.norm()
+
+
+BLOCK_CASES = [
+    # b, t, s, past, valid, strided_q
+    (2, 300, 1024, [200, 37], [300, 250], False),  # causal diagonal at past > 0, ragged T
+    (3, 130, 512, [70, 0, 300], [130, 97, 1], True),  # strided q, a one-row block, T = 128 + 2
+    (1, 260, 8192, [4000], [257], False),  # a partial last live tile deep in a long buffer
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,t,s,past,valid,strided_q", BLOCK_CASES)
+def test_block_kernel_edges_and_graph_on_card(b, t, s, past, valid, strided_q, causal):
+    """B1 at T > 1 (TMA + wgmma) against its plain version: a causal tile
+    diagonal at past > 0, a partial last live tile with NaN past the live
+    bound, a ragged T and a strided q; captured in a CUDA graph, its replay
+    gives the eager bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v, p, n = _block_inputs(gen, b, t, s, past, valid, strided_q=strided_q)
+    before = flash.flash_cached_attention.launches
+    got = flash.flash_cached_attention(q, k, v, p, n, causal=causal)
+    torch.cuda.synchronize()
+    assert flash.flash_cached_attention.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    clean = [x.nan_to_num(0.0) for x in (k, v)]  # the plain version multiplies 0 x NaN
+    want = flash.flash_cached_attention_plain(q, *clean, p, n, causal=causal)
+    _assert_block_gate(got, want, valid)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash.flash_cached_attention(q, k, v, p, n, causal=causal)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,past,valid,strided_q", BLOCK_CASES)
+def test_q8_prep_bit_identical_and_graph_on_card(b, t, s, past, valid, strided_q):
+    """The prep pass gives `q8_prep_plain`'s codes, V^T layout and scales bit
+    for bit on every row's live keys (the codes past them are unspecified:
+    `q8_live` zeroes them, as the plain version writes them), whatever the
+    stale keys hold; it counts one launch a call, and replays in a CUDA
+    graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    args = _block_inputs(gen, b, t, s, past, valid, strided_q=strided_q)
+    before = flash.q8_prep.launches
+    got = flash.q8_prep(*args)
+    torch.cuda.synchronize()
+    assert flash.q8_prep.launches == before + 1
+    want = flash.q8_prep_plain(*args)
+    p, n = args[3], args[4]
+
+    def live(prep):
+        q8, k8, v8t, qs, ks, vs = prep
+        return (q8, *flash.q8_live(k8, v8t, p, n), qs, ks, vs)
+
+    for name, g, w in zip(("q8", "k8", "v8t", "qs", "ks", "vs"), live(got), want):
+        assert g.shape == w.shape and torch.equal(g, w), name
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash.q8_prep(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, w) for c, w in zip(live(captured), want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,t,s,past,valid,strided_q", BLOCK_CASES)
+def test_flash_q8_kernel_tile_and_graph_on_card(b, t, s, past, valid, strided_q, causal):
+    """B2 (integer wgmma) against `flash_q8_plain` at the kernel's key tile
+    (Q8_BLOCK_K = 128) on the prep's codes, stale NaN in the bf16 buffer;
+    the whole int8 attention (prep + kernel) captured in a CUDA graph
+    replays the eager bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    args = _block_inputs(gen, b, t, s, past, valid, strided_q=strided_q)
+    q, k, v, p, n = args
+    prep = flash.q8_prep(*args)
+    got = flash.flash_cached_attention_q8(*prep, p, n, causal=causal)
+    want = flash.flash_q8_plain(*prep, p, n, causal=causal, block_k=flash.Q8_BLOCK_K)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _assert_block_gate(got, want, valid)
+    eager = flash.flash_cached_attention(q, k, v, p, n, causal=causal, int8_compute=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash.flash_cached_attention(q, k, v, p, n, causal=causal, int8_compute=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, got) and torch.equal(captured, got)

@@ -56,6 +56,7 @@ CASES = [
     (1, 300, 512, 4, 1, 32, [64], [300], 64),           # T >= 128 ragged: JAX pads to 512
     (1, 300, 512, 4, 1, 32, [64], [300], 256),
     (3, 64, 256, 8, 2, 64, [0, 17, 120], [64, 50, 1], 64),  # no cache; a 1-token row
+    (2, 40, 256, 28, 4, 32, [30, 100], [40, 33], 128),  # GQA 28/4 at the kernel's tile
 ]
 
 
@@ -101,7 +102,9 @@ def test_stale_dead_tail_changes_nothing(garbage):
 
 def test_q8_prep_scopes():
     """q's absmax covers every row of the block (invalid rows too); k/v's
-    only each batch row's live prefix; codes round half to even."""
+    only each batch row's live prefix; codes round half to even; k/v codes
+    span the buffer, 0 past each row's live prefix, V in the kernel's
+    transposed layout."""
     q = torch.zeros((2, 4, 1, 8))
     q[0, 3, 0, 0] = 5.0  # an invalid row still sets q's scale
     q[1, 0, 0, 0] = 2.0
@@ -115,7 +118,9 @@ def test_q8_prep_scopes():
     assert qs[0, 0].item() == np.float32(5.0) / np.float32(127.0)
     assert ks[0, 0].item() == np.float32(1.0) / np.float32(127.0)
     assert ks[1, 0].item() == np.float32(3.0) / np.float32(127.0)
-    assert k8.shape[1] == 10  # the longest live prefix, not the buffer
+    assert k8.shape[1] == 16  # the buffer, not the longest live prefix (no host read)
+    assert not k8[0, 6:].any() and not k8[1, 10:].any()  # 0 past the live prefix
+    assert v8.shape == (2, 1, 8, 32)  # [B, KH, D, S rounded up to 32]
     assert q8[0, 3, 0, 0].item() == 127 and k8[1, 9, 0, 0].item() == 127
 
 
