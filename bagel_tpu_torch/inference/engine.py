@@ -1,24 +1,31 @@
 """Interleaved inference engine (port of bagel_tpu/inference/engine.py).
 
-Two paths of the JAX engine:
+The paths of the JAX engine:
 - understanding: an image goes through SigLIP into a non-causal ViT block
   [start, end, vit tokens..., pad] of the context's KV cache, the question
   through a causal text prefill, and `gen_text` decodes the answer;
 - text-to-image: text prefill into per-context KV caches, the batched-CFG
   rectified-flow denoise loop split into a CFG-on and a CFG-off phase, and
-  the VAE decode.
+  the VAE decode; `enable_taylorseer` replaces the LLM forward of most
+  steps by a Taylor extrapolation of each branch's velocity
+  (inference/taylorseer.py);
+- editing: an image in a generation context first takes the VAE pathway
+  (vae_encode, then a non-causal block [start, end, clean latents...] at
+  t = 0 through the gen expert), then the ViT pathway, then the text, and
+  the denoise runs over that context;
+- `generate_batch`: several text-to-image requests, each with its own
+  prefill, in one denoise whose every forward carries all their branches.
 `think=True` decodes a reasoning text first on either path. The loops that
-JAX runs under `lax.scan` / `lax.while_loop` are Python loops here; PyTorch
-runs eagerly.
+JAX runs under `lax.scan` / `lax.cond` / `lax.while_loop` are Python loops
+here; PyTorch runs eagerly.
 
 Contexts share cache buffers on `copy()` exactly as JAX arrays are shared:
 `qwen2.llm_extend` never writes into the cache it is given, and
 `decode_text` writes only into its own clone, so updating one context cannot
 touch a sibling's buffer.
 
-Image inputs to generation (the VAE pathway of an image), speculative
-decode and TaylorSeer step caching raise NotImplementedError naming the
-slice that brings them.
+Speculative decode raises NotImplementedError naming the slice that brings
+it.
 """
 
 from __future__ import annotations
@@ -30,16 +37,22 @@ import numpy as np
 import torch
 
 from bagel_tpu_torch.configs import BagelConfig
+from bagel_tpu_torch.inference.taylorseer import (
+    taylor_eval,
+    taylor_update,
+    taylorseer_schedule,
+)
 from bagel_tpu_torch.models import qwen2
 from bagel_tpu_torch.models.bagel import (
     cfg_combine,
     encode_vit_tokens,
     latent_to_llm,
+    patchify_latent,
     shifted_timesteps,
     unpatchify_latent,
 )
 from bagel_tpu_torch.models.qwen2 import KVCache, kv_cache_init
-from bagel_tpu_torch.models.vae import vae_decode
+from bagel_tpu_torch.models.vae import vae_decode, vae_encode
 from bagel_tpu_torch.ops.embeds import (
     flattened_position_ids_extrapolate,
     flattened_position_ids_interpolate,
@@ -114,6 +127,25 @@ def _prefill_vit(params, cfg: BagelConfig, cache, boundary_ids, patches,
     )
 
 
+def _prefill_vae(params, cfg: BagelConfig, cache, boundary_ids, latents, lat_pos,
+                 rope_pos: int, valid, attn_impl: str = "auto"):
+    """Generation-context image block [start, end, clean latents...] at
+    t = 0 (upstream bagel.py:491-550): one rope position for the whole
+    block, non-causal; the two boundary tokens take the und expert, the
+    latents the gen expert (und_len=2)."""
+    n = latents.shape[0]
+    t_vec = torch.zeros((n,), dtype=torch.float32, device=latents.device)
+    lat_emb = latent_to_llm(params, cfg, latents, t_vec, lat_pos)
+    tok_emb = qwen2.embed_tokens(params["llm"], boundary_ids)  # [2, d]
+    block = torch.cat([tok_emb, lat_emb.to(tok_emb.dtype)])[None]
+    t = block.shape[1]
+    pos = torch.full((1, t), rope_pos, dtype=torch.int32, device=block.device)
+    return qwen2.llm_extend(
+        params["llm"], cfg.llm, block, pos, cache, valid,
+        und_len=2, causal=False, update_cache=True, attn_impl=attn_impl,
+    )
+
+
 def _make_flow_v(params, cfg: BagelConfig, n: int, n_jobs: int, nb: int,
                  boundary_ids, branch_rope, cache: KVCache, lat_pos,
                  attn_impl: str = "auto"):
@@ -151,7 +183,9 @@ def _make_flow_v(params, cfg: BagelConfig, n: int, n_jobs: int, nb: int,
 
 def _combine(v, n_jobs, nb, cfg_text_scale, cfg_img_scale, cfg_renorm_type,
              cfg_renorm_min):
-    """Per-job CFG combination: [J*nb, N, pd] -> [J, N, pd]."""
+    """Per-job CFG combination: [J*nb, N, pd] -> [J, N, pd]. Each job's
+    branches are in role order, cond, then cfg_text, then cfg_img
+    (`gen_image_batch` runs a cfg_img branch only beside a cfg_text one)."""
     v = v.reshape((n_jobs, nb) + v.shape[1:])
     return torch.stack([
         cfg_combine(
@@ -195,6 +229,54 @@ def _denoise_phase(
     return x_t
 
 
+TAYLORSEER_MAX_ORDER = 2
+
+
+def _denoise_phase_taylorseer(
+    params,
+    cfg: BagelConfig,
+    x_t,  # [J, N, pd]
+    k_buf, v_buf, lengths,
+    branch_rope,
+    lat_pos,
+    boundary_ids,
+    timesteps,  # [K] float32 (host)
+    dts,  # [K] float32 (host)
+    schedule,  # TaylorSchedule, sliced to these K steps
+    factors,  # [O+1, J*nb, N, pd] carried Taylor factors
+    n_valid,  # [J*nb] each branch's count of valid factors
+    n_jobs: int,
+    n_branches: int,
+    cfg_text_scale: float,
+    cfg_img_scale: float,
+    cfg_renorm_type: str,
+    cfg_renorm_min: float,
+    attn_impl: str = "auto",
+):
+    """`_denoise_phase` with the TaylorSeer step cache: a full step runs the
+    LLM forward and updates the per-branch Taylor factors of the velocity,
+    a Taylor step extrapolates the velocity from them and runs no forward.
+    The factors enter and leave the phase, so that one schedule spans the
+    whole run, as upstream keeps one cache per branch for the whole
+    generate_image call (bagel.py:680-689). Returns (x_t, factors,
+    n_valid)."""
+    n = x_t.shape[1]
+    cache = KVCache(k=k_buf, v=v_buf, length=lengths)
+    flow_v = _make_flow_v(params, cfg, n, n_jobs, n_branches, boundary_ids,
+                          branch_rope, cache, lat_pos, attn_impl)
+    for k, (t, dt) in enumerate(zip(timesteps, dts)):
+        if schedule.is_full[k]:
+            v = flow_v(x_t, t)
+            factors, n_valid = taylor_update(factors, n_valid, v, float(schedule.delta[k]),
+                                             bool(schedule.grow[k]))
+        else:
+            v = taylor_eval(factors, n_valid, float(schedule.x_off[k]))
+        v_t = _combine(v, n_jobs, n_branches, cfg_text_scale, cfg_img_scale,
+                       cfg_renorm_type, cfg_renorm_min)
+        x_t = x_t - v_t * float(dt)
+    return x_t, factors, n_valid
+
+
 def _initial_noise(job: dict, shape, device) -> torch.Tensor:
     """x_1 of one job: its init_noise if given, else a draw from its
     torch.Generator `rng` (default: a generator seeded 0 on `device`)."""
@@ -210,16 +292,28 @@ def _initial_noise(job: dict, shape, device) -> torch.Tensor:
 
 
 class BagelEngine:
-    """User-facing session API: understanding and text-to-image.
+    """User-facing session API: understanding, text-to-image (with
+    TaylorSeer step caching if asked), editing and batched text-to-image
+    (`generate_batch`).
 
     Random numbers differ from `bagel_tpu`'s: without `init_noise` a job's
     x_1 is drawn from a `torch.Generator` (`rng`, by default one seeded 0),
-    and sampled decoding draws tokens with `torch.multinomial`, where the
-    JAX engine uses `jax.random.normal(PRNGKey(0))` and
+    an edit's posterior sample of the VAE latent from another
+    (`update_context_image`'s `rng`, by default one seeded 0), and sampled
+    decoding draws tokens with `torch.multinomial`, where the JAX engine
+    uses `jax.random.normal(PRNGKey(0))` for both draws and
     `jax.random.categorical`. So on the same weights an image made without
-    `init_noise`, or a text sampled rather than decoded greedily, differs
-    from `bagel_tpu`'s; with `init_noise` and greedy decoding the two agree
-    (the parity tests run that way)."""
+    `init_noise`, an edit, or a text sampled rather than decoded greedily,
+    differs from `bagel_tpu`'s; with the draws handed over and greedy
+    decoding the two agree (the parity tests run that way).
+
+    The CFG branches are assembled by role (cond, cfg_text, cfg_img), and a
+    branch whose velocity is never read is not run: without a cfg_text
+    branch (no cfg_text context, or cfg_text_scale <= 1) the combination
+    is the cond velocity alone, so the cfg_img branch is dropped too. The
+    JAX engine runs [cond, cfg_img] there and, with cfg_text_scale > 1,
+    combines the image velocity as if it were the text one; the port gives
+    the cond velocity (README, the port's section)."""
 
     def __init__(
         self,
@@ -228,6 +322,8 @@ class BagelEngine:
         tokenizer,
         new_token_ids: dict,
         max_kv: int = 8192,
+        vae_transform=None,
+        vit_transform=None,
         device=None,
         attn_impl: str = "auto",
     ):
@@ -238,6 +334,10 @@ class BagelEngine:
         option is the reference switch: `chip_smoke.py` holds the kernel
         path against a "dense" engine on the card; users leave it at
         "auto".
+
+        `vae_transform` (e.g. `data.transforms.ImageTransform(1024, 512,
+        16)`) is applied to every image input of `interleave_inference`;
+        `vit_transform` is stored and, as in the JAX engine, not read.
 
         On CUDA every w8a8 weight of `params` is made k-major in place
         (`utils.quant.w8a8_kmajor`, a no-op where it already is), the layout
@@ -260,6 +360,8 @@ class BagelEngine:
         self.tokenizer = tokenizer
         self.new_token_ids = new_token_ids
         self.max_kv = kv_bucket(max_kv)
+        self.vae_transform = vae_transform
+        self.vit_transform = vit_transform
         self.cache_dtype = torch.bfloat16 if quantized else emb.dtype
         if cfg.interpolate_pos:
             self._pos_ids = flattened_position_ids_interpolate
@@ -326,40 +428,79 @@ class BagelEngine:
 
     def update_context_image(
         self, image: np.ndarray, ctx: GenContext, vae: bool = True,
-        vit: bool = True,
+        vit: bool = True, rng: Optional[torch.Generator] = None,
     ) -> GenContext:
-        """image: HWC float array in [-1, 1], center-cropped to a multiple of
-        the ViT patch. The ViT pathway: one non-causal block [start, end,
-        vit tokens..., pad] padded so that it fills a prefill bucket; the
-        context's rope advances by 1 (one position for the whole image) and
-        its kv_len by the n + 2 real tokens."""
+        """image: HWC float array in [-1, 1]; each pathway center-crops it
+        to its own stride. Each pathway appends one non-causal block and
+        advances the context's rope by 1 (one position for the whole image)
+        and its kv_len by the block's n + 2 real tokens. First the VAE
+        pathway (an edit's generation context): vae_encode with a posterior
+        sample from `rng` (default: a generator seeded 0 on the engine's
+        device), then [start, end, latents...] at t = 0 through the gen
+        expert, n + 2 rows exactly. Then the ViT pathway: [start, end, vit
+        tokens..., pad] through the und expert, padded so that it fills a
+        prefill bucket."""
         if not (vae or vit):
             raise ValueError("update_context_image needs the vae or the vit pathway")
+        cfg = self.cfg
+        boundary = self._boundary_ids()
         if vae:
-            raise NotImplementedError(
-                "the VAE pathway of an image input (vae_encode, _prefill_vae) "
-                "comes with the edit slice; understanding uses vae=False"
+            down = cfg.latent_downsample
+            crop = self._crop_to_multiple(image, down)
+            if rng is None:
+                rng = torch.Generator(device=self.device).manual_seed(0)
+            z = vae_encode(self.params["vae"], cfg.vae,
+                           self._tensor(crop, torch.float32)[None], generator=rng)[0]
+            lat = patchify_latent(z, cfg.latent_patch_size)
+            n = lat.shape[0]
+            lat_pos = self._pos_ids(crop.shape[0], crop.shape[1], down, cfg.max_latent_size)
+            _, cache = _prefill_vae(
+                self.params, cfg, ctx.cache, boundary, lat,
+                self._tensor(lat_pos, torch.long), ctx.rope, self._tensor([n + 2]),
+                self.attn_impl,
             )
+            ctx = GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1,
+                             text_ids=ctx.text_ids)
+        if vit:
+            patch = cfg.vit.patch_size
+            crop = self._crop_to_multiple(image, patch)
+            patches, pos, h, w = self._prep_image_tokens(
+                crop, patch, cfg.vit_max_num_patch_per_side
+            )
+            self._check_vit_grid(pos, h, w)
+            n = patches.shape[0]
+            nb = _bucket(n + 2) - 2  # the block [start, end, tokens...] fills a bucket
+            patches_p = np.zeros((nb, patches.shape[1]), np.float32)
+            patches_p[:n] = patches
+            pos_p = np.zeros(nb, np.int32)
+            pos_p[:n] = pos
+            seg = np.zeros(nb, np.int32)
+            seg[:n] = 1
+            _, cache = _prefill_vit(
+                self.params, cfg, ctx.cache, boundary,
+                self._patches(patches_p), self._tensor(pos_p, torch.long),
+                self._tensor(seg), ctx.rope, self._tensor([n + 2]), self.attn_impl,
+            )
+            ctx = GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1,
+                             text_ids=ctx.text_ids)
+        return ctx
+
+    def _check_vit_grid(self, pos: np.ndarray, h: int, w: int) -> None:
+        """A patch grid wider than the ViT position tables raises here, where
+        JAX's gather clamps the ids to the last row and PyTorch's indexing
+        would raise a bare index error."""
+        side = self.cfg.vit_max_num_patch_per_side
         patch = self.cfg.vit.patch_size
-        image = self._crop_to_multiple(image, patch)
-        patches, pos, _, _ = self._prep_image_tokens(
-            image, patch, self.cfg.vit_max_num_patch_per_side
-        )
-        n = patches.shape[0]
-        nb = _bucket(n + 2) - 2  # the block [start, end, tokens...] fills a bucket
-        patches_p = np.zeros((nb, patches.shape[1]), np.float32)
-        patches_p[:n] = patches
-        pos_p = np.zeros(nb, np.int32)
-        pos_p[:n] = pos
-        seg = np.zeros(nb, np.int32)
-        seg[:n] = 1
-        _, cache = _prefill_vit(
-            self.params, self.cfg, ctx.cache, self._boundary_ids(),
-            self._patches(patches_p), self._tensor(pos_p, torch.long),
-            self._tensor(seg), ctx.rope, self._tensor([n + 2]), self.attn_impl,
-        )
-        return GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1,
-                          text_ids=ctx.text_ids)
+        rows = min(self.cfg.vit.num_patches_per_side, side) ** 2
+        if pos.size and int(pos.max()) >= rows:
+            fits = (rows - 1) // (side + 1) + 1  # the widest square grid whose ids fit
+            raise ValueError(
+                f"the image is a {h} x {w} grid of {patch} px patches; its position ids "
+                f"(row x vit_max_num_patch_per_side + column, vit_max_num_patch_per_side "
+                f"= {side}) reach {int(pos.max())}, past the ViT position tables' {rows} "
+                f"rows: the ViT pathway takes at most a {fits} x {fits} grid, an image of "
+                f"{fits * patch} px a side"
+            )
 
     # -- generation ---------------------------------------------------------
 
@@ -405,13 +546,19 @@ class BagelEngine:
         num_timesteps: int = 50,
         timestep_shift: float = 3.0,
         enable_taylorseer: bool = False,
+        taylorseer_threshold: int = 3,
+        taylorseer_first_enhance: int = 5,
         rng: Optional[torch.Generator] = None,
         init_noise: Optional[np.ndarray] = None,
         return_latent: bool = False,
     ):
-        """Rectified-flow text-to-image. Returns an HWC uint8 image, or with
-        return_latent=True the final packed latent x_0 [h*w, pd] (numpy).
-        init_noise [h*w, pd] overrides the draw of x_1 from `rng`."""
+        """Rectified-flow generation over the context (text-to-image, or an
+        edit when the context holds an image). Returns an HWC uint8 image,
+        or with return_latent=True the final packed latent x_0 [h*w, pd]
+        (numpy). init_noise [h*w, pd] overrides the draw of x_1 from `rng`.
+        taylorseer_threshold / taylorseer_first_enhance: the step cache's
+        schedule (upstream defaults 3 / 5, cache_utils/taylorseer.py:79-114):
+        full steps 0 .. first_enhance - 1, then every threshold-th."""
         return self.gen_image_batch(
             image_shape,
             [dict(ctx=ctx, cfg_text_precontext=cfg_text_precontext,
@@ -422,6 +569,8 @@ class BagelEngine:
             cfg_renorm_type=cfg_renorm_type, num_timesteps=num_timesteps,
             timestep_shift=timestep_shift,
             enable_taylorseer=enable_taylorseer,
+            taylorseer_threshold=taylorseer_threshold,
+            taylorseer_first_enhance=taylorseer_first_enhance,
             return_latent=return_latent,
         )[0]
 
@@ -437,6 +586,8 @@ class BagelEngine:
         num_timesteps: int = 50,
         timestep_shift: float = 3.0,
         enable_taylorseer: bool = False,
+        taylorseer_threshold: int = 3,
+        taylorseer_first_enhance: int = 5,
         return_latent: bool = False,
     ) -> List[np.ndarray]:
         """Denoise J independent images in one batched loop; every LLM
@@ -445,10 +596,6 @@ class BagelEngine:
         Each job is a dict with keys ctx (required), cfg_text_precontext,
         cfg_img_precontext, rng, init_noise. All jobs share image_shape,
         the CFG scales and schedule, and their branch structure."""
-        if enable_taylorseer:
-            raise NotImplementedError(
-                "TaylorSeer step caching comes with the TaylorSeer slice"
-            )
         cfg = self.cfg
         H, W = image_shape
         down = cfg.latent_downsample
@@ -471,8 +618,10 @@ class BagelEngine:
             "non-uniform cfg_text branch structure"
         assert all(x == has_img[0] for x in has_img), \
             "non-uniform cfg_img branch structure"
+        # branches by role; cfg_combine reads the cfg_img velocity only
+        # beside a cfg_text one
         use_text = cfg_text_scale > 1.0 and has_text[0]
-        use_img = cfg_img_scale > 1.0 and has_img[0]
+        use_img = use_text and cfg_img_scale > 1.0 and has_img[0]
         branches: List[List[GenContext]] = []  # jobs-major, branch-minor
         conds: List[List[GenContext]] = []
         for job in jobs:
@@ -495,22 +644,52 @@ class BagelEngine:
         if len(idx_on) and len(idx_off):  # the schedule is monotone
             assert idx_on.max() < idx_off.min() or idx_off.max() < idx_on.min()
 
+        if enable_taylorseer:
+            # one schedule over the whole run (len(ts) forwards), sliced per
+            # phase: upstream's cond branch keeps one cache for all steps
+            sch = taylorseer_schedule(len(ts), fresh_threshold=taylorseer_threshold,
+                                      first_enhance=taylorseer_first_enhance)
+        carry = None  # (factors [O+1, J*nb, n, pd], n_valid [J*nb]) of the last phase
+
         def run(x_t, idxs, rows, text_s, img_s):
+            nonlocal carry
             if len(idxs) == 0:
                 return x_t
             ctxs = [c for row in rows for c in row]
-            return _denoise_phase(
+            b = len(rows[0])  # branches per job in this phase
+            args = (
                 self.params, cfg, x_t,
                 torch.cat([c.cache.k for c in ctxs], dim=1),
                 torch.cat([c.cache.v for c in ctxs], dim=1),
                 torch.cat([c.cache.length for c in ctxs]),
                 self._tensor([c.rope for c in ctxs]), lat_pos, boundary,
                 ts[idxs], dts[idxs],
-                n_jobs=J, n_branches=len(rows[0]),
-                cfg_text_scale=text_s, cfg_img_scale=img_s,
+            )
+            common = dict(
+                n_jobs=J, n_branches=b, cfg_text_scale=text_s, cfg_img_scale=img_s,
                 cfg_renorm_type=cfg_renorm_type, cfg_renorm_min=cfg_renorm_min,
                 attn_impl=self.attn_impl,
             )
+            if not enable_taylorseer:
+                return _denoise_phase(*args, **common)
+            if carry is None:
+                factors = torch.zeros((TAYLORSEER_MAX_ORDER + 1, J * b, n, pd),
+                                      dtype=torch.float32, device=self.device)
+                n_valid = torch.zeros((J * b,), dtype=torch.int32, device=self.device)
+            else:  # re-lay the last phase's factors out for this phase's branches
+                f, nv = carry
+                bp = f.shape[1] // J
+                fj, nvj = f.reshape(f.shape[0], J, bp, n, pd), nv.reshape(J, bp)
+                if bp >= b:  # branches dropped; branch 0 is cond
+                    fj, nvj = fj[:, :, :b], nvj[:, :b]
+                else:  # new branches enter with zero factors and none valid
+                    fj = torch.cat([fj, fj.new_zeros((fj.shape[0], J, b - bp, n, pd))], dim=2)
+                    nvj = torch.cat([nvj, nvj.new_zeros((J, b - bp))], dim=1)
+                factors, n_valid = fj.reshape(fj.shape[0], J * b, n, pd), nvj.reshape(J * b)
+            x_t, factors, n_valid = _denoise_phase_taylorseer(
+                *args, sch._make(a[idxs] for a in sch), factors, n_valid, **common)
+            carry = (factors, n_valid)
+            return x_t
 
         if len(idx_on) and len(idx_off) and idx_on.min() > idx_off.min():
             # the cfg window starts later in the run
@@ -550,13 +729,18 @@ class BagelEngine:
         cfg_renorm_type: str = "global",
         image_shapes: Tuple[int, int] = (1024, 1024),
         enable_taylorseer: bool = False,
+        taylorseer_threshold: int = 3,
+        taylorseer_first_enhance: int = 5,
         rng: Optional[torch.Generator] = None,
         speculative: int = 0,
     ) -> List[Union[str, np.ndarray]]:
         """Texts and images in; a decoded answer (understanding_output), or
         an image, preceded by its reasoning text with think=True, out. Image
-        inputs take the ViT pathway when understanding_output is set and
-        the VAE pathway (the edit slice) otherwise.
+        inputs (after `vae_transform`, if the engine has one) take the ViT
+        pathway when understanding_output is set, and the VAE pathway and
+        then the ViT pathway otherwise (an edit: the output image has the
+        input's size). `rng` draws x_1; an edit's posterior sample takes
+        `update_context_image`'s default generator.
 
         With understanding_output the CFG contexts are never read, so the
         port does not prefill the cfg_img context there (the JAX engine
@@ -582,6 +766,8 @@ class BagelEngine:
                 if not understanding_output:
                     cfg_img_ctx = self.update_context_text(term, cfg_img_ctx)
             elif isinstance(term, np.ndarray):
+                if self.vae_transform is not None:
+                    term = self.vae_transform(term)
                 ctx = self.update_context_image(
                     term, ctx, vae=not understanding_output, vit=True
                 )
@@ -613,7 +799,9 @@ class BagelEngine:
             cfg_interval=cfg_interval, timestep_shift=timestep_shift,
             num_timesteps=num_timesteps, cfg_renorm_min=cfg_renorm_min,
             cfg_renorm_type=cfg_renorm_type,
-            enable_taylorseer=enable_taylorseer, rng=rng,
+            enable_taylorseer=enable_taylorseer,
+            taylorseer_threshold=taylorseer_threshold,
+            taylorseer_first_enhance=taylorseer_first_enhance, rng=rng,
         ))
         return output
 
@@ -629,3 +817,63 @@ class BagelEngine:
             else:
                 out["text"] = item
         return out
+
+    def generate_batch(self, reqs: List[dict]) -> List[dict]:
+        """B text-to-image requests through one batched denoise.
+
+        Each request is a `__call__` kwargs dict; all must share one
+        `gen_batch_key`. The prefills stay per request (ctx, an empty
+        cfg_text context, cfg_img = ctx), and every denoise forward carries
+        all the requests' CFG branches (`gen_image_batch`); each request's
+        x_1 comes from its own `rng`."""
+        keys = {gen_batch_key(kw) for kw in reqs}
+        if len(keys) != 1 or None in keys:
+            raise ValueError(f"generate_batch needs one shared batchable key, got {keys}")
+        kw0 = {k: reqs[0].get(k, d) for k, d in _BATCHABLE_GEN_DEFAULTS.items()}
+        jobs = []
+        for kw in reqs:
+            ctx = self.init_context()
+            cfg_text_ctx = ctx.copy()
+            ctx = self.update_context_text(kw["text"], ctx)
+            jobs.append(dict(ctx=ctx, cfg_text_precontext=cfg_text_ctx,
+                             cfg_img_precontext=ctx.copy(), rng=kw.get("rng")))
+        imgs = self.gen_image_batch(
+            kw0.pop("image_shapes"), jobs, **kw0)
+        return [{"image": im, "text": None} for im in imgs]
+
+
+# interleave_inference's defaults: the batch key sees the same value whether
+# a caller passed it or not
+_BATCHABLE_GEN_DEFAULTS = dict(
+    cfg_text_scale=3.0,
+    cfg_img_scale=1.5,
+    cfg_interval=(0.4, 1.0),
+    timestep_shift=3.0,
+    num_timesteps=50,
+    cfg_renorm_min=0.0,
+    cfg_renorm_type="global",
+    image_shapes=(1024, 1024),
+    enable_taylorseer=False,
+    taylorseer_threshold=3,
+    taylorseer_first_enhance=5,
+)
+
+
+def gen_batch_key(kwargs: dict) -> Optional[tuple]:
+    """Grouping key for batched text-to-image, or None where a request
+    cannot join a batched denoise (an image input, think, understanding,
+    or a kwarg that changes a request's control flow)."""
+    if kwargs.get("image") is not None:
+        return None
+    if kwargs.get("think", False) or kwargs.get("understanding_output", False):
+        return None
+    if not kwargs.get("text"):
+        return None
+    allowed = {"text", "rng", "think", "understanding_output",
+               "speculative", *_BATCHABLE_GEN_DEFAULTS}
+    if set(kwargs) - allowed:
+        return None
+    return tuple(
+        (k, repr(kwargs.get(k, d)))
+        for k, d in sorted(_BATCHABLE_GEN_DEFAULTS.items())
+    )

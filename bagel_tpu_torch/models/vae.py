@@ -1,14 +1,15 @@
-"""FLUX-style conv VAE decoder (port of bagel_tpu/models/vae.py).
+"""FLUX-style conv VAE (port of bagel_tpu/models/vae.py).
 
 Pure functions over the JAX parameter tree, with one layout change: conv
 kernels are OIHW here (HWIO in JAX; utils/bridge.py converts). Inside, the
-VAE runs NCHW with F.conv2d; `vae_decode` takes and returns NHWC, the JAX
-layout. The mid-block attention is a plain matmul + softmax, as in JAX.
-`vae_encode` comes with the edit slice; `init_vae_params` builds the encoder
-too so that the tree matches.
+VAE runs NCHW with F.conv2d; `vae_encode` and `vae_decode` take and return
+NHWC, the JAX layout. The mid-block attention is a plain matmul + softmax,
+as in JAX.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -142,6 +143,49 @@ def init_vae_params(generator, cfg: VAEConfig, dtype=torch.float32, device=None)
         conv_out=_conv_init(g, 3, 3, cin, cfg.out_ch, dt, dev),
     )
     return {"encoder": enc, "decoder": dec}
+
+
+def _posterior_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """The standard normal draw of the posterior sample, NHWC. JAX draws
+    it with jax.random.normal from a PRNGKey, so the two differ on the same
+    seed; tests hand this function JAX's draw."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+
+
+def vae_encode(
+    params: dict,
+    cfg: VAEConfig,
+    images: torch.Tensor,  # [N, H, W, 3] in [-1, 1]
+    generator: Optional[torch.Generator] = None,
+    sample: bool = True,
+) -> torch.Tensor:
+    """Images -> scaled latents [N, H/f, W/f, z_channels] (NHWC), f the
+    encoder's downsampling: the diagonal Gaussian posterior's sample (from
+    `generator`, by default one seeded 0 on the images' device) or, with
+    sample=False, its mean; then scale_factor * (z - shift_factor)
+    (upstream AutoEncoder.encode, autoencoder.py:315-318)."""
+    enc = params["encoder"]
+    h = conv2d(images.permute(0, 3, 1, 2), enc["conv_in"], padding=1)
+    for level in enc["levels"]:
+        for block in level["blocks"]:
+            h = _resnet_apply(h, block)
+        if "down" in level:  # asymmetric padding: one row and column at the end
+            h = conv2d(F.pad(h, (0, 1, 0, 1)), level["down"], stride=2, padding=0)
+    h = _resnet_apply(h, enc["mid"]["block1"])
+    h = _attn_apply(h, enc["mid"]["attn"])
+    h = _resnet_apply(h, enc["mid"]["block2"])
+    h = group_norm_nchw(h, enc["norm_out"]["w"], enc["norm_out"]["b"])
+    h = conv2d(swish(h), enc["conv_out"], padding=1)
+
+    mean, logvar = h.permute(0, 2, 3, 1).chunk(2, dim=-1)
+    if sample:
+        if generator is None:
+            generator = torch.Generator(device=images.device).manual_seed(0)
+        z = mean + torch.exp(0.5 * logvar) * _posterior_noise(
+            mean.shape, generator, images.device)
+    else:
+        z = mean
+    return cfg.scale_factor * (z - cfg.shift_factor)
 
 
 def vae_decode(params: dict, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:

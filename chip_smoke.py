@@ -25,7 +25,10 @@ Phases (the first failure exits non-zero, and no result line is printed):
                 past the live keys and a strided q; at a decode step (T=1)
                 the split-KV pair: edge cases with stale NaN past the live
                 keys, two kernels a call (torch.profiler), and a control
-                that drops one live split from the combine;
+                that drops one live split from the combine; the path shapes
+                of text-to-image, VQA and the edit: (a) its VAE-block
+                prefill, (b) its ViT-block prefill behind it, (c) its
+                denoise over three very unequal pasts;
              3b B3 sparse_packed_attention (control: two packed images merged
                 into one segment; the full-tile flags timed against the same
                 launch without them; the SigLIP shape timed against SDPA in
@@ -61,6 +64,20 @@ Phases (the first failure exits non-zero, and no result line is printed):
              tokens at most; B3 launches once per SigLIP layer (27), B1
              L x (2 prefills + decode steps); the first decode step's logits
              through the kernels vs the dense path; the pieces' times.
+  6a. taylorseer  phase 5's image with every step full (first_enhance 7):
+             its latent equal to phase 5's; a 50-timestep 1024 px __call__
+             with the default step cache, B1 L x (2 + 19), against the same
+             image without it, L x (2 + 49); seconds and peak memory of both.
+  6b. edit   the VQA image (vae_transform ImageTransform(1024, 512, 16): 976
+             px) and an instruction through __call__ on a second engine over
+             the same weights with a 16384-slot KV buffer: a 976 px image,
+             B1 L x (4 prefills + 7 forwards), B3 27; the three contexts and
+             one gen block's velocity through the kernels vs the plain path
+             (1 and 28 layers); vae_encode on the card vs the CPU; the
+             pieces' times and peak memory.
+  6c. batch  generate_batch of two prompts at 1024 px, 8 timesteps: B1
+             L x (2 + 7); each job's latent at J=2 vs alone; seconds per
+             image batched against phase 5's.
   7. w8a8    the weights quantized to w8a8, fused and made k-major
              (utils.quant.w8a8_kmajor), text-to-image through __call__ with
              BAGEL_FLASH_INT8=1: B5 L x (4 x 2 + 8 x 7) and as many
@@ -107,6 +124,15 @@ NUM_TIMESTEPS = 8  # timestep_shift 3: 6 steps with CFG (3 branches), 1 without
 CFG = dict(cfg_text_scale=4.0, cfg_img_scale=1.5, timestep_shift=3.0,
            num_timesteps=NUM_TIMESTEPS)
 MAX_KV = 8192
+# the edit: the VQA image through the engine's vae_transform (980 px crops to
+# 976 for the stride of 16: a 61 x 61 latent grid, and 966 for the ViT: 69 x
+# 69 patches) and a 55-character instruction; the cond context then holds
+# ~8.5k keys before its 3723-token gen block, past an 8192-slot buffer
+EDIT = "Make the fox bright blue and add snowflakes in the sky."
+EDIT_TRANSFORM = (1024, 512, 16)  # ImageTransform(max, min, stride)
+EDIT_MAX_KV = 16384
+TS_TIMESTEPS = 50  # the TaylorSeer image: the default schedule's 19 full forwards of 49
+BATCH_PROMPTS = (PROMPT, "A watercolor painting of a lighthouse on a cliff above a stormy sea")
 KERNELS = ("flash_cached_attention", "sparse_packed_attention", "int8_matmul", "int4_matmul",
            "flash_cached_attention_q8")
 # kernel vs plain, both bf16 out, over the valid rows of each batch row:
@@ -405,11 +431,11 @@ def sdpa_call(q, k, v, mask):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def cache_mask(t, past, valid, causal):
-    """The attention's boolean mask over an MAX_KV-slot cache, for SDPA."""
+def cache_mask(s, t, past, valid, causal):
+    """The attention's boolean mask over an s-slot cache, for SDPA."""
     from bagel_tpu_torch.ops.attention import cache_block_mask
 
-    return cache_block_mask(MAX_KV, t, past, valid, causal)[:, None]
+    return cache_block_mask(s, t, past, valid, causal)[:, None]
 
 
 def decode_checks(flash, args, want, valid, label):
@@ -439,7 +465,7 @@ def decode_checks(flash, args, want, valid, label):
     return splits, kernel_us
 
 
-def phase_kernels(cfg, prompt_len, prefill_t, vqa):
+def phase_kernels(cfg, prompt_len, prefill_t, vqa, edit):
     from bagel_tpu_torch.ops import flash
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -485,19 +511,27 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa):
     # the shapes the main paths give the kernel (28 heads over 4 KV heads,
     # D=128, an 8192-slot cache): 1024 px denoise with CFG (3 rows, the
     # cfg_text row has an empty cache), without CFG, and the prompt prefill;
-    # the VQA image block, the question after it and one decode step
+    # the VQA image block, the question after it and one decode step; an
+    # edit's VAE block and ViT block (prefills into a 16384-slot cache) and
+    # its denoise with CFG, whose buffer is the live prefix (a gen block's
+    # forward reads cache.k[:, :max(past) + T])
     n = (PX // cfg.latent_downsample) ** 2 + 2
+    e_a, e_vit, e_vit_t, e_q = edit["vae_t"], edit["vit_valid"], edit["vit_t"], edit["q_len"]
+    e_past = [e_a + e_vit + e_q, e_a + e_vit, e_q]
     shapes = [
-        ("denoise B=3 (CFG)", 3, n, [prompt_len, 0, prompt_len], [n] * 3, False),
-        ("denoise B=1", 1, n, [prompt_len], [n], False),
-        ("prefill", 1, prefill_t, [0], [prompt_len], True),
-        ("vit-block prefill", 1, vqa["vit_t"], [0], [vqa["vit_valid"]], False),
-        ("question prefill", 1, vqa["q_t"], [vqa["vit_valid"]], [vqa["q_len"]], True),
-        ("decode T=1", 1, 1, [vqa["vit_valid"] + vqa["q_len"]], [1], True),
+        ("denoise B=3 (CFG)", 3, n, MAX_KV, [prompt_len, 0, prompt_len], [n] * 3, False),
+        ("denoise B=1", 1, n, MAX_KV, [prompt_len], [n], False),
+        ("prefill", 1, prefill_t, MAX_KV, [0], [prompt_len], True),
+        ("vit-block prefill", 1, vqa["vit_t"], MAX_KV, [0], [vqa["vit_valid"]], False),
+        ("question prefill", 1, vqa["q_t"], MAX_KV, [vqa["vit_valid"]], [vqa["q_len"]], True),
+        ("decode T=1", 1, 1, MAX_KV, [vqa["vit_valid"] + vqa["q_len"]], [1], True),
+        ("edit (a) vae-block prefill", 1, e_a, EDIT_MAX_KV, [0], [e_a], False),
+        ("edit (b) vit-block prefill", 1, e_vit_t, EDIT_MAX_KV, [e_a], [e_vit], False),
+        ("edit (c) denoise B=3 (CFG)", 3, e_a, max(e_past) + e_a, e_past, [e_a] * 3, False),
     ]
     results = []
-    for label, b, t, past, valid, causal in shapes:
-        args = attention_inputs(gen, b, t, MAX_KV, 28, 4, past, valid)
+    for label, b, t, s_len, past, valid, causal in shapes:
+        args = attention_inputs(gen, b, t, s_len, 28, 4, past, valid)
         got, want, err, ratio, rel = compare(flash, args, causal, label)
         worst = max(worst, err)
         q, k, v, p, vl = args
@@ -519,16 +553,16 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa):
         ms, call_ms = device_ms(call, 20), cuda_ms(call, 20, 3)
         plain_ms = cuda_ms(
             lambda: flash.flash_cached_attention_plain(q, k, v, p, vl, causal=causal), 2)
-        mask = cache_mask(t, p, vl, causal)
+        mask = cache_mask(s_len, t, p, vl, causal)
         lib_ms = device_ms(sdpa_call(q, k, v, mask), 5)
         flops, bytes_ = attention_work(past, valid, t, 28, 4, 128, causal)
         bms, by = bound_ms(flops, bytes_)
-        results.append(dict(shape=label, B=b, T=t, S=MAX_KV, past=past, causal=causal,
+        results.append(dict(shape=label, B=b, T=t, S=s_len, past=past, causal=causal,
                             splits=splits, kernel_us=kernel_us, max_abs_err=err,
                             limit_ratio=ratio, rel_err=rel,
                             device_ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9))
-        log(f"[kernels] {label}: T={t} past={past} max abs err {err:.3e} ({ratio:.2f} x the "
+        log(f"[kernels] {label}: T={t} S={s_len} past={past} max abs err {err:.3e} ({ratio:.2f} x the "
             f"elementwise limit), rel err {rel:.3e}; kernel device {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), call {call_ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"SDPA device {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
@@ -885,6 +919,12 @@ def int4_error(got, want, x, w):
     return d.max().item(), (d / limit).max().item()
 
 
+# torch.profiler now and then hands back no CUDA activity at all for a
+# session (seen on the card once in several runs, with kernels that ran): a
+# session that recorded nothing is taken again, at most this many times
+PROFILE_TRIES = 3
+
+
 def kernels_on_card(fn) -> list:
     """The names of the kernels one call of fn() ran on the card, in order,
     as torch.profiler's CUDA activity records them (memory copies and sets
@@ -893,10 +933,15 @@ def kernels_on_card(fn) -> list:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def kernel_device_us(fn, calls: int = 20) -> dict:
@@ -906,14 +951,19 @@ def kernel_device_us(fn, calls: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    names = (e.key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
-             for e in prof.key_averages())
-    return {name: e.device_time_total / calls
-            for name, e in zip(names, prof.key_averages()) if e.device_time_total > 0}
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        stats = prof.key_averages()
+        names = (e.key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
+                 for e in stats)
+        times = {name: e.device_time_total / calls
+                 for name, e in zip(names, stats) if e.device_time_total > 0}
+        if times:
+            break
+    return times
 
 
 def phase_int4_matmul(cfg):
@@ -1241,7 +1291,7 @@ def phase_flash_q8(cfg, prompt_len, prefill_t, vqa):
         prep_plain_ms = cuda_ms(lambda: flash.q8_prep_plain(q, k, v, p, vl), 3)
         plain_ms = cuda_ms(lambda: flash.flash_q8_plain(q8, k8, v8, qs, ks, vs, p, vl,
                                                         causal=causal), 2)
-        mask = cache_mask(t, p, vl, causal)
+        mask = cache_mask(MAX_KV, t, p, vl, causal)
         lib_ms = device_ms(sdpa_call(q, k, v, mask), 5)
         flops, _ = attention_work(past, valid, t, 28, 4, 128, causal)
         bytes_ = (b * t * 28 * 128 * 3 + 2 * sum(pp + min(nn, t) for pp, nn in zip(past, valid))
@@ -1505,7 +1555,8 @@ def phase_t2i(engine, gen):
     log(f"[t2i] prefill {prefill_ms:.1f} ms (host clock, {ctx.kv_len} tokens); denoise "
         f"forward {forward_ms['B=3']:.1f} ms at B=3, {forward_ms['B=1']:.1f} ms at B=1; "
         f"VAE decode {vae_ms:.1f} ms; total __call__ {total_s:.2f} s")
-    return launches
+    return dict(launches=launches, total_s=total_s, latent=latent, noise=noise.cpu().numpy(),
+                forward_ms=forward_ms)
 
 
 def vqa_context(engine, image):
@@ -1610,6 +1661,259 @@ def phase_vqa(engine, card):
     return dict(b1=b1, b3=b3, total_s=total_s, peak_gib=peak / 2**30, vit_ms=vit_ms,
                 prefill_ms=prefill_ms, question_ms=question_ms, decode_ms=decode_ms,
                 steps=steps, logits_rel=rel, tokens_agree=agree)
+
+
+# ---------------------------------------------------------------------------
+# phases 6a-6c: TaylorSeer, editing, batched generation
+# ---------------------------------------------------------------------------
+
+
+def counted_call(fn):
+    """fn() with every launch count set to 0 just before and read just after:
+    (result, seconds, counts, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = counts_reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def bf16_counts(**kw):
+    """The launch counts of a bf16 path: B1 and B3 as given, the rest 0."""
+    return dict(dict(b1=0, b2=0, b3=0, b4=0, b5=0, quant=0, prep=0), **kw)
+
+
+def phase_taylorseer(engine, t2i):
+    """TaylorSeer through the engine: with every step full (first_enhance =
+    the step count) the latent of phase 5; a 50-timestep 1024 px __call__
+    with the default schedule (threshold 3, first_enhance 5), its B1
+    launches from the schedule's full steps, against the same image
+    without the step cache."""
+    from bagel_tpu_torch.inference.taylorseer import taylorseer_schedule
+
+    cfg = engine.cfg
+    L = cfg.llm.num_hidden_layers
+    ctx, cfg_text, cfg_img = prompt_contexts(engine)
+    latent = engine.gen_image((PX, PX), ctx, cfg_text_precontext=cfg_text,
+                              cfg_img_precontext=cfg_img, init_noise=t2i["noise"],
+                              return_latent=True, enable_taylorseer=True,
+                              taylorseer_first_enhance=NUM_TIMESTEPS - 1, **CFG)
+    same = bool(np.array_equal(latent, t2i["latent"]))
+    rel = float(np.linalg.norm(latent - t2i["latent"]) / np.linalg.norm(t2i["latent"]))
+    log(f"[taylorseer] {NUM_TIMESTEPS} timesteps, every step full (first_enhance "
+        f"{NUM_TIMESTEPS - 1}): latent vs phase 5's bit for bit: {same} (rel {rel:.3e})")
+    check(rel <= 1e-6, f"all-full TaylorSeer latent differs from phase 5's: rel {rel:.3e}")
+    del ctx, cfg_text, cfg_img
+
+    steps = dict(CFG, num_timesteps=TS_TIMESTEPS)
+    full = int(taylorseer_schedule(TS_TIMESTEPS - 1).is_full.sum())
+    runs = {}
+    for label, ts in (("taylorseer", True), ("all full", False)):
+        out, secs, counts, peak = counted_call(lambda: engine(
+            text=PROMPT, understanding_output=False, image_shapes=(PX, PX),
+            rng=torch.Generator(device=DEVICE).manual_seed(SEED), enable_taylorseer=ts, **steps))
+        forwards = full if ts else TS_TIMESTEPS - 1
+        want = bf16_counts(b1=L * (2 + forwards))
+        img = out["image"]
+        log(f"[taylorseer] __call__ {PX} px, {TS_TIMESTEPS} timesteps, {label}: {secs:.2f} s, "
+            f"peak {peak:.2f} GiB, launches {counts} (expected B1 {L} x (2 prefills + "
+            f"{forwards} forwards) = {want['b1']})")
+        check(counts == want, f"taylorseer ({label}) launch counts {counts} != {want}")
+        check(isinstance(img, np.ndarray) and img.shape == (PX, PX, 3) and img.std() > 0,
+              f"taylorseer ({label}): not a non-constant {PX} px image")
+        runs[label] = dict(s=secs, peak_gib=peak, launches=counts, image=img)
+    diff = np.abs(runs["taylorseer"]["image"].astype(int) - runs["all full"]["image"].astype(int))
+    log(f"[taylorseer] {TS_TIMESTEPS}-timestep image: {runs['taylorseer']['s']:.2f} s with the "
+        f"step cache, {runs['all full']['s']:.2f} s without ({runs['all full']['s'] / runs['taylorseer']['s']:.2f}x); "
+        f"the two images differ by {diff.mean():.2f} levels on average, {diff.max()} at most "
+        f"(not gated)")
+    for r in runs.values():
+        del r["image"]
+    torch.cuda.empty_cache()
+    return dict(all_full_bit_identical=same, all_full_rel=rel, full_forwards=full, **runs)
+
+
+def edit_image_px():
+    """The side of the edit's image after the engine's vae_transform."""
+    from bagel_tpu_torch.data.transforms import ImageTransform
+
+    return ImageTransform(*EDIT_TRANSFORM)(np.zeros((VQA_PX, VQA_PX, 3), np.float32)).shape[0]
+
+
+def edit_contexts(engine, image):
+    """The three contexts interleave_inference builds for (image, EDIT) on
+    the generation path: cond, cfg_text and cfg_img."""
+    ctx = engine.update_context_image(image, engine.init_context())
+    cfg_text = ctx.copy()
+    ctx = engine.update_context_text(EDIT, ctx)
+    return [ctx, cfg_text, engine.update_context_text(EDIT, engine.init_context())]
+
+
+def phase_edit(engine, card):
+    """An edit through __call__ on an engine with a 16384-slot KV buffer over
+    the same weights; its three contexts and one gen block's velocity
+    through the kernels vs the plain path; vae_encode on the card vs the
+    CPU; the pieces' times."""
+    from bagel_tpu_torch.data.transforms import ImageTransform
+    from bagel_tpu_torch.inference import engine as tengine
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.models.bagel import encode_vit_tokens, patchify_latent
+    from bagel_tpu_torch.models.vae import vae_encode
+
+    cfg = engine.cfg
+    L, LV = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
+    eng = tengine.BagelEngine(engine.params, cfg, engine.tokenizer, engine.new_token_ids,
+                              max_kv=EDIT_MAX_KV, vae_transform=ImageTransform(*EDIT_TRANSFORM),
+                              device=DEVICE)
+    image = vqa_image()
+    px = edit_image_px()
+    out, total_s, counts, peak = counted_call(lambda: eng(
+        image=image, text=EDIT, understanding_output=False,
+        rng=torch.Generator(device=DEVICE).manual_seed(SEED), **CFG))
+    want = bf16_counts(b1=L * (4 + NUM_TIMESTEPS - 1), b3=LV)
+    img = out["image"]
+    log(f"[edit] __call__ {VQA_PX} px image (vae_transform: {px} px) + {len(EDIT)}-char "
+        f"instruction, {NUM_TIMESTEPS} timesteps, KV buffer {eng.max_kv}: {total_s:.2f} s, peak "
+        f"{peak:.2f} GiB, launches {counts} (expected B1 {L} x (4 prefills + "
+        f"{NUM_TIMESTEPS - 1} forwards) = {want['b1']}, B3 {LV})")
+    check(counts == want, f"edit launch counts {counts} != {want}")
+    check(isinstance(img, np.ndarray) and img.shape == (px, px, 3) and img.dtype == np.uint8
+          and img.std() > 0, f"edit image {getattr(img, 'shape', None)} is not a non-constant "
+          f"{px} px uint8 image")
+
+    # the contexts through the kernels and through the plain path; one gen
+    # block's velocity over them (the plain one row by row: its fp32 scores
+    # of all three rows at once would take ~15 GB a tensor)
+    crop = eng.vae_transform(image)
+    kctx = edit_contexts(eng, crop)
+    dense = tengine.BagelEngine(engine.params, cfg, engine.tokenizer, engine.new_token_ids,
+                                max_kv=EDIT_MAX_KV, device=DEVICE, attn_impl="dense")
+    dctx = edit_contexts(dense, crop)
+    check([c.kv_len for c in kctx] == [c.kv_len for c in dctx], "edit contexts' lengths differ")
+    n = n_latents(cfg, px)
+    x1 = torch.randn((n, cfg.patch_latent_dim), generator=torch.Generator(device=DEVICE)
+                     .manual_seed(SEED + 7), device=DEVICE)
+    rels = {}
+    for depth, tol in ((1, FORWARD_TOL_1), (L, FORWARD_TOL)):
+        kern = gen_block_velocity(eng, kctx, x1, depth, "auto")
+        plain = torch.cat([gen_block_velocity(dense, [c], x1, depth, "dense") for c in dctx])
+        rel = relative_error(kern, plain)
+        check(bool(torch.isfinite(kern).all()), "edit: non-finite velocity")
+        check(rel <= tol, f"edit: depth {depth} velocity rel err {rel:.3e} > {tol}")
+        rels[depth] = rel
+        log(f"[edit] gen block (T={n + 2}, B=3, pasts {[c.kv_len for c in kctx]}), {depth} "
+            f"layer(s), contexts built at full depth: kernels vs plain velocity rel err "
+            f"{rel:.3e} (tol {tol})")
+        del kern, plain
+    del dense, dctx
+    torch.cuda.empty_cache()
+
+    # vae_encode on the card vs the CPU (the fp32 conv path, TF32 off)
+    vae_cpu = tree_to(engine.params["vae"], "cpu")
+    small = torch.as_tensor(crop[:256, :256].copy())[None]
+    z_cpu = vae_encode(vae_cpu, cfg.vae, small, sample=False)
+    z_card = vae_encode(engine.params["vae"], cfg.vae, small.to(DEVICE), sample=False).cpu()
+    vae_rel = ((z_card - z_cpu).abs().max() / z_cpu.abs().max()).item()
+    check(vae_rel <= 1e-4, f"vae_encode on the card vs the CPU: {vae_rel:.3e} > 1e-4")
+    log(f"[edit] vae_encode(sample=False), 256 px, card vs CPU: max abs err / max |z| "
+        f"{vae_rel:.3e} (tol 1e-4)")
+    del vae_cpu
+
+    # the pieces' times
+    img_t = eng._tensor(crop, torch.float32)[None]
+    gen = torch.Generator(device=DEVICE)
+    vae_ms = cuda_ms(lambda: vae_encode(engine.params["vae"], cfg.vae, img_t,
+                                        generator=gen.manual_seed(SEED)), 2)
+    lat = patchify_latent(vae_encode(engine.params["vae"], cfg.vae, img_t,
+                                     generator=gen.manual_seed(SEED))[0], cfg.latent_patch_size)
+    lat_pos = eng._tensor(eng._pos_ids(px, px, cfg.latent_downsample, cfg.max_latent_size),
+                          torch.long)
+    empty = eng.init_context()
+    vae_prefill_ms = cuda_ms(lambda: tengine._prefill_vae(
+        eng.params, cfg, empty.cache, eng._boundary_ids(), lat, lat_pos, 0,
+        eng._tensor([n + 2])), 3)
+    vae_ctx = eng.update_context_image(crop, eng.init_context(), vit=False)
+    vit_path_ms = cuda_ms(lambda: eng.update_context_image(crop, vae_ctx, vae=False), 2)
+    patches, pos, seg, n_vit = vit_block_inputs(eng, crop)
+    llm = eng.params["llm"]
+    block = torch.cat([qwen2.embed_tokens(llm, eng._boundary_ids()),
+                       encode_vit_tokens(eng.params, cfg, patches, pos, seg)])[None]
+    block_pos = torch.ones((1, block.shape[1]), dtype=torch.int32, device=DEVICE)
+    vit_prefill_ms = cuda_ms(lambda: qwen2.llm_extend(
+        llm, cfg.llm, block, block_pos, vae_ctx.cache, eng._tensor([n_vit + 2]),
+        und_len=block.shape[1], causal=False, update_cache=True), 3)
+    rope = torch.tensor([c.rope for c in kctx], device=DEVICE)
+    flow_v = tengine._make_flow_v(eng.params, cfg, n, 1, 3, eng._boundary_ids(), rope,
+                                  stacked_cache(kctx), lat_pos)
+    x_t = x1[None]
+    forward_ms = cuda_ms(lambda: flow_v(x_t, 0.5), 2)
+    log(f"[edit] on {card}: vae_encode {vae_ms:.1f} ms ({px} px, fp32); VAE-block prefill "
+        f"{vae_prefill_ms:.1f} ms (T={n + 2}); ViT pathway {vit_path_ms:.1f} ms (SigLIP + "
+        f"block), of which the ViT-block prefill {vit_prefill_ms:.1f} ms (T={block.shape[1]}, "
+        f"{n_vit + 2} valid, past {vae_ctx.kv_len}); denoise forward B=3 {forward_ms:.1f} ms; "
+        f"total __call__ {total_s:.2f} s; peak {peak:.2f} GiB")
+    del eng, kctx, vae_ctx, empty, block, flow_v
+    torch.cuda.empty_cache()
+    return dict(launches=counts, total_s=total_s, peak_gib=peak, px=px, velocity_rel=rels,
+                vae_card_vs_cpu=vae_rel, vae_encode_ms=vae_ms, vae_prefill_ms=vae_prefill_ms,
+                vit_path_ms=vit_path_ms, vit_prefill_ms=vit_prefill_ms, forward_ms=forward_ms)
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_batch(engine, t2i):
+    """generate_batch of two prompts (one denoise, six rows a forward); each
+    job's latent at J=2 against the same job alone."""
+    cfg = engine.cfg
+    L = cfg.llm.num_hidden_layers
+    J = len(BATCH_PROMPTS)
+
+    def gens():
+        return [torch.Generator(device=DEVICE).manual_seed(SEED + 10 + j) for j in range(J)]
+
+    reqs = [dict(text=p, image_shapes=(PX, PX), rng=g, **CFG)
+            for p, g in zip(BATCH_PROMPTS, gens())]
+    outs, total_s, counts, peak = counted_call(lambda: engine.generate_batch(reqs))
+    want = bf16_counts(b1=L * (J + NUM_TIMESTEPS - 1))
+    log(f"[batch] generate_batch of {J} prompts, {PX} px, {NUM_TIMESTEPS} timesteps: "
+        f"{total_s:.2f} s ({total_s / J:.2f} s per image; alone, phase 5: {t2i['total_s']:.2f} "
+        f"s), peak {peak:.2f} GiB, launches {counts} (expected B1 {L} x ({J} prefills + "
+        f"{NUM_TIMESTEPS - 1} forwards) = {want['b1']})")
+    check(counts == want, f"batch launch counts {counts} != {want}")
+    for o in outs:
+        img = o["image"]
+        check(isinstance(img, np.ndarray) and img.shape == (PX, PX, 3) and img.std() > 0,
+              "batch: not a non-constant 1024 px image")
+
+    # the same jobs' latents: batched, then each alone
+    n = n_latents(cfg, PX)
+    jobs = []
+    for p, g in zip(BATCH_PROMPTS, gens()):
+        empty = engine.init_context()
+        ctx = engine.update_context_text(p, empty)
+        noise = torch.randn((n, cfg.patch_latent_dim), generator=g, device=DEVICE)
+        jobs.append(dict(ctx=ctx, cfg_text_precontext=empty, cfg_img_precontext=ctx.copy(),
+                         init_noise=noise.cpu().numpy()))
+    batched = engine.gen_image_batch((PX, PX), jobs, return_latent=True, **CFG)
+    rels = []
+    for job, got in zip(jobs, batched):
+        alone = engine.gen_image_batch((PX, PX), [job], return_latent=True, **CFG)[0]
+        rels.append(float(np.linalg.norm(got - alone) / np.linalg.norm(alone)))
+    log(f"[batch] latents at J={J} vs each job alone: rel err {rels} (tol {FORWARD_TOL}; bf16 "
+        f"GEMMs at {3 * J} and 3 rows may tile differently)")
+    check(max(rels) <= FORWARD_TOL, f"batch: J={J} latent rel err {max(rels):.3e} > {FORWARD_TOL}")
+    del jobs, batched
+    torch.cuda.empty_cache()
+    return dict(launches=counts, total_s=total_s, s_per_image=total_s / J,
+                alone_s=t2i["total_s"], peak_gib=peak, latent_rel=rels)
 
 
 # ---------------------------------------------------------------------------
@@ -1891,8 +2195,12 @@ def phase_all_kernels():
     q_len = len(tok.encode(QUESTION)) + 2
     vqa_shapes = dict(vit_t=_bucket(n_patches + 2), vit_valid=n_patches + 2,
                       q_len=q_len, q_t=_bucket(q_len))
+    edit_px = edit_image_px()
+    vit_patches = (edit_px // cfg.vit.patch_size) ** 2
+    edit_shapes = dict(vae_t=n_latents(cfg, edit_px) + 2, vit_valid=vit_patches + 2,
+                       vit_t=_bucket(vit_patches + 2), q_len=len(tok.encode(EDIT)) + 2)
     return (cfg, tok,
-            phase_kernels(cfg, prompt_len, _bucket(prompt_len), vqa_shapes),
+            phase_kernels(cfg, prompt_len, _bucket(prompt_len), vqa_shapes, edit_shapes),
             phase_sparse_kernels(vqa_shapes["vit_t"] - 2, n_patches,
                                  cfg.vit.num_attention_heads, cfg.vit.head_dim),
             phase_int8_matmul(cfg, _bucket(prompt_len)),
@@ -1931,8 +2239,11 @@ def main() -> int:
     with flash_int8(False):
         phase_forward(engine, gen)
         phase_vit_forward(engine)
-        t2i_launches = phase_t2i(engine, gen)
+        t2i = phase_t2i(engine, gen)
         vqa = phase_vqa(engine, card)
+        taylorseer = phase_taylorseer(engine, t2i)
+        edit = phase_edit(engine, card)
+        batch = phase_batch(engine, t2i)
     w8a8 = phase_t2i_w8a8(engine, gen)
     int4 = phase_vqa_int4(engine, card)
 
@@ -1945,8 +2256,11 @@ def main() -> int:
     from bagel_tpu_torch.ops.flash import Q8_BLOCK_K
 
     def by_path(key):
-        return dict(t2i=t2i_launches if key == "b1" else 0,
+        return dict(t2i=t2i["launches"] if key == "b1" else 0,
                     vqa=dict(b1=vqa["b1"], b3=vqa["b3"]).get(key, 0),
+                    t2i_taylorseer_50=taylorseer["taylorseer"]["launches"][key],
+                    t2i_50=taylorseer["all full"]["launches"][key],
+                    edit=edit["launches"][key], batch=batch["launches"][key],
                     t2i_w8a8=w8a8["launches"][key], vqa_int4=int4["launches"][key])
 
     kernels = [
@@ -2100,7 +2414,8 @@ def main() -> int:
             shapes=quant_rows,
         ),
     ]
-    log(json.dumps({"vqa": vqa, "t2i_w8a8": w8a8, "vqa_int4": int4}))
+    log(json.dumps({"vqa": vqa, "taylorseer": taylorseer, "edit": edit, "batch": batch,
+                    "t2i_w8a8": w8a8, "vqa_int4": int4}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -492,3 +492,60 @@ def test_flash_q8_kernel_tile_and_graph_on_card(b, t, s, past, valid, strided_q,
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(eager, got) and torch.equal(captured, got)
+
+
+@pytest.mark.cuda
+def test_block_kernel_at_the_edit_denoise_on_card():
+    """B1 at an edit's denoise shape: three CFG rows of one 3723-token gen
+    block (a 976 px latent grid) over very unequal pasts (the cond context
+    with the VAE and ViT blocks, cfg_text without the instruction, cfg_img
+    with the instruction alone), NaN past each row's live end; the plain
+    version row by row (its fp32 scores of all three rows at once would
+    take ~16 GB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    t, past = 3723, [8543, 8486, 57]
+    # the forward's buffer: the live prefix of the stacked caches
+    q, k, v, p, n = _block_inputs(gen, 3, t, max(past) + t, past, [t] * 3)
+    got = flash.flash_cached_attention(q, k, v, p, n, causal=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    clean = [x.nan_to_num(0.0) for x in (k, v)]
+    want = torch.cat([
+        flash.flash_cached_attention_plain(q[r:r + 1], clean[0][r:r + 1], clean[1][r:r + 1],
+                                           p[r:r + 1], n[r:r + 1], causal=False)
+        for r in range(3)])
+    _assert_block_gate(got, want, [t] * 3)
+
+
+@pytest.mark.cuda
+def test_vae_encode_on_card_matches_cpu():
+    """The fp32 conv encoder (BAGEL's VAE widths, TF32 off) on the card
+    against the same call on the CPU: the posterior mean, within 1e-4 of
+    its scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.configs import VAEConfig
+    from bagel_tpu_torch.models import vae
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = VAEConfig()
+        params = vae.init_vae_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        images = torch.rand((1, 64, 48, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
+        want = vae.vae_encode(params, cfg, images, sample=False)
+        got = vae.vae_encode(_to_cuda(params), cfg, images.cuda(), sample=False).cpu()
+        assert got.shape == want.shape == (1, 8, 6, cfg.z_channels)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cuda(v) for v in tree]
+    return tree.cuda()

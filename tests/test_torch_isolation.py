@@ -1,5 +1,5 @@
-"""bagel_tpu_torch stands alone: it imports neither JAX nor bagel_tpu, and
-its entry points never quietly fall back to the CPU."""
+"""bagel_tpu_torch stands alone: it imports neither JAX nor bagel_tpu (nor,
+on import, PIL), and its entry points never quietly fall back to the CPU."""
 
 import re
 import subprocess
@@ -28,8 +28,11 @@ def test_import_pulls_in_no_jax():
         "       or m == 'bagel_tpu' or m.startswith('bagel_tpu.')]\n"
         "assert not bad, bad\n"
         "new = {'bagel_tpu_torch.utils.quant', 'bagel_tpu_torch.ops.int8_matmul',\n"
-        "       'bagel_tpu_torch.ops.int4_matmul', 'bagel_tpu_torch.ops.flash'}\n"
+        "       'bagel_tpu_torch.ops.int4_matmul', 'bagel_tpu_torch.ops.flash',\n"
+        "       'bagel_tpu_torch.inference.taylorseer', 'bagel_tpu_torch.data.transforms'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
+        "# the card's machine has no PIL: only resizing a PIL image may import it\n"
+        "assert 'PIL' not in sys.modules, 'a module imports PIL'\n"
         "print('modules ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -43,6 +46,8 @@ def test_sources_import_no_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     assert PACKAGE / "utils" / "quant.py" in files and PACKAGE / "ops" / "int4_matmul.py" in files
+    assert PACKAGE / "inference" / "taylorseer.py" in files
+    assert PACKAGE / "data" / "transforms.py" in files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
 
