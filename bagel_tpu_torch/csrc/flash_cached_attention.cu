@@ -109,11 +109,30 @@
 //   gets 0.
 // - Keys past the live bound arrive as zeros (cp.async zero-fill) and are
 //   masked: stale NaN in the buffer never reaches a product.
+//
+// The decode step over an int8 KV cache (B1-kv8: flash_decode_kv8; the JAX
+// package has no kernel for it: XLA fuses the int8 load and the scale
+// multiply into its decode attention, bagel_tpu/models/qwen2.py:439-452):
+// - The split kernel is a template on the K/V element type, and the int8
+//   instance is the bf16 one but for how a warp fills its K/V buffer: it
+//   reads each live key's 128 codes (16-byte loads, a lane's 16 loads of K
+//   and V issued before any is used) and the key's f32 scale, and writes
+//   bf16(float(code) * scale) to shared memory, which is bit for bit the
+//   view `_kv_dequantize` makes (f32 product, round to nearest even). From
+//   there the products, the softmax and the combine kernel are the bf16
+//   pair's. Keys at or past the live bound are written as zeros without
+//   reading their codes or scales, so a NaN scale there changes nothing.
+// - Bound: the live codes (1 byte an element) and scales (4 bytes a key and
+//   KV head), half the bf16 cache's bytes. The loads are synchronous (no
+//   cp.async for a conversion on the way), so a warp waits for its half
+//   tile before its products; a first design, simple and right.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -432,14 +451,19 @@ static_assert(kBK % kDecBK == 0, "a warp takes part of a 64-key tile");
 
 // partials: acc [B, KH, splits, G, D] and (m, l) [B, KH, splits, G, 2], f32;
 // m in base-2 units (scores x scale x log2 e)
+// KV = __nv_bfloat16 (the bf16 cache) or int8_t (codes, with the f32 scales
+// k_scale / v_scale [B, S, KH] at strides kss / vss; unread for bf16)
+template <typename KV>
 __global__ void __launch_bounds__(kDecThreads)
 flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
+                          const KV* __restrict__ k,
+                          const KV* __restrict__ v,
+                          const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                           float* __restrict__ part_acc, float* __restrict__ part_ml,
                           const int* __restrict__ past_len, const int* __restrict__ q_valid,
                           int S, int group, Strides qs, Strides ks, Strides vs,
-                          float scale_log2) {
+                          Strides kss, Strides vss, float scale_log2) {
+  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   float* sML = reinterpret_cast<float*>(smem + kDecQBytes + kDecWarps * kDecWarpBytes);
@@ -482,11 +506,59 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + kDecQBytes + warp * kDecWarpBytes);
   __nv_bfloat16* sV = sK + kDecBK * kLds;
-  const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
+  const KV* kb = k + b * ks.b + kh * ks.h;
+  const KV* vb = v + b * vs.b + kh * vs.h;
   // keys [32 part, 32 part + 32): K, then V, in two cp.async groups; keys at
   // or past lim arrive as zeros
   auto load_kv = [&](int part) {
+    if constexpr (kInt8) {
+      // the codes of a key are 8 chunks of 16; a lane takes 8 chunks of K
+      // and 8 of V, loads all 16 (and their keys' scales), then writes them
+      // dequantized; two empty cp.async groups keep the waits below as
+      // they are for bf16
+      constexpr int kCodeChunks = kD / 16;
+      constexpr int kPer = kDecBK * kCodeChunks / 32;
+      const float* ksb = k_scale + b * kss.b + kh * kss.h;
+      const float* vsb = v_scale + b * vss.b + kh * vss.h;
+      int4 kc[kPer], vc[kPer];
+      float ksc[kPer], vsc[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int c = lane + 32 * i, r = c / kCodeChunks, col = (c % kCodeChunks) * 16;
+        const int j = part * kDecBK + r;
+        if (j < lim) {
+          kc[i] = *reinterpret_cast<const int4*>(kb + j * ks.t + col);
+          vc[i] = *reinterpret_cast<const int4*>(vb + j * vs.t + col);
+          ksc[i] = ksb[j * kss.t];
+          vsc[i] = vsb[j * vss.t];
+        } else {
+          kc[i] = vc[i] = make_int4(0, 0, 0, 0);
+          ksc[i] = vsc[i] = 0.f;
+        }
+      }
+      auto put = [](__nv_bfloat16* dst, const int4& codes, float sc) {
+        const int w[4] = {codes.x, codes.y, codes.z, codes.w};
+        uint32_t o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int word = w[e / 2], sh = (e % 2) * 16;
+          const float lo = static_cast<float>(static_cast<int8_t>(word >> sh)) * sc;
+          const float hi = static_cast<float>(static_cast<int8_t>(word >> (sh + 8))) * sc;
+          o[e] = pack_bf16(lo, hi);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<uint4*>(dst + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+      };
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int c = lane + 32 * i, r = c / kCodeChunks, col = (c % kCodeChunks) * 16;
+        put(sK + r * kLds + col, kc[i], ksc[i]);
+        put(sV + r * kLds + col, vc[i], vsc[i]);
+      }
+      cp_async_commit();
+      cp_async_commit();
+      return;
+    }
     for (int c = lane; c < kDecBK * kChunksPerRow; c += 32) {
       const int r = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
       const int j = part * kDecBK + r;
@@ -707,6 +779,47 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc, const float* __r
   }
 }
 
+// The split kernel of element type KV, then the combine kernel, on `stream`
+template <typename KV>
+int launch_decode(const void* q, const void* k, const void* v, const float* k_scale,
+                  const float* v_scale, void* o, void* part_acc, void* part_ml,
+                  const int* past_len, const int* q_valid, int B, int S, int H, int KH,
+                  int splits, Strides qs, Strides ks, Strides vs, Strides kss, Strides vss,
+                  long long o_sb, long long o_sh, float scale, void* stream) {
+  if (H % KH != 0 || H / KH > kDecRows || splits < 1 || splits > kDecMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_split_kernel<KV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kDecSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  flash_decode_split_kernel<KV><<<dim3(splits, KH, B), kDecThreads, kDecSmemBytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), k_scale, v_scale, static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), past_len, q_valid, S, H / KH, qs, ks, vs, kss, vss,
+      scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the combine with programmatic dependent launch: its blocks may start
+  // while the split kernel runs and wait for its end on the device
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(H, B);
+  config.blockDim = dim3(kCombWarps * 32);
+  config.dynamicSmemBytes = 0;
+  config.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, flash_decode_combine_kernel,
+                           static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+                           static_cast<__nv_bfloat16*>(o), H / KH, splits,
+                           Strides{o_sb, 0, o_sh});
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -755,39 +868,28 @@ int flash_decode_bf16(const void* q, const void* k, const void* v, void* o,
                       long long q_sb, long long q_sh, long long k_sb, long long k_st,
                       long long k_sh, long long v_sb, long long v_st, long long v_sh,
                       long long o_sb, long long o_sh, float scale, void* stream) {
-  if (H % KH != 0 || H / KH > kDecRows || splits < 1 || splits > kDecMaxSplits)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_split_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kDecSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  flash_decode_split_kernel<<<dim3(splits, KH, B), kDecThreads, kDecSmemBytes, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), past_len, q_valid, S, H / KH,
+  return launch_decode<__nv_bfloat16>(
+      q, k, v, nullptr, nullptr, o, part_acc, part_ml, past_len, q_valid, B, S, H, KH, splits,
       Strides{q_sb, 0, q_sh}, Strides{k_sb, k_st, k_sh}, Strides{v_sb, v_st, v_sh},
-      scale * 1.4426950408889634f);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // the combine with programmatic dependent launch: its blocks may start
-  // while the split kernel runs and wait for its end on the device
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(H, B);
-  config.blockDim = dim3(kCombWarps * 32);
-  config.dynamicSmemBytes = 0;
-  config.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, flash_decode_combine_kernel,
-                           static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-                           static_cast<__nv_bfloat16*>(o), H / KH, splits,
-                           Strides{o_sb, 0, o_sh});
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+      Strides{0, 0, 0}, Strides{0, 0, 0}, o_sb, o_sh, scale, stream);
+}
+
+// The decode step over an int8 KV cache (B1-kv8): k/v int8 codes
+// [B, S, KH, 128] (strides multiples of 16, 16-byte aligned base), k_scale /
+// v_scale f32 [B, S, KH]; otherwise as flash_decode_bf16.
+int flash_decode_kv8(const void* q, const void* k, const void* v, const void* k_scale,
+                     const void* v_scale, void* o, void* part_acc, void* part_ml,
+                     const int* past_len, const int* q_valid, int B, int S, int H, int KH,
+                     int splits, long long q_sb, long long q_sh, long long k_sb, long long k_st,
+                     long long k_sh, long long v_sb, long long v_st, long long v_sh,
+                     long long ks_sb, long long ks_st, long long ks_sh, long long vs_sb,
+                     long long vs_st, long long vs_sh, long long o_sb, long long o_sh,
+                     float scale, void* stream) {
+  return launch_decode<int8_t>(
+      q, k, v, static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), o,
+      part_acc, part_ml, past_len, q_valid, B, S, H, KH, splits, Strides{q_sb, 0, q_sh},
+      Strides{k_sb, k_st, k_sh}, Strides{v_sb, v_st, v_sh}, Strides{ks_sb, ks_st, ks_sh},
+      Strides{vs_sb, vs_st, vs_sh}, o_sb, o_sh, scale, stream);
 }
 
 const char* flash_cached_attention_error_string(int code) {

@@ -9,6 +9,7 @@ data/transforms.py:15-115).
 - ImageTransform: a PIL image is resized, scaled to [0, 1] and normalized
   (mean 0.5, std 0.5) to [-1, 1]; an HWC array is taken as already in
   [-1, 1] and cropped to stride multiples.
+- pil_img2rgb: RGB of a PIL image, a transparent one laid on white.
 
 The output is HWC float32, the engine's image layout. PIL is imported only
 where a PIL image is resized: the array path needs numpy alone.
@@ -97,3 +98,16 @@ class ImageTransform:
         img = self.resize_transform(img, img_num=img_num)
         arr = np.asarray(img, np.float32) / 255.0
         return (arr - self.mean) / self.std
+
+
+def pil_img2rgb(image):
+    """RGB conversion that lays a transparent image (RGBA, or a palette with
+    a transparent colour) on white (upstream data_utils.py:118-127)."""
+    from PIL import Image
+
+    if image.mode == "RGBA" or image.info.get("transparency", None) is not None:
+        image = image.convert("RGBA")
+        white = Image.new(mode="RGB", size=image.size, color=(255, 255, 255))
+        white.paste(image, mask=image.split()[3])
+        return white
+    return image.convert("RGB")

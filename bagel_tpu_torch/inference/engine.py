@@ -14,18 +14,22 @@ The paths of the JAX engine:
   t = 0 through the gen expert), then the ViT pathway, then the text, and
   the denoise runs over that context;
 - `generate_batch`: several text-to-image requests, each with its own
-  prefill, in one denoise whose every forward carries all their branches.
-`think=True` decodes a reasoning text first on either path. The loops that
+  prefill, in one denoise whose every forward carries all their branches;
+- `chat_batch`: several understanding requests (none, one or several
+  images a row) in one batched prefill and one batched decode, over a cache
+  of `kv_dtype` (int8 with `kv_quant=True`).
+`think=True` decodes a reasoning text first on either path, and
+`speculative=K` makes greedy text decodes prompt-lookup speculative
+(inference/speculative.py). The loops that
 JAX runs under `lax.scan` / `lax.cond` / `lax.while_loop` are Python loops
 here; PyTorch runs eagerly.
 
 Contexts share cache buffers on `copy()` exactly as JAX arrays are shared:
 `qwen2.llm_extend` never writes into the cache it is given, and
 `decode_text` writes only into its own clone, so updating one context cannot
-touch a sibling's buffer.
-
-Speculative decode raises NotImplementedError naming the slice that brings
-it.
+touch a sibling's buffer. A cache that one call owns (`chat_batch`'s, the
+serving runtime's slot cache) is written in place instead (`_extend`,
+`decode_text(in_place=True)`), where JAX donates it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from bagel_tpu_torch.configs import BagelConfig
+from bagel_tpu_torch.inference.speculative import decode_text_spec
 from bagel_tpu_torch.inference.taylorseer import (
     taylor_eval,
     taylor_update,
@@ -79,11 +84,11 @@ GEN_THINK_SYSTEM_PROMPT = (
 PREFILL_BUCKET = 32
 
 
-def _bucket(n: int) -> int:
-    """Pad a prompt length up to a multiple of PREFILL_BUCKET. The kernel
-    takes any block length; the bucket keeps the prefill shapes of the JAX
-    engine on the CPU."""
-    return max(PREFILL_BUCKET, -(-n // PREFILL_BUCKET) * PREFILL_BUCKET)
+def _bucket(n: int, step: int = PREFILL_BUCKET) -> int:
+    """Pad a length up to a multiple of `step` (default PREFILL_BUCKET). The
+    kernel takes any block length; the bucket keeps the prefill shapes of
+    the JAX engine on the CPU."""
+    return max(step, -(-n // step) * step)
 
 
 @dataclasses.dataclass
@@ -109,6 +114,18 @@ def _prefill_text(params, cfg: BagelConfig, cache, ids, pos, valid,
     return qwen2.llm_extend(
         params["llm"], cfg.llm, embeds, pos, cache, valid,
         und_len=ids.shape[1], causal=True, update_cache=True, attn_impl=attn_impl,
+    )
+
+
+def _extend(params, cfg: BagelConfig, cache, embeds, pos, valid, *, causal: bool,
+            attn_impl: str = "auto"):
+    """A batched und-expert block over rows of a cache the caller owns
+    (ragged rows through per-row `valid`): written in place, as JAX's
+    `_extend_jit` donates the cache. Never call it with a cache that another
+    context shares."""
+    return qwen2.llm_extend(
+        params["llm"], cfg.llm, embeds, pos, cache, valid, und_len=embeds.shape[1],
+        causal=causal, update_cache=True, attn_impl=attn_impl, in_place=True,
     )
 
 
@@ -326,9 +343,16 @@ class BagelEngine:
         vit_transform=None,
         device=None,
         attn_impl: str = "auto",
+        kv_quant: bool = False,
     ):
         """`device`: where the engine runs; CUDA unless the caller passes
-        one (the params must already be there). `attn_impl` goes to every
+        one (the params must already be there).
+
+        `kv_quant=True` stores the understanding-path KV caches (`chat_batch`
+        and the serving runtime's slot cache, `kv_dtype`) as int8 codes with
+        per-(token, head) f32 scales: half the cache's bytes. Generation
+        contexts (`init_context`: text-to-image, edit, `__call__`) stay in
+        `cache_dtype`, as in the JAX engine. `attn_impl` goes to every
         attention: "auto" runs the kernels on CUDA and the plain versions on
         the CPU; "dense" takes the plain masked attention everywhere. The
         option is the reference switch: `chip_smoke.py` holds the kernel
@@ -363,6 +387,7 @@ class BagelEngine:
         self.vae_transform = vae_transform
         self.vit_transform = vit_transform
         self.cache_dtype = torch.bfloat16 if quantized else emb.dtype
+        self.kv_dtype = torch.int8 if kv_quant else self.cache_dtype
         if cfg.interpolate_pos:
             self._pos_ids = flattened_position_ids_interpolate
         else:
@@ -390,11 +415,7 @@ class BagelEngine:
                              self.new_token_ids["end_of_image"]])
 
     def update_context_text(self, text: str, ctx: GenContext) -> GenContext:
-        ids = (
-            [self.new_token_ids["bos_token_id"]]
-            + self.tokenizer.encode(text)
-            + [self.new_token_ids["eos_token_id"]]
-        )
+        ids = self._prompt_ids(text)
         t = len(ids)
         tb = _bucket(t)
         ids_arr = np.zeros((1, tb), np.int32)
@@ -407,6 +428,11 @@ class BagelEngine:
         )
         return GenContext(cache=cache, kv_len=ctx.kv_len + t, rope=ctx.rope + t,
                           text_ids=ctx.text_ids + tuple(ids))
+
+    def _prompt_ids(self, text: str) -> List[int]:
+        """A text block's ids: bos, the text, eos."""
+        return ([self.new_token_ids["bos_token_id"]] + self.tokenizer.encode(text)
+                + [self.new_token_ids["eos_token_id"]])
 
     def _prep_image_tokens(self, image: np.ndarray, patch: int, max_side: int):
         """image HWC [-1,1] -> (patches [n, p*p*3], pos_ids [n], h, w)."""
@@ -507,26 +533,43 @@ class BagelEngine:
     def gen_text(
         self, ctx: GenContext, max_length: int = 500, do_sample: bool = False,
         temperature: float = 1.0, rng: Optional[torch.Generator] = None,
-        speculative: int = 0,
+        speculative: int = 0, ngram: int = 3,
     ) -> str:
         """Decode from the context, starting with a bos token at its rope
         position: greedy, or sampled from `rng` (default: a generator seeded
         0 on the engine's device). The context is left as it was. The text
-        stops before the first eos."""
-        if speculative > 0 and not do_sample:
-            raise NotImplementedError(
-                "speculative decode comes with the decode and serving slice"
-            )
+        stops before the first eos.
+
+        speculative=K (greedy only): prompt-lookup speculative decode, K
+        drafts verified a forward (`inference.speculative`), the same
+        tokens; it needs K + 1 entries of KV room past a plain decode's."""
         eos = self.new_token_ids["eos_token_id"]
-        if rng is None:
-            rng = torch.Generator(device=self.device).manual_seed(0)
-        toks, _ = qwen2.decode_text(
-            self.params["llm"], self.cfg.llm, ctx.cache,
-            self._tensor([self.new_token_ids["bos_token_id"]], torch.long),
-            self._tensor([ctx.rope]),
-            max_steps=max_length, eos_id=eos, temperature=temperature,
-            do_sample=do_sample, generator=rng, attn_impl=self.attn_impl,
-        )
+        start = self._tensor([self.new_token_ids["bos_token_id"]], torch.long)
+        pos = self._tensor([ctx.rope])
+        if speculative > 0 and not do_sample:
+            if ctx.kv_len + max_length + speculative + 1 > self.max_kv:
+                raise ValueError(
+                    f"speculative decode needs draft_len + 1 entries of KV room: kv_len "
+                    f"{ctx.kv_len} + max_length {max_length} + {speculative + 1} > max_kv "
+                    f"{self.max_kv}"
+                )
+            hist = list(ctx.text_ids)
+            harr = np.zeros((1, _bucket(max(len(hist), 1))), np.int64)
+            harr[0, : len(hist)] = hist
+            toks, _ = decode_text_spec(
+                self.params["llm"], self.cfg.llm, ctx.cache, start, pos,
+                self._tensor(harr, torch.long), self._tensor([len(hist)], torch.long),
+                max_steps=max_length, eos_id=eos, draft_len=speculative, ngram=ngram,
+                attn_impl=self.attn_impl,
+            )
+        else:
+            if rng is None:
+                rng = torch.Generator(device=self.device).manual_seed(0)
+            toks, _ = qwen2.decode_text(
+                self.params["llm"], self.cfg.llm, ctx.cache, start, pos,
+                max_steps=max_length, eos_id=eos, temperature=temperature,
+                do_sample=do_sample, generator=rng, attn_impl=self.attn_impl,
+            )
         toks = toks[0].tolist()
         if eos in toks:
             toks = toks[: toks.index(eos)]
@@ -709,6 +752,140 @@ class BagelEngine:
         imgs = vae_decode(self.params["vae"], cfg.vae, z)
         imgs = (torch.clamp(imgs * 0.5 + 0.5, 0, 1) * 255).to(torch.uint8)
         return list(imgs.cpu().numpy())
+
+    # -- batched understanding ----------------------------------------------
+
+    def _pack_images(self, row_images: dict):
+        """Every image of every row ({row: [images]}) as one packed ViT pass
+        (one segment an image): (vit_emb [tokens, d], {(row, k): (offset,
+        n)}) for the k-th image of each row, or (None, {}) without images."""
+        patch = self.cfg.vit.patch_size
+        per_img, all_p, all_pos, all_seg = {}, [], [], []
+        off = 0
+        for i, imgs in row_images.items():
+            for k, im in enumerate(imgs):
+                crop = self._crop_to_multiple(im, patch)
+                patches, pos, h, w = self._prep_image_tokens(
+                    crop, patch, self.cfg.vit_max_num_patch_per_side
+                )
+                self._check_vit_grid(pos, h, w)
+                per_img[(i, k)] = (off, patches.shape[0])
+                off += patches.shape[0]
+                all_p.append(patches)
+                all_pos.append(pos)
+                all_seg.append(np.full(patches.shape[0], len(all_seg) + 1, np.int32))
+        if not all_p:
+            return None, per_img
+        flat = np.concatenate(all_p, 0)
+        nb = _bucket(flat.shape[0], 64)
+        packed = np.zeros((nb, flat.shape[1]), np.float32)
+        packed[:off] = flat
+        pos_p = np.zeros(nb, np.int64)
+        pos_p[:off] = np.concatenate(all_pos, 0)
+        seg_p = np.zeros(nb, np.int32)
+        seg_p[:off] = np.concatenate(all_seg, 0)
+        vit_emb = encode_vit_tokens(
+            self.params, self.cfg, self._patches(packed), self._tensor(pos_p, torch.long),
+            self._tensor(seg_p), attn_impl=self.attn_impl,
+        )
+        return vit_emb, per_img
+
+    def _image_rounds(self, cache: KVCache, rows: List[int], row_images: dict,
+                      vit_emb, per_img: dict, rope: dict) -> KVCache:
+        """One batched non-causal extend per image round: round k writes the
+        block [start, end, vit tokens...] of the k-th image of every row in
+        `rows` that has one (valid = 0 elsewhere), each at its row's rope
+        position, which then advances by 1. The cache is written in place;
+        `rope` ({row: position}) is updated."""
+        b = cache.batch
+        tok_emb = qwen2.embed_tokens(self.params["llm"], self._boundary_ids())
+        rounds = max((len(row_images[i]) for i in rows), default=0)
+        for k in range(rounds):
+            rows_k = [i for i in rows if len(row_images[i]) > k]
+            tb = _bucket(max(per_img[(i, k)][1] for i in rows_k) + 2)
+            blocks = torch.zeros((b, tb, vit_emb.shape[-1]), dtype=tok_emb.dtype,
+                                 device=self.device)
+            valid = np.zeros(b, np.int32)
+            pos = np.zeros((b, tb), np.int32)
+            for i in rows_k:
+                off, n = per_img[(i, k)]
+                blocks[i, :2] = tok_emb
+                blocks[i, 2 : n + 2] = vit_emb[off : off + n].to(tok_emb.dtype)
+                valid[i] = n + 2
+                pos[i] = rope[i]  # one rope position for the whole image
+            _, cache = _extend(self.params, self.cfg, cache, blocks, self._tensor(pos),
+                               self._tensor(valid), causal=False, attn_impl=self.attn_impl)
+            for i in rows_k:
+                rope[i] += 1
+        return cache
+
+    def _text_rows(self, cache: KVCache, ids_rows: dict, rope: dict) -> KVCache:
+        """One batched causal extend of each row's text ids ({row: ids}, each
+        at its row's rope position; valid = 0 for the other rows), written
+        in place."""
+        b = cache.batch
+        tb = _bucket(max(len(x) for x in ids_rows.values()))
+        ids = np.zeros((b, tb), np.int64)
+        pos = np.zeros((b, tb), np.int32)
+        valid = np.zeros(b, np.int32)
+        for i, x in ids_rows.items():
+            ids[i, : len(x)] = x
+            pos[i, : len(x)] = rope[i] + np.arange(len(x))
+            valid[i] = len(x)
+        embeds = qwen2.embed_tokens(self.params["llm"], self._tensor(ids, torch.long))
+        _, cache = _extend(self.params, self.cfg, cache, embeds, self._tensor(pos),
+                           self._tensor(valid), causal=True, attn_impl=self.attn_impl)
+        return cache
+
+    def chat_batch(
+        self,
+        images: List[Union[None, np.ndarray, List[np.ndarray]]],
+        prompts: List[str],
+        max_length: int = 256,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        rng: Optional[torch.Generator] = None,
+    ) -> List[str]:
+        """Answer B (images, prompt) pairs in one batched prefill and one
+        batched decode, over a B-row cache of `kv_dtype`.
+
+        Each row passes None, one image (HWC float in [-1, 1]) or a list of
+        images. All images of all rows go through SigLIP in one packed pass;
+        each image is its own non-causal block [start, end, vit tokens...]
+        that advances its row's rope by 1, one batched extend per image
+        round (rows with fewer images sit the later rounds out). Then the
+        prompts as one causal block, then a B-row `decode_text` (greedy, or
+        sampled from `rng`)."""
+        b = len(prompts)
+        if len(images) != b:
+            raise ValueError(f"{len(images)} image entries for {b} prompts")
+        row_images = {
+            i: [] if im is None else ([im] if isinstance(im, np.ndarray) else list(im))
+            for i, im in enumerate(images)
+        }
+        cache = kv_cache_init(self.cfg.llm, b, self.max_kv, self.kv_dtype, device=self.device)
+        rope = {i: 0 for i in range(b)}
+        vit_emb, per_img = self._pack_images(row_images)
+        if vit_emb is not None:
+            cache = self._image_rounds(cache, list(range(b)), row_images, vit_emb, per_img, rope)
+        ids_rows = {i: self._prompt_ids(p) for i, p in enumerate(prompts)}
+        cache = self._text_rows(cache, ids_rows, rope)
+        if rng is None:
+            rng = torch.Generator(device=self.device).manual_seed(0)
+        eos = self.new_token_ids["eos_token_id"]
+        toks, _ = qwen2.decode_text(
+            self.params["llm"], self.cfg.llm, cache,
+            self._tensor([self.new_token_ids["bos_token_id"]] * b, torch.long),
+            self._tensor([rope[i] + len(ids_rows[i]) for i in range(b)]),
+            max_steps=max_length, eos_id=eos, temperature=temperature,
+            do_sample=do_sample, generator=rng, attn_impl=self.attn_impl, in_place=True,
+        )
+        outs = []
+        for row in toks.tolist():
+            if eos in row:
+                row = row[: row.index(eos)]
+            outs.append(self.tokenizer.decode(row))
+        return outs
 
     # -- top-level interleaved API ------------------------------------------
 

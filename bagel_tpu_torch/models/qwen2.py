@@ -9,11 +9,19 @@
   cache it is given. With `update_cache=True` it returns a new buffer; with
   `update_cache=False` each layer writes the block into a clone of the live
   prefix of its slice that is dropped after the attention. So contexts may
-  share buffers (`GenContext.copy()`), exactly as JAX arrays do. The one
-  exception is the port's own: `decode_text` clones its context's cache
-  once and then writes every token's K/V into that private buffer in place
-  (`llm_extend(..., in_place=True)`), instead of cloning the whole buffer
-  per token.
+  share buffers (`GenContext.copy()`), exactly as JAX arrays do. The
+  exception is the port's own: a caller that owns its cache passes
+  `in_place=True` (where JAX donates the buffer), and the block's K/V are
+  written into it. `decode_text` clones its context's cache once and then
+  writes every token in place; with `in_place=True` (the serving runtime's
+  slot cache, `chat_batch`) it does not clone at all.
+- The int8 KV cache (`kv_cache_init(dtype=torch.int8)`, JAX's `kv_quant`):
+  codes `[L, B, S, KH, D]` and f32 scales `[L, B, S, KH]` per (token, KV
+  head), `_kv_quantize`'s symmetric rounding. A block is quantized and
+  written first, then read back: a decode step (T = 1) through
+  `ops.flash.flash_decode_kv8`, whose kernel reads the codes; a longer block
+  through the bf16 attention over the live prefix dequantized once a layer
+  (JAX's design for its Pallas path). The working dtype is then bf16.
 - MoT expert selection is by token position: tokens [0, und_len) use the
   und expert, the rest the gen expert, each running only its own matmuls.
 - On a CUDA tensor with attn_impl="auto" every attention goes through the
@@ -29,7 +37,7 @@
   `ops.int4_matmul` for at most 64 activation rows on CUDA (decode) and
   dequantizes otherwise, as the JAX package does.
 
-The int8 KV cache and training come with later slices.
+Training comes with a later slice.
 """
 
 from __future__ import annotations
@@ -43,7 +51,13 @@ import torch.nn.functional as F
 
 from bagel_tpu_torch.configs import Qwen2Config
 from bagel_tpu_torch.ops import flash
-from bagel_tpu_torch.ops.flash import flash_cached_attention, flash_cached_attention_plain
+from bagel_tpu_torch.ops.flash import (
+    flash_cached_attention,
+    flash_cached_attention_plain,
+    flash_decode_kv8,
+    flash_decode_kv8_plain,
+)
+from bagel_tpu_torch.ops.flash import kv_dequantize as _kv_dequantize
 from bagel_tpu_torch.ops.int4_matmul import int4_gemv_eligible, int4_matmul
 from bagel_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
 from bagel_tpu_torch.ops.norms import rms_norm
@@ -54,33 +68,64 @@ from bagel_tpu_torch.utils.quant import dequantize_weight4, is_kmajor
 
 @dataclasses.dataclass
 class KVCache:
-    """Append-only KV buffer. k/v: [L, B, S_max, KH, D]; length: [B] int32."""
+    """Append-only KV buffer. k/v: [L, B, S_max, KH, D]; length: [B] int32.
+
+    The int8 variant (kv_cache_init with dtype=torch.int8): k/v hold int8
+    codes and k_scale/v_scale the per-(token, head) f32 scales
+    [L, B, S_max, KH], half the bytes of a bf16 cache."""
 
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def batch(self) -> int:
+        return self.k.shape[1]
+
+    def buffers(self) -> tuple:
+        """(k, v, k_scale, v_scale); the scales are None for a bf16 cache."""
+        return self.k, self.v, self.k_scale, self.v_scale
+
+    def clone(self) -> "KVCache":
+        k, v, ks, vs = (None if t is None else t.clone() for t in self.buffers())
+        return KVCache(k=k, v=v, length=self.length.clone(), k_scale=ks, v_scale=vs)
 
 
 def kv_cache_init(
     cfg: Qwen2Config, batch: int, max_len: int, dtype=torch.bfloat16,
     device=None,
 ) -> KVCache:
-    if dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 KV cache comes with the decode and serving slice"
-        )
     device = resolve_device(device)
     shape = (cfg.num_hidden_layers, batch, max_len,
              cfg.num_key_value_heads, cfg.head_dim)
+
+    def scales():  # an int8 cache's f32 scales, one per (token, KV head)
+        if dtype != torch.int8:
+            return None
+        return torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         length=torch.zeros((batch,), dtype=torch.int32, device=device),
+        k_scale=scales(),
+        v_scale=scales(),
     )
+
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8: [..., D] -> (codes, f32 scales[...]).
+    torch.round rounds half to even, as jnp.round does."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +363,8 @@ def _layer_extend(
     lp: dict,  # one layer's params
     k_buf: torch.Tensor,  # [B, S, KH, D], written in place (a private buffer)
     v_buf: torch.Tensor,
+    ks_buf: Optional[torch.Tensor],  # [B, S, KH] f32 scales of an int8 cache, else None
+    vs_buf: Optional[torch.Tensor],
     past_len: torch.Tensor,  # [B] int32 on x's device
     past_host: List[int],  # the same lengths on the host
     q_valid: torch.Tensor,  # [B]
@@ -326,7 +373,8 @@ def _layer_extend(
     attn_impl: str = "auto",
 ) -> torch.Tensor:
     """One decoder layer over a new token block; writes the block's K/V into
-    k_buf/v_buf at [past_len, past_len + T) and returns the new x."""
+    k_buf/v_buf at [past_len, past_len + T) (an int8 cache: codes, and
+    scales into ks_buf/vs_buf) and returns the new x."""
     b, t, d = x.shape
     h = cfg.num_attention_heads
     kh = cfg.num_key_value_heads
@@ -372,30 +420,47 @@ def _layer_extend(
         )
 
     q, k = apply_rope(q, k, cos, sin)
-    cdt = k_buf.dtype
+    quant = k_buf.dtype == torch.int8
+    cdt = torch.bfloat16 if quant else k_buf.dtype
     q = q.to(cdt)
-    for row, off in enumerate(past_host):  # append the block at per-row offsets
-        k_buf[row, off : off + t] = k[row]
-        v_buf[row, off : off + t] = v[row]
+    # append the block at per-row offsets, one indexed write a buffer
+    rows = torch.arange(b, device=x.device)[:, None]
+    at = past_len.to(torch.int64)[:, None] + torch.arange(t, device=x.device)[None, :]
+    if quant:  # quantize first, then attend over the cache's codes
+        (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+        ks_buf[rows, at] = ks
+        vs_buf[rows, at] = vs
+    k_buf[rows, at] = k.to(k_buf.dtype)
+    v_buf[rows, at] = v.to(v_buf.dtype)
 
-    # the JAX package sends every block of more than one token to its flash
-    # kernel on the TPU, and so to the int8 one under BAGEL_FLASH_INT8
-    int8 = t > 1 and flash.default_int8()
-    if attn_impl == "flash" or (attn_impl == "auto" and q.is_cuda):
-        att = flash_cached_attention(
-            q, k_buf, v_buf, past_len, q_valid, causal=causal, int8_compute=int8
-        )
+    kernel = attn_impl == "flash" or (attn_impl == "auto" and q.is_cuda)
+    if quant and t == 1:
+        # the decode step reads the codes themselves (B1-kv8)
+        decode = flash_decode_kv8 if kernel else flash_decode_kv8_plain
+        att = decode(q, k_buf, v_buf, ks_buf, vs_buf, past_len, q_valid)
     else:
-        att = flash_cached_attention_plain(
-            q, k_buf, v_buf, past_len, q_valid, causal=causal, int8_compute=int8
-        )
+        k_use, v_use = k_buf, v_buf
+        if quant:  # the live prefix, dequantized once for the layer
+            live = max(past_host) + t
+            k_use = _kv_dequantize(k_buf[:, :live], ks_buf[:, :live], cdt)
+            v_use = _kv_dequantize(v_buf[:, :live], vs_buf[:, :live], cdt)
+        # the JAX package sends every block of more than one token to its
+        # flash kernel on the TPU, and so to the int8 one under
+        # BAGEL_FLASH_INT8
+        int8 = t > 1 and flash.default_int8()
+        attend = flash_cached_attention if kernel else flash_cached_attention_plain
+        att = attend(q, k_use, v_use, past_len, q_valid, causal=causal, int8_compute=int8)
     att = att.reshape(b, t, h * hd)
 
     o = _split_apply(
-        att, und_len,
+        att.to(x.dtype), und_len,
         lambda z: _linear(z, attn_u["o"]),
         lambda z: _linear(z, attn_g["o"]),
     )
+    if att.dtype != x.dtype:
+        # an int8 cache's bf16 attention beside f32 weights: JAX's product
+        # promotes it and rounds its result to the attention's dtype
+        o = o.to(att.dtype)
     x = res + o.to(res.dtype)
 
     res = x
@@ -449,19 +514,19 @@ def llm_extend(
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
 
     if update_cache:
-        k_new, v_new = (cache.k, cache.v) if in_place else (cache.k.clone(), cache.v.clone())
+        new = cache if in_place else cache.clone()
     # without update_cache the per-layer scratch buffer holds only the live
     # prefix: no key past it is visible, so the bucket's tail is never copied
     live = max(past_host) + t
     x = embeds
     for i in range(cfg.num_hidden_layers):
         if update_cache:
-            k_buf, v_buf = k_new[i], v_new[i]
+            bufs = [None if buf is None else buf[i] for buf in new.buffers()]
         else:
-            k_buf, v_buf = cache.k[i, :, :live].clone(), cache.v[i, :, :live].clone()
+            bufs = [None if buf is None else buf[i, :, :live].clone() for buf in cache.buffers()]
         x = _layer_extend(
             cfg, und_len, causal, x, _layer_params(params["layers"], i),
-            k_buf, v_buf, cache.length, past_host, q_valid, cos, sin,
+            *bufs, cache.length, past_host, q_valid, cos, sin,
             attn_impl=attn_impl,
         )
 
@@ -473,7 +538,7 @@ def llm_extend(
         lambda z: rms_norm(z, fin_g, cfg.rms_norm_eps),
     )
     if update_cache:
-        return x, KVCache(k=k_new, v=v_new, length=cache.length + q_valid)
+        return x, dataclasses.replace(new, length=cache.length + q_valid)
     return x, cache
 
 
@@ -486,13 +551,20 @@ def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32 (the inputs upcast, as preferred_element_type=f32); an
+    """Logits in fp32, as JAX's preferred_element_type=f32 product: on CUDA
+    a bf16 x bf16 product with f32 accumulation and f32 output
+    (`torch.mm(..., out_dtype=torch.float32)`), with no f32 copy of the
+    1 GB head; elsewhere (this op has no CPU kernel) the inputs upcast. An
     int8 head dequantizes to hidden's dtype first, as in JAX."""
     head = params["lm_head"]
     if "w_q" in head:
         w = (head["w_q"].float() * head["scale"][None, :]).to(hidden.dtype)
     else:
         w = head["w"]
+    if hidden.is_cuda and hidden.dtype == w.dtype == torch.bfloat16:
+        lead = hidden.shape[:-1]
+        out = torch.mm(hidden.reshape(-1, hidden.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(lead + (w.shape[-1],))
     return torch.matmul(hidden.float(), w.float())
 
 
@@ -516,6 +588,8 @@ def decode_text(
     early_stop: bool = True,
     active: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
+    in_place: bool = False,
+    stats: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Autoregressive decode. Returns [B, max_steps] tokens (eos-padded
     after stop) and the final cache.
@@ -532,11 +606,16 @@ def decode_text(
     The loop owns its cache: it clones the given cache once and then writes
     each token's K/V into that private buffer in place, where `llm_extend`
     would clone the whole [L, B, S, KH, D] buffer per token. The given cache
-    is left untouched, so a context that shares it stays as it was.
+    is left untouched, so a context that shares it stays as it was. With
+    in_place=True the caller owns the given cache (JAX donates it): the
+    tokens are written into its buffers, with no clone. `stats`, if given,
+    gets the number of decoder forwards the loop ran added to its
+    "forwards".
     """
     b = start_tokens.shape[0]
     dev = start_tokens.device
-    cache = KVCache(k=cache.k.clone(), v=cache.v.clone(), length=cache.length.clone())
+    if not in_place:
+        cache = cache.clone()
     done = ~active if active is not None else torch.zeros(b, dtype=torch.bool, device=dev)
     ones = torch.ones(b, dtype=torch.int32, device=dev)
     out = torch.full((b, max_steps), eos_id, dtype=start_tokens.dtype, device=dev)
@@ -561,4 +640,6 @@ def decode_text(
         done = done | (nxt == eos_id)
         out[:, step] = nxt
         tok, pos = nxt, pos + 1
+        if stats is not None:
+            stats["forwards"] = stats.get("forwards", 0) + 1
     return out, cache

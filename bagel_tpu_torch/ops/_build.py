@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -31,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # threads that first call a kernel at once build it once
 
 
 class KernelBuildError(RuntimeError):
@@ -117,6 +119,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build(name)
+                lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib

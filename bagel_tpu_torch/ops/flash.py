@@ -25,6 +25,13 @@ through the same source's integer-wgmma kernel (`flash_cached_attention_q8`),
 on the CPU through its plain version `flash_q8_plain`. The prep writes V
 transposed with its keys permuted within each 32-key group (`q8_v_order`),
 the layout the kernel's PV product reads.
+
+`flash_decode_kv8` is the decode step (T = 1) over an int8 KV cache (codes
+[B, S, KH, D] and f32 scales [B, S, KH] per key and KV head, as
+`models.qwen2` stores them): on CUDA the same split-KV pair, whose split
+kernel dequantizes the codes on their way into shared memory (B1-kv8); on
+the CPU its plain version `flash_decode_kv8_plain` (`kv_dequantize`, then
+the plain attention).
 """
 
 from __future__ import annotations
@@ -131,6 +138,33 @@ def decode_combine_plain(m, l, acc, out_dtype=torch.bfloat16):
     out = (w[..., None] * acc).sum(dim=-2)
     out = torch.where(total > 0, out / torch.where(total > 0, total, 1.0), 0.0)
     return out[:, None].to(out_dtype)
+
+
+def kv_dequantize(codes: torch.Tensor, scales: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 KV codes [..., D] times their f32 scales [...], rounded to
+    `dtype` (bagel_tpu/models/qwen2.py `_kv_dequantize`)."""
+    return (codes.float() * scales[..., None]).to(dtype)
+
+
+def kv8_live(k8, v8, k_scale, v_scale, past_len, q_valid, dtype=torch.bfloat16):
+    """The dequantized K/V a decode step reads: `kv_dequantize` of the keys
+    j < past + 1 of each valid row, 0 past them (whatever their codes and
+    scales hold there: a NaN scale gives 0)."""
+    lim = torch.where(q_valid > 0, past_len.to(torch.int64) + 1, 0)
+    alive = (torch.arange(k8.shape[1], device=k8.device)[None, :] < lim[:, None])[..., None, None]
+    zero = torch.zeros((), dtype=dtype, device=k8.device)
+    return (torch.where(alive, kv_dequantize(k8, k_scale, dtype), zero),
+            torch.where(alive, kv_dequantize(v8, v_scale, dtype), zero))
+
+
+def flash_decode_kv8_plain(q, k8, v8, k_scale, v_scale, past_len, q_valid, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """`flash_decode_kv8`'s function in plain PyTorch: `kv8_live`, then the
+    plain attention (`flash_cached_attention_plain`, as for B1's own decode
+    step; `flash_decode_split_plain` on the `kv8_live` view is the split
+    pair's arithmetic). [B, 1, H, D] in q's dtype."""
+    k, v = kv8_live(k8, v8, k_scale, v_scale, past_len, q_valid)
+    return flash_cached_attention_plain(q, k, v, past_len, q_valid, causal=True, scale=scale)
 
 
 def flash_decode_split_plain(q, k, v, past_len, q_valid, *, splits: int,
@@ -345,6 +379,9 @@ def _library() -> ctypes.CDLL:
         dec = lib.flash_decode_bf16
         dec.argtypes = [p] * 8 + [i] * 5 + [i64] * 10 + [ctypes.c_float, p]
         dec.restype = ctypes.c_int
+        kv8 = lib.flash_decode_kv8
+        kv8.argtypes = [p] * 10 + [i] * 5 + [i64] * 16 + [ctypes.c_float, p]
+        kv8.restype = ctypes.c_int
         lib.flash_cached_attention_error_string.argtypes = [i]
         lib.flash_cached_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -545,3 +582,86 @@ def flash_cached_attention(
 
 
 flash_cached_attention.launches = 0
+
+
+def _check_kv8(q, k8, v8, k_scale, v_scale, past_len, q_valid) -> None:
+    b, t, h, d = q.shape
+    if q.dtype != torch.bfloat16 or t != 1 or d != HEAD_DIM:
+        raise ValueError(f"q must be a bf16 [B, 1, H, {HEAD_DIM}] tensor, got {q.dtype} "
+                         f"{tuple(q.shape)}")
+    if q.stride(-1) != 1 or q.stride(0) % 8 or q.stride(2) % 8 or q.data_ptr() % 16:
+        raise ValueError(f"q: the kernel loads 16-byte rows (strides {q.stride()})")
+    s, kh = k8.shape[1], k8.shape[2]
+    for name, x in (("k8", k8), ("v8", v8)):
+        if x.dtype != torch.int8 or x.shape != (b, s, kh, d):
+            raise ValueError(f"{name} must be an int8 [{b}, {s}, {kh}, {d}] tensor, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.stride(-1) != 1 or any(st % 16 for st in x.stride()[:3]) or x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel loads 16 codes at a time; needs a unit last "
+                             f"stride, other strides multiples of 16 and a 16-byte aligned "
+                             f"base (strides {x.stride()})")
+    for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if x.dtype != torch.float32 or x.shape != (b, s, kh):
+            raise ValueError(f"{name} must be an f32 [{b}, {s}, {kh}] tensor, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    if h % kh or h // kh > DECODE_MAX_GROUP:
+        raise ValueError(f"{h} query heads over {kh} KV heads: the decode kernel packs at most "
+                         f"{DECODE_MAX_GROUP} heads of a group into its tile")
+    for name, x in (("past_len", past_len), ("q_valid", q_valid)):
+        if x.dtype != torch.int32 or x.shape != (b,) or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 [{b}] tensor")
+    for name, x in (("k8", k8), ("v8", v8), ("k_scale", k_scale), ("v_scale", v_scale),
+                    ("past_len", past_len), ("q_valid", q_valid)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+
+
+def flash_decode_kv8(
+    q: torch.Tensor,  # [B, 1, H, D] bf16
+    k8: torch.Tensor,  # [B, S, KH, D] int8 codes
+    v8: torch.Tensor,
+    k_scale: torch.Tensor,  # [B, S, KH] f32
+    v_scale: torch.Tensor,
+    past_len: torch.Tensor,  # [B] int32
+    q_valid: torch.Tensor,  # [B] int32
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """A decode step's attention over an int8 KV cache -> [B, 1, H, D]: the
+    keys j < past + 1 of each valid row, dequantized as `kv_dequantize`
+    does. On a CUDA tensor the split-KV pair with the int8 split kernel
+    (`csrc/flash_cached_attention.cu`, B1-kv8), on a CPU tensor
+    `flash_decode_kv8_plain`. Codes and scales past each row's live keys
+    are never read.
+
+    `flash_decode_kv8.launches` counts calls that launch the pair."""
+    if q.device.type == "cpu":
+        return flash_decode_kv8_plain(q, k8, v8, k_scale, v_scale, past_len, q_valid,
+                                      scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_kv8(q, k8, v8, k_scale, v_scale, past_len, q_valid)
+    b, _, h, d = q.shape
+    s, kh = k8.shape[1], k8.shape[2]
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    splits = decode_splits(b, kh, q.device)
+    lib = _library()
+    part_acc = torch.empty(b * splits * h * d, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(b * splits * h * 2, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.flash_decode_kv8(
+            q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), past_len.data_ptr(),
+            q_valid.data_ptr(), b, s, h, kh, splits, q.stride(0), q.stride(2),
+            *k8.stride()[:3], *v8.stride()[:3], *k_scale.stride(), *v_scale.stride(),
+            out.stride(0), out.stride(2), d**-0.5 if scale is None else scale,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        msg = lib.flash_cached_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_decode_kv8 launch failed: {msg} ({err})")
+    flash_decode_kv8.launches += 1
+    return out
+
+
+flash_decode_kv8.launches = 0

@@ -24,11 +24,21 @@ Phases (the first failure exits non-zero, and no result line is printed):
                 T > 1 the TMA + wgmma kernel, edge cases with stale NaN
                 past the live keys and a strided q; at a decode step (T=1)
                 the split-KV pair: edge cases with stale NaN past the live
-                keys, two kernels a call (torch.profiler), and a control
+                keys, two kernels a call (its CUDA graph), and a control
                 that drops one live split from the combine; the path shapes
                 of text-to-image, VQA and the edit: (a) its VAE-block
                 prefill, (b) its ViT-block prefill behind it, (c) its
-                denoise over three very unequal pasts;
+                denoise over three very unequal pasts; the serving
+                runtime's admission of phase 9's chats as its plan gives it
+                (the 8-row image round, the plain version one live row at
+                a time, and the 8-row text round) and a speculative verify
+                (B=8, T=5 over ragged slot pasts); B1-kv8
+                (flash_decode_kv8, the decode pair over an int8 KV cache)
+                against kv_dequantize + the plain attention: edge cases and
+                the 8-slot serving shape (ragged pasts 50-4975 of an
+                8192-slot cache), NaN scales and random codes past every
+                live end, bit-identical to the bf16 pair on the
+                dequantized view (control: one row's scales taken as 1);
              3b B3 sparse_packed_attention (control: two packed images merged
                 into one segment; the full-tile flags timed against the same
                 launch without them; the SigLIP shape timed against SDPA in
@@ -40,8 +50,8 @@ Phases (the first failure exits non-zero, and no result line is printed):
                 scales, at the four path shapes and a ragged one, timed
                 against its bytes bound;
              3d B4 int4_matmul at every decode linear's shape, M in {1, 3, 64},
-                one launch a call (the counter, and the card's record of
-                one call through torch.profiler), two calls bit-identical,
+                one launch a call (the counter, and the kernel nodes of one
+                call captured in a CUDA graph), two calls bit-identical,
                 the fused bias as JAX rounds it (control: the nibbles
                 swapped); one decode token's 112 launches over 28 layers'
                 own weights, cold in L2, against torch.matmul over 28
@@ -90,6 +100,24 @@ Phases (the first failure exits non-zero, and no result line is printed):
              through __call__: B4 L x 4 x decode steps, B1 and B3 as in 6; the
              first decode step's logits through the kernels vs the plain
              versions; ms per decode token.
+  9. serve   the serving path on phase 5's weights: a ServingRuntime (8
+             slots of an 8192-slot cache, 16-step decode chunks) behind the
+             HTTP server (serve_in_thread on 127.0.0.1, an ephemeral port),
+             driven by urllib from client threads: (a) 8 chats (2 on the
+             VQA image as PNG, 6 text-only of 20-200 prompt tokens, 32
+             tokens each), a streaming chat and a 1024 px generate at once,
+             B1 L x (prefill blocks + decode forwards + 2 + 7), B3 LV x
+             the runtime's packed SigLIP passes (all runs); (b) the 8
+             chats on a second engine over the same parameter tensors with
+             kv_quant=True: B1 L x prefill blocks (none at T = 1), B1-kv8 L
+             x decode steps; (c) the 8 chats with speculative=4: B1 L x
+             (prefill blocks + verify forwards). Every reply 200, /v1/stats
+             exact; the first decode step's and a T = 5 verify block's
+             logits of an 8-row slot cache prefilled as the runtime does,
+             kernels vs plain over a bf16 and an int8 cache, int8 vs bf16
+             (control: one row's scales taken as 1); each answer against
+             the request alone (reported);
+             tokens/s at 8 slots against one; latencies; cache GiB.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 int4_split_sweep() times B4 at every split of K it takes, and
@@ -99,9 +127,11 @@ by the smoke; their docstrings say how to run them).
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
@@ -133,6 +163,16 @@ EDIT_TRANSFORM = (1024, 512, 16)  # ImageTransform(max, min, stride)
 EDIT_MAX_KV = 16384
 TS_TIMESTEPS = 50  # the TaylorSeer image: the default schedule's 19 full forwards of 49
 BATCH_PROMPTS = (PROMPT, "A watercolor painting of a lighthouse on a cliff above a stormy sea")
+# phase 9, serving: 8 slots of an 8192-slot cache, 16-step decode chunks, 32
+# tokens an answer; six text chats of ~20 to ~200 prompt tokens
+# (MockTokenizer: a token a character) and two on the VQA image
+SERVE_SLOTS = 8
+SERVE_CHUNK = 16
+SERVE_TOKENS = 32
+SERVE_SPECULATIVE = 4
+SERVE_PROMPT_CHARS = (20, 45, 80, 120, 160, 200)
+SERVE_GATE_PX = 392  # the model gate's images: the plain path's scores fit the card
+SLOT_PASTS = [50, 4975, 1200, 3000, 63, 64, 2047, 700]  # B1-kv8's slot decode shape
 KERNELS = ("flash_cached_attention", "sparse_packed_attention", "int8_matmul", "int4_matmul",
            "flash_cached_attention_q8")
 # kernel vs plain, both bf16 out, over the valid rows of each batch row:
@@ -159,6 +199,11 @@ VIT_TOL = 5e-2
 # the ViT's error feeds 28 LLM layers, each adding its own attention
 # rounding; twice the velocity's limit for the longer chain
 LOGITS_TOL = 1e-1
+# the first decode step's logits over an int8 slot cache vs a bf16 one (both
+# through the kernels): measured 5.1e-2 on this seed (NVIDIA H100 80GB HBM3,
+# 700 W); the limit is twice that reading, and the control that reads one
+# row's codes unscaled (its scales taken as 1) must land above it
+INT8_KV_LOGITS_TOL = 1e-1
 # the w8a8 image's peak memory: the 47.75 GiB that the row-major design
 # reached (NVIDIA H100 80GB HBM3) plus 0.5 GiB; the k-major weights are made
 # before the image, one leaf at a time
@@ -401,10 +446,23 @@ def within_tol(ratio, rel):
     return ratio <= 1.0 and rel <= KERNEL_REL
 
 
-def compare(flash, args, causal, label):
+def plain_rows(flash, args, causal):
+    """The plain version one live row at a time (rows with valid = 0 give
+    0): its fp32 scores of a long block at B = 8 would not fit the card."""
+    q, k, v, past, valid = args
+    out = torch.zeros_like(q)
+    for row in torch.nonzero(valid).flatten().tolist():
+        r = slice(row, row + 1)
+        out[r] = flash.flash_cached_attention_plain(q[r], k[r], v[r], past[r], valid[r],
+                                                    causal=causal)
+    return out
+
+
+def compare(flash, args, causal, label, rowwise=False):
     q, k, v, past, valid = args
     got = flash.flash_cached_attention(q, k, v, past, valid, causal=causal)
-    want = flash.flash_cached_attention_plain(q, k, v, past, valid, causal=causal)
+    want = (plain_rows(flash, args, causal) if rowwise else
+            flash.flash_cached_attention_plain(q, k, v, past, valid, causal=causal))
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite kernel output")
     for row, n in enumerate(valid.tolist()):
@@ -438,11 +496,26 @@ def cache_mask(s, t, past, valid, causal):
     return cache_block_mask(s, t, past, valid, causal)[:, None]
 
 
+def short_name(mangled: str) -> str:
+    """A kernel's name out of its mangled symbol (a name is mangled as its
+    length, then itself), for the log."""
+    for i in range(len(mangled)):
+        digits = re.match(r"\d+", mangled[i:])
+        if digits:
+            name = mangled[i + digits.end() : i + digits.end() + int(digits.group())]
+            if name.endswith("kernel"):
+                return name
+    return mangled[:60]
+
+
 def decode_checks(flash, args, want, valid, label):
     """B1 at a decode step: one call runs two kernels on the card (the split
-    kernel, then the combine), and the gate rejects the combine of the
+    kernel, then the combine: the kernel nodes of one call captured in a
+    CUDA graph), and the gate rejects the combine of the
     kernel's own splits with one live split left out. Returns the splits
     and each kernel's device µs a call (torch.profiler)."""
+    from bagel_tpu_torch.utils.cuda_graph import kernels_on_card
+
     q, k, v, p, vl = args
     names = kernels_on_card(lambda: flash.flash_cached_attention(q, k, v, p, vl, causal=True))
     check(len(names) == 2 and "split" in names[0] and "combine" in names[1],
@@ -457,15 +530,16 @@ def decode_checks(flash, args, want, valid, label):
     check(not within_tol(b_ratio, b_rel),
           f"{label}: the gate accepts a combine that drops live split {gone}")
     kernel_us = kernel_device_us(lambda: flash.flash_cached_attention(q, k, v, p, vl, causal=True))
-    log(f"[kernels] {label}: one call ran two kernels on the card (torch.profiler): "
-        f"{names[0][:48]}, {names[1][:48]}; their device µs a call {json.dumps(kernel_us)}; "
+    log(f"[kernels] {label}: one call ran two kernels on the card (its CUDA graph): "
+        f"{short_name(names[0])}, {short_name(names[1])}; their device µs a call "
+        f"{json.dumps(kernel_us)}; "
         f"{splits} splits a KV head, {len(live)} live; control that drops live split {gone} "
         f"from the combine is rejected: max abs {b_err:.3e} ({b_ratio:.1f} x the elementwise "
         f"limit), rel {b_rel:.3e}")
     return splits, kernel_us
 
 
-def phase_kernels(cfg, prompt_len, prefill_t, vqa, edit):
+def phase_kernels(cfg, prompt_len, prefill_t, vqa, edit, serve):
     from bagel_tpu_torch.ops import flash
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -514,10 +588,15 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa, edit):
     # the VQA image block, the question after it and one decode step; an
     # edit's VAE block and ViT block (prefills into a 16384-slot cache) and
     # its denoise with CFG, whose buffer is the live prefix (a gen block's
-    # forward reads cache.k[:, :max(past) + T])
+    # forward reads cache.k[:, :max(past) + T]); the serving runtime's
+    # admission of phase 9's eight chats into its 8-slot cache, as its plan
+    # gives them (one image round: the two 980 px images, six rows at
+    # valid 0; the ragged text round after it), and a speculative verify
+    # (T = K + 1) over ragged slot pasts
     n = (PX // cfg.latent_downsample) ** 2 + 2
     e_a, e_vit, e_vit_t, e_q = edit["vae_t"], edit["vit_valid"], edit["vit_t"], edit["q_len"]
     e_past = [e_a + e_vit + e_q, e_a + e_vit, e_q]
+    s_img, s_text = serve["image_valid"], serve["text_valid"]
     shapes = [
         ("denoise B=3 (CFG)", 3, n, MAX_KV, [prompt_len, 0, prompt_len], [n] * 3, False),
         ("denoise B=1", 1, n, MAX_KV, [prompt_len], [n], False),
@@ -528,16 +607,30 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa, edit):
         ("edit (a) vae-block prefill", 1, e_a, EDIT_MAX_KV, [0], [e_a], False),
         ("edit (b) vit-block prefill", 1, e_vit_t, EDIT_MAX_KV, [e_a], [e_vit], False),
         ("edit (c) denoise B=3 (CFG)", 3, e_a, max(e_past) + e_a, e_past, [e_a] * 3, False),
+        ("serve image round B=8", SERVE_SLOTS, serve["image_t"], MAX_KV, [0] * SERVE_SLOTS,
+         s_img, False),
+        ("serve text round B=8", SERVE_SLOTS, serve["text_t"], MAX_KV, s_img, s_text, True),
+        ("serve verify B=8", SERVE_SLOTS, SERVE_SPECULATIVE + 1, MAX_KV, SLOT_PASTS,
+         [SERVE_SPECULATIVE + 1] * SERVE_SLOTS, True),
     ]
     results = []
     for label, b, t, s_len, past, valid, causal in shapes:
         args = attention_inputs(gen, b, t, s_len, 28, 4, past, valid)
-        got, want, err, ratio, rel = compare(flash, args, causal, label)
+        # where the fp32 scores of all rows at once would pass 16 GiB (the
+        # serve image round: 34 GiB), the plain version and SDPA take the
+        # live rows one at a time
+        rowwise = b * 28 * t * s_len * 4 > 16 * 2**30
+        got, want, err, ratio, rel = compare(flash, args, causal, label, rowwise)
         worst = max(worst, err)
         q, k, v, p, vl = args
+
+        def plain(past_len):
+            a = (q, k, v, past_len, vl)
+            return (plain_rows(flash, a, causal) if rowwise else
+                    flash.flash_cached_attention_plain(*a, causal=causal))
+
         if any(past):  # negative control: the gate rejects a plausible wrong kernel
-            blind = flash.flash_cached_attention_plain(q, k, v, torch.zeros_like(p), vl,
-                                                       causal=causal)
+            blind = plain(torch.zeros_like(p))
             b_err, b_ratio, b_rel = kernel_error(blind, want, valid)
             check(not within_tol(b_ratio, b_rel),
                   f"{label}: the gate accepts an attention that takes past as 0")
@@ -551,24 +644,123 @@ def phase_kernels(cfg, prompt_len, prefill_t, vqa, edit):
             return flash.flash_cached_attention(q, k, v, p, vl, causal=causal)
 
         ms, call_ms = device_ms(call, 20), cuda_ms(call, 20, 3)
-        plain_ms = cuda_ms(
-            lambda: flash.flash_cached_attention_plain(q, k, v, p, vl, causal=causal), 2)
+        plain_ms = cuda_ms(lambda: plain(p), 2)
         mask = cache_mask(s_len, t, p, vl, causal)
-        lib_ms = device_ms(sdpa_call(q, k, v, mask), 5)
+        live = torch.nonzero(vl).flatten() if rowwise else slice(None)
+        lib_ms = device_ms(sdpa_call(q[live], k[live], v[live], mask[live]), 5)
         flops, bytes_ = attention_work(past, valid, t, 28, 4, 128, causal)
         bms, by = bound_ms(flops, bytes_)
-        results.append(dict(shape=label, B=b, T=t, S=s_len, past=past, causal=causal,
-                            splits=splits, kernel_us=kernel_us, max_abs_err=err,
+        results.append(dict(shape=label, B=b, T=t, S=s_len, past=past, valid=valid,
+                            causal=causal, plain_by_row=rowwise, splits=splits, kernel_us=kernel_us, max_abs_err=err,
                             limit_ratio=ratio, rel_err=rel,
                             device_ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9))
         log(f"[kernels] {label}: T={t} S={s_len} past={past} max abs err {err:.3e} ({ratio:.2f} x the "
             f"elementwise limit), rel err {rel:.3e}; kernel device {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), call {call_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"SDPA device {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"({flops / ms / 1e9:.1f} TFLOP/s), call {call_ms:.4f} ms, plain {plain_ms:.3f} ms"
+            f"{' (live rows one at a time)' if rowwise else ''}, SDPA device {lib_ms:.4f} ms"
+            f"{' (the live rows)' if rowwise else ''}, bound {bms:.4f} ms ({by})")
         del args, q, k, v, mask
         torch.cuda.empty_cache()
     return worst, results
+
+
+# ---------------------------------------------------------------------------
+# phase 3a (cont.): B1-kv8, the decode step over an int8 KV cache
+# ---------------------------------------------------------------------------
+
+
+def kv8_inputs(gen, past, valid, s, h=28, kh=4):
+    """A decode step's q and an int8 cache: random codes everywhere, scales
+    of a live key's size up to each row's live end and NaN past it."""
+    b = len(past)
+    dev = DEVICE
+    q = torch.randn((b, 1, h, 128), generator=gen, device=dev).bfloat16()
+    k8, v8 = (torch.randint(-127, 128, (b, s, kh, 128), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, s, kh), generator=gen, device=dev) * 0.04 + 0.01 for _ in range(2))
+    for row, p in enumerate(past):
+        ks[row, p + 1:] = float("nan")
+        vs[row, p + 1:] = float("nan")
+    return (q, k8, v8, ks, vs, torch.tensor(past, dtype=torch.int32, device=dev),
+            torch.tensor(valid, dtype=torch.int32, device=dev))
+
+
+def kv8_work(past, valid, h, kh, d=128):
+    """(FLOPs, bytes) of a decode step over an int8 cache: the live codes of
+    K and V (a byte an element) and their f32 scales, q and out once."""
+    live = sum(p + 1 for p, n in zip(past, valid) if n)
+    return 4 * d * h * live, live * kh * 2 * (d + 4) + 2 * len(past) * h * d * 2
+
+
+def phase_kv8(cfg):
+    """B1-kv8 against its plain twin (kv_dequantize + the plain attention)
+    under B1's gate: edge cases, then the serving runtime's slot decode
+    shape (8 slots of an 8192-slot cache, ragged pasts), with NaN scales and
+    random codes past every live end; bit-identical to B1's bf16 decode
+    pair on the dequantized view; a control with one row's scales replaced
+    by 1 that the gate must reject; device, call and plain ms against the
+    bytes bound and against B1's pair over a bf16 cache of the same live
+    keys."""
+    from bagel_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    h, kh = cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads
+    worst = 0.0
+    cases = [
+        ("kv8 decode past=0", [0], [1], 256),
+        ("kv8 decode, a tile boundary at past + 1", [63], [1], 1024),
+        ("kv8 decode, more splits than live tiles", [70], [1], 1024),
+        ("kv8 decode, B=3 of mixed past, a q_valid=0 row", [37, 4000, 1200], [1, 0, 1], MAX_KV),
+        ("kv8 decode, the 8-slot serving shape", SLOT_PASTS, [1] * len(SLOT_PASTS), MAX_KV),
+    ]
+    for label, past, valid, s in cases:
+        args = kv8_inputs(gen, past, valid, s, h, kh)
+        q, k8, v8, ks, vs, pl, vl = args
+        got = flash.flash_decode_kv8(*args)
+        want = flash.flash_decode_kv8_plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite kernel output")
+        for row, n in enumerate(valid):
+            check(n or got[row].abs().max().item() == 0.0, f"{label}: a q_valid=0 row is not 0")
+        err, ratio, rel = kernel_error(got, want, valid)
+        check(within_tol(ratio, rel),
+              f"{label}: kernel vs plain max abs {err:.3e} ({ratio:.2f} x the elementwise "
+              f"limit), rel {rel:.3e} (limit {KERNEL_REL})")
+        kd, vd = flash.kv8_live(k8, v8, ks, vs, pl, vl)
+        check(torch.equal(got, flash.flash_cached_attention(q, kd, vd, pl, vl, causal=True)),
+              f"{label}: not bit-identical to B1's bf16 pair on the dequantized view")
+        worst = max(worst, err)
+        log(f"[kernels] {label}: past={past} max abs err {err:.3e} ({ratio:.2f} x the "
+            f"elementwise limit), rel err {rel:.3e}; bit-identical to the bf16 pair on the "
+            f"dequantized view; NaN scales past every live end")
+    # the slot shape (the last case): control, then times
+    row = int(np.argmax(SLOT_PASTS))
+    ones = ks.clone()
+    ones[row, : SLOT_PASTS[row] + 1] = 1.0
+    blind = flash.flash_decode_kv8_plain(q, k8, v8, ones, vs, pl, vl)
+    b_err, b_ratio, b_rel = kernel_error(blind, want, valid)
+    check(not within_tol(b_ratio, b_rel), f"kv8: the gate accepts row {row}'s scales taken as 1")
+    ms = device_ms(lambda: flash.flash_decode_kv8(*args), 20)
+    call_ms = cuda_ms(lambda: flash.flash_decode_kv8(*args), 20, 3)
+    plain_ms = cuda_ms(lambda: flash.flash_decode_kv8_plain(*args), 2)
+    bf16_ms = device_ms(lambda: flash.flash_cached_attention(q, kd, vd, pl, vl, causal=True), 20)
+    flops, bytes_ = kv8_work(SLOT_PASTS, valid, h, kh)
+    bms, by = bound_ms(flops, bytes_)
+    splits = flash.decode_splits(len(SLOT_PASTS), kh, q.device)
+    res = dict(shape=f"B={len(SLOT_PASTS)} S={MAX_KV} H={h} KH={kh} D=128, past={SLOT_PASTS}",
+               splits=splits, max_abs_err=worst, device_ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, bf16_pair_device_ms=bf16_ms, bound_ms=bms, bound_by=by,
+               bytes=bytes_, gb_per_s=bytes_ / ms / 1e6)
+    log(f"[kernels] kv8 control that takes row {row}'s scales as 1 is rejected: max abs "
+        f"{b_err:.3e} ({b_ratio:.1f} x the elementwise limit), rel {b_rel:.3e}")
+    log(f"[kernels] kv8 at the slot shape ({res['shape']}, {splits} splits): device "
+        f"{ms:.4f} ms ({bytes_ / ms / 1e6:.0f} GB/s), call {call_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, B1's bf16 pair on the same live keys {bf16_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}, {bytes_ / 1e6:.2f} MB); no one PyTorch call computes it")
+    del args, q, k8, v8, ks, vs, kd, vd, ones
+    torch.cuda.empty_cache()
+    return worst, res
 
 
 # ---------------------------------------------------------------------------
@@ -922,41 +1114,37 @@ def int4_error(got, want, x, w):
 # torch.profiler now and then hands back no CUDA activity at all for a
 # session (seen on the card once in several runs, with kernels that ran): a
 # session that recorded nothing is taken again, at most this many times
-PROFILE_TRIES = 3
+PROFILE_TRIES = 6
 
 
-def kernels_on_card(fn) -> list:
-    """The names of the kernels one call of fn() ran on the card, in order,
-    as torch.profiler's CUDA activity records them (memory copies and sets
-    included)."""
+def profile_session(attempt: int):
+    """A torch.profiler session recording the card's activity. A retry waits
+    a little and, every other time, records the host's activity too."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    return names
+    if attempt:
+        time.sleep(0.2 * attempt)
+    activities = [ProfilerActivity.CUDA]
+    if attempt % 2:
+        activities.insert(0, ProfilerActivity.CPU)
+    return profile(activities=activities)
 
 
 def kernel_device_us(fn, calls: int = 20) -> dict:
     """{kernel name: device µs a call} over `calls` calls of fn(), from
-    torch.profiler's record of the card's activity."""
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler's record of the card's activity (reported, not gated: a
+    run of empty sessions leaves it empty)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(PROFILE_TRIES):
+        with profile_session(attempt) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        stats = prof.key_averages()
+        # the card's own records (a session that also records the host
+        # lists its runtime calls and ops too)
+        stats = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
         names = (e.key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
                  for e in stats)
         times = {name: e.device_time_total / calls
@@ -969,13 +1157,14 @@ def kernel_device_us(fn, calls: int = 20) -> dict:
 def phase_int4_matmul(cfg):
     """B4 against its plain version at the decode shapes of every linear
     (fused and unfused leaves), M in {1, 3, 64}; a control with the nibbles
-    swapped. Every call is one launch (the launch counter, and the card's
-    own record of one call through torch.profiler), two calls are
+    swapped. Every call is one launch (the launch counter, and the kernel
+    nodes of one call captured in a CUDA graph), two calls are
     bit-identical (a fixed order of the split sums), and the fused bias
     epilogue equals the unbiased output with JAX's bias rounding after it,
     bit for bit. Times at M=1 (decode); one decode token's 112 launches as
     a cold-L2 graph."""
     from bagel_tpu_torch.ops import int4_matmul as m4
+    from bagel_tpu_torch.utils.cuda_graph import kernels_on_card
     from bagel_tpu_torch.utils.quant import dequantize_weight4, quantize_weight_int4
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
@@ -1020,7 +1209,7 @@ def phase_int4_matmul(cfg):
                 check(len(names) == 1 and "int4_matmul_kernel" in names[0],
                       f"B4 {label}: one biased call ran {names} on the card, not one kernel")
                 log(f"[kernels] B4 {label}: one biased call ran one kernel on the card "
-                    f"(torch.profiler): {names[0][:60]}")
+                    f"(its CUDA graph): {short_name(names[0])}")
             if m == 1:
                 def call():
                     return m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
@@ -1682,7 +1871,7 @@ def counted_call(fn):
 
 def bf16_counts(**kw):
     """The launch counts of a bf16 path: B1 and B3 as given, the rest 0."""
-    return dict(dict(b1=0, b2=0, b3=0, b4=0, b5=0, quant=0, prep=0), **kw)
+    return dict(dict(b1=0, b2=0, b3=0, b4=0, b5=0, quant=0, prep=0, kv8=0), **kw)
 
 
 def phase_taylorseer(engine, t2i):
@@ -2004,7 +2193,7 @@ def counts_reset():
     fns = dict(b1=flash.flash_cached_attention, b2=flash.flash_cached_attention_q8,
                b3=sparse_flash.sparse_packed_attention, b4=int4_matmul.int4_matmul,
                b5=int8_matmul.int8_matmul, quant=int8_matmul.quantize_rows,
-               prep=flash.q8_prep)
+               prep=flash.q8_prep, kv8=flash.flash_decode_kv8)
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -2061,7 +2250,7 @@ def phase_t2i_w8a8(engine, gen):
         # und expert, a gen block both (the 2 boundary tokens take the und one)
         b5 = L * (4 * 2 + 8 * forwards)
         want = dict(b1=0, b2=L * (2 + forwards), b3=0, b4=0, b5=b5, quant=b5,
-                    prep=L * (2 + forwards))
+                    prep=L * (2 + forwards), kv8=0)
         log(f"[t2i w8a8] __call__ {PX} px, {NUM_TIMESTEPS} timesteps, BAGEL_FLASH_INT8=1: "
             f"{total_s:.2f} s, peak memory {peak / 2**30:.2f} GiB (at most {W8A8_PEAK_GIB}); "
             f"launches {counts} (expected B5 {L} x (4 x 2 prefills + 8 x {forwards} forwards) "
@@ -2150,7 +2339,8 @@ def phase_vqa_int4(engine, card):
         answer = out["text"]
         n_tok = len(answer.split())
         steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK
-        want = dict(b1=L * (2 + steps), b2=0, b3=LV, b4=L * 4 * steps, b5=0, quant=0, prep=0)
+        want = dict(b1=L * (2 + steps), b2=0, b3=LV, b4=L * 4 * steps, b5=0, quant=0, prep=0,
+                    kv8=0)
         log(f"[vqa int4] __call__ {VQA_PX} px + question, {MAX_THINK} tokens at most: "
             f"{total_s:.2f} s, answer of {n_tok} tokens, peak memory {peak / 2**30:.2f} GiB; "
             f"launches {counts} (expected B4 {L} x 4 fused linears x {steps} decode steps = "
@@ -2181,6 +2371,366 @@ def phase_vqa_int4(engine, card):
                 logits_rel=rel, decode_ms=decode_ms, steps=steps)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving (ServingRuntime + the HTTP server)
+# ---------------------------------------------------------------------------
+
+
+SERVE_VIT_TF = (980, 378)  # ImageTransform(max, min, 14) of the server's chat images
+SERVE_VAE_TF = (1024, 512)  # ... and of its edit images (stride 16)
+
+
+def serve_prompts():
+    """The six text prompts: SERVE_PROMPT_CHARS characters of one text."""
+    text = ("Describe the scene in detail: the colours, the light, the weather, every object "
+            "you can see and where it stands, and what might happen next in this place. ") * 3
+    return [text[:n] for n in SERVE_PROMPT_CHARS]
+
+
+def serve_transforms(cfg):
+    from bagel_tpu_torch.data.transforms import ImageTransform
+
+    return (ImageTransform(*SERVE_VAE_TF, cfg.latent_downsample),
+            ImageTransform(*SERVE_VIT_TF, cfg.vit.patch_size))
+
+
+def serve_chats():
+    """The 8 chat bodies: two on the VQA image (as 8-bit PNG, the wire
+    format), six text-only."""
+    from bagel_tpu_torch.serving.server import encode_png
+
+    png = encode_png(np.round((vqa_image() + 1) * 127.5).astype(np.uint8))
+    images = [dict(prompt=QUESTION, image=png, max_tokens=SERVE_TOKENS),
+              dict(prompt="Which colours dominate this picture, and where?", image=png,
+                   max_tokens=SERVE_TOKENS)]
+    return images + [dict(prompt=p, max_tokens=SERVE_TOKENS) for p in serve_prompts()]
+
+
+def serve_admission(cfg, tok):
+    """B1's blocks when the runtime admits the eight chats of serve_chats()
+    into its 8 slots at once, from the runtime's own plan
+    (`ServingRuntime._plan_blocks` over the widths `_request_widths`
+    gives): the image round's T and per-row valid (its two images, 0 on
+    the text rows), then the text round's."""
+    from bagel_tpu_torch.serving.runtime import ServingRuntime
+    from bagel_tpu_torch.serving.server import decode_png
+
+    _, vit_tf = serve_transforms(cfg)
+    patch = cfg.vit.patch_size
+    widths = []
+    for body in serve_chats():
+        images = [decode_png(body["image"], vit_tf)] if body.get("image") else []
+        widths.append(([(im.shape[0] // patch) * (im.shape[1] // patch) for im in images],
+                       len(tok.encode(body["prompt"])) + 2))
+    (image_t,), text_t, _, _ = ServingRuntime._plan_blocks(widths)
+    return dict(image_t=image_t, image_valid=[w[0][0] + 2 if w[0] else 0 for w in widths],
+                text_t=text_t, text_valid=[w[1] for w in widths])
+
+
+def http_call(url, body=None, timeout=900):
+    """(status, reply bytes, seconds) of one request; a reply that is not
+    200 is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, raw, time.perf_counter() - t0
+
+
+def run_serving(engine, label, chats, extra=(), slots=SERVE_SLOTS, speculative=0):
+    """A ServingRuntime and the HTTP server on 127.0.0.1 (an ephemeral
+    port) in this process; the chats and the extra (path, body) requests
+    sent at once from client threads with urllib. Every launch count is set
+    to 0 just before the runtime starts and read once every reply is in.
+    Any reply that is not 200, an error event in a stream, or a stats
+    counter that disagrees with the replies fails the phase. Both threads
+    are stopped before it returns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bagel_tpu_torch.serving.runtime import ServingRuntime
+    from bagel_tpu_torch.serving.server import BagelServer, serve_in_thread
+
+    rt = ServingRuntime(engine, slots=slots, decode_chunk=SERVE_CHUNK,
+                        max_new_default=SERVE_TOKENS, speculative=speculative)
+    cache_gib = sum(t.numel() * t.element_size() for t in rt.cache.buffers()
+                    if t is not None) / 2**30
+    chunk_s = []
+    decode_step = rt._decode_step
+
+    def timed_step():  # a chunk on the host clock, the device drained at both ends
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_step()
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+
+    rt._decode_step = timed_step
+    httpd, thread = serve_in_thread(BagelServer(rt, *serve_transforms(engine.cfg)))
+    base = "http://%s:%d" % httpd.server_address[:2]
+    requests = [("/v1/chat", body) for body in chats] + list(extra)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        read = counts_reset()
+        rt.start()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(requests)) as pool:
+            replies = list(pool.map(lambda r: http_call(base + r[0], r[1]), requests))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        status, raw, _ = http_call(base + "/v1/stats")
+        check(status == 200, f"serve ({label}): /v1/stats replied {status}")
+        stats = json.loads(raw)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        rt.stop()
+        thread.join(timeout=30)
+    check(not thread.is_alive() and rt._thread is None, f"serve ({label}): a thread did not stop")
+
+    answers, stream, gen_s, latency = [], None, None, []
+    for (path, body), (status, raw, secs) in zip(requests, replies):
+        check(status == 200, f"serve ({label}): {path} replied {status}: {raw[:400]!r}")
+        if body.get("stream"):
+            events = [json.loads(line) for line in raw.decode().splitlines() if line.strip()]
+            check(bool(events) and events[-1].get("done") is True
+                  and not any("error" in e for e in events),
+                  f"serve ({label}): the stream ended {events[-1:]}")
+            stream = events[-1]["text"]
+            check("".join(e["text_delta"] for e in events[:-1]) == stream,
+                  f"serve ({label}): the stream's deltas do not add up to its text")
+            latency.append(secs)
+        elif path == "/v1/chat":
+            reply = json.loads(raw)
+            check("error" not in reply and isinstance(reply.get("text"), str),
+                  f"serve ({label}): chat reply {reply}")
+            answers.append(reply["text"])
+            latency.append(secs)
+        else:
+            from PIL import Image
+
+            reply = json.loads(raw)
+            img = np.asarray(Image.open(io.BytesIO(base64.b64decode(reply["image"]))))
+            check(reply["shape"] == [PX, PX] and img.shape == (PX, PX, 3) and img.std() > 0,
+                  f"serve ({label}): generate gave {reply['shape']}, not a {PX} px image")
+            gen_s = secs
+    tokens = [len(a.split()) for a in answers + ([stream] if stream is not None else [])]
+    check(all(n <= SERVE_TOKENS for n in tokens),
+          f"serve ({label}): an answer is longer than {SERVE_TOKENS} tokens: {tokens}")
+    want = dict(chat_done=len(tokens), gen_done=int(gen_s is not None), tokens_out=sum(tokens))
+    got = {k: stats[k] for k in want}
+    check(got == want, f"serve ({label}): /v1/stats {got} != the replies' {want}")
+    decode_s = sum(chunk_s)
+    res = dict(label=label, answers=answers, stream=stream, tokens=tokens, launches=counts,
+               stats=stats, wall_s=wall, peak_gib=peak, cache_gib=cache_gib, gen_s=gen_s,
+               chunks=len(chunk_s), chunk_ms_median=1e3 * float(np.median(chunk_s)),
+               chunk_ms_max=1e3 * max(chunk_s), latency_s_median=float(np.median(latency)),
+               latency_s_max=max(latency), decode_s=decode_s,
+               tokens_per_s=sum(tokens) / decode_s,
+               tokens_per_forward=stats["tokens_out"] / max(stats["decode_forwards"], 1))
+    log(f"[serve] ({label}) {len(requests)} requests in {wall:.2f} s on {slots} slots: "
+        f"{sum(tokens)} tokens, {len(chunk_s)} chunks ({res['chunk_ms_median']:.1f} ms median, "
+        f"{res['chunk_ms_max']:.1f} max), {stats['decode_forwards']} decode forwards, "
+        f"{stats['prefill_blocks']} prefill blocks, {res['tokens_per_s']:.1f} tokens/s over the "
+        f"chunks, latency {res['latency_s_median']:.2f} s median / {res['latency_s_max']:.2f} max"
+        + (f", generate {gen_s:.2f} s" if gen_s is not None else "")
+        + f"; slot cache {cache_gib:.2f} GiB, peak {peak:.2f} GiB; launches {counts}")
+    return res
+
+
+def slot_logits(engine, rows, tamper=None):
+    """A slot cache prefilled as the runtime admits `rows` ((prompt, image)
+    pairs) in one group, then (the first decode step's logits [B, V], a
+    speculative verify block's logits [B, K + 1, V]): the block is each
+    row's start token and K seeded draft tokens, read over the cache
+    without writing it. `tamper(cache)` may alter the prefilled cache
+    first (a control)."""
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.serving.runtime import Future, ServingRuntime, _ChatRequest
+
+    rt = ServingRuntime(engine, slots=len(rows), decode_chunk=SERVE_CHUNK)
+    rt._prefill_rows(list(range(len(rows))),
+                     [_ChatRequest(p, im, SERVE_TOKENS, Future()) for p, im in rows])
+    if tamper is not None:
+        tamper(rt.cache)
+    llm, b, k = engine.params["llm"], len(rows), SERVE_SPECULATIVE
+    draft = torch.randint(engine.cfg.llm.vocab_size, (b, k), device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(SEED + 11))
+    block = torch.cat([engine._tensor([s.next_token for s in rt.slot_state], torch.long)[:, None],
+                       draft], dim=1)
+    pos = engine._tensor([s.next_pos for s in rt.slot_state])[:, None] + torch.arange(
+        k + 1, dtype=torch.int32, device=DEVICE)
+    out = []
+    for t in (1, k + 1):
+        hidden, _ = qwen2.llm_extend(
+            llm, engine.cfg.llm, qwen2.embed_tokens(llm, block[:, :t]), pos[:, :t], rt.cache,
+            engine._tensor([t] * b), und_len=t, causal=True, update_cache=False,
+            attn_impl=engine.attn_impl)
+        out.append(qwen2.lm_logits(llm, hidden.reshape(b * t, -1)).reshape(b, t, -1))
+    del rt, hidden
+    torch.cuda.empty_cache()
+    return out[0][:, 0], out[1]
+
+
+def scales_as_one(row):
+    """A control's tamper: one row's int8 K/V scales taken as 1 over its
+    live keys in every layer (the codes read unscaled)."""
+    def tamper(cache):
+        n = int(cache.length[row])
+        cache.k_scale[:, row, :n] = 1.0
+        cache.v_scale[:, row, :n] = 1.0
+    return tamper
+
+
+def first_difference(a: str, b: str):
+    """The index of the first token where two answers differ, or None."""
+    ta, tb = a.split(), b.split()
+    i = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), min(len(ta), len(tb)))
+    return None if ta == tb else i
+
+
+def phase_serve(engine, card):
+    """Phase 9: the serving path at full width, through the HTTP server.
+    (a) the 8 chats, a streaming chat and a 1024 px generate at once, bf16
+    slot cache; (b) the 8 chats on a second engine over the same parameter
+    tensors with kv_quant=True; (c) the 8 chats with speculative=4; the
+    model gate on a slot cache prefilled as the runtime does; each served
+    answer against the same request alone through __call__ (not gated);
+    one slot against eight."""
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.serving.server import decode_png
+
+    cfg = engine.cfg
+    L = cfg.llm.num_hidden_layers
+    LV = cfg.vit.num_hidden_layers
+    torch.cuda.empty_cache()
+    chats = serve_chats()
+    kv_engine = BagelEngine(engine.params, cfg, engine.tokenizer, engine.new_token_ids,
+                            max_kv=MAX_KV, device=DEVICE, kv_quant=True)
+    extra = [("/v1/chat", dict(prompt=serve_prompts()[2], max_tokens=SERVE_TOKENS, stream=True)),
+             ("/v1/generate", dict(prompt=PROMPT, image_size=PX, seed=SEED, **CFG))]
+
+    runs = {}
+    a = runs["a"] = run_serving(engine, "a: bf16 cache", chats, extra)
+    want = bf16_counts(b1=L * (a["stats"]["prefill_blocks"] + a["stats"]["decode_forwards"]
+                               + 2 + NUM_TIMESTEPS - 1), b3=LV * a["stats"]["vit_passes"])
+    check(a["launches"] == want, f"serve (a) launch counts {a['launches']} != {want} (B1 = "
+          f"{L} x (prefill blocks + decode forwards + the image's 2 + {NUM_TIMESTEPS - 1}), B3 = "
+          f"{LV} x the packed SigLIP passes)")
+    b = runs["b"] = run_serving(kv_engine, "b: int8 cache", chats)
+    want = bf16_counts(b1=L * b["stats"]["prefill_blocks"], b3=LV * b["stats"]["vit_passes"],
+                       kv8=L * b["stats"]["decode_forwards"])
+    check(b["launches"] == want, f"serve (b) launch counts {b['launches']} != {want} (B1 at "
+          f"T = 1 never; B1-kv8 = {L} x the decode steps; B3 = {LV} x the SigLIP passes)")
+    c = runs["c"] = run_serving(engine, f"c: speculative={SERVE_SPECULATIVE}", chats,
+                                speculative=SERVE_SPECULATIVE)
+    want = bf16_counts(b1=L * (c["stats"]["prefill_blocks"] + c["stats"]["decode_forwards"]),
+                       b3=LV * c["stats"]["vit_passes"])
+    check(c["launches"] == want, f"serve (c) launch counts {c['launches']} != {want} (B1 = "
+          f"{L} x (prefill blocks + verify forwards), B3 = {LV} x the SigLIP passes)")
+    check(all(r["stats"]["vit_passes"] >= 1 for r in runs.values()),
+          "serve: a run with two image chats made no packed SigLIP pass")
+    one = run_serving(engine, "one slot", chats[2:3], slots=1)
+    log(f"[serve] decode tokens/s over the chunks: 8 slots {a['tokens_per_s']:.1f} (bf16 cache), "
+        f"{b['tokens_per_s']:.1f} (int8 cache), one slot {one['tokens_per_s']:.1f}; speculative "
+        f"{c['tokens_per_forward']:.2f} tokens per verify forward of 8 rows against "
+        f"{a['tokens_per_forward']:.2f} per plain step")
+
+    # the model gate: the eight rows prefilled as the runtime admits them,
+    # the images center-cropped to SERVE_GATE_PX (the plain path's fp32
+    # scores of a 980 px image block at B = 8 would not fit the card)
+    _, vit_tf = serve_transforms(cfg)
+    rows = []
+    for body in chats:
+        image = None
+        if body.get("image"):
+            full = decode_png(body["image"], vit_tf)
+            o = (full.shape[0] - SERVE_GATE_PX) // 2
+            image = full[o : o + SERVE_GATE_PX, o : o + SERVE_GATE_PX]
+        rows.append((body["prompt"], image))
+    def engine_at(**kw):  # another engine over the same parameter tensors
+        return BagelEngine(engine.params, cfg, engine.tokenizer, engine.new_token_ids,
+                           max_kv=MAX_KV, device=DEVICE, **kw)
+
+    kernels, verify = slot_logits(engine, rows)
+    plain, verify_plain = slot_logits(engine_at(attn_impl="dense"), rows)
+    kv_kernels, kv_verify = slot_logits(kv_engine, rows)
+    kv_plain, kv_verify_plain = slot_logits(engine_at(kv_quant=True, attn_impl="dense"), rows)
+    control, _ = slot_logits(kv_engine, rows, tamper=scales_as_one(0))
+    rels = dict(
+        plain=relative_error(kernels, plain),  # bf16 cache: B1's decode pair and blocks
+        verify=relative_error(verify, verify_plain),  # B1 at T = K + 1
+        kv8_plain=relative_error(kv_kernels, kv_plain),  # int8 cache: B1-kv8
+        kv8_verify=relative_error(kv_verify, kv_verify_plain),  # the dequantized prefix
+        int8=relative_error(kv_kernels, kernels),
+        int8_control=relative_error(control, kernels),
+    )
+    int8_rows = [relative_error(kv_kernels[i], kernels[i]) for i in range(len(rows))]
+    del plain, verify, verify_plain, kv_kernels, kv_verify, kv_plain, kv_verify_plain, control
+    # each row against its own single-session context (update_context_image
+    # and update_context_text, one row through the same kernels): a slot
+    # that took another row's block or rope would be far off
+    rel_rows = []
+    for i, (prompt, image) in enumerate(rows):
+        ctx = engine.init_context()
+        if image is not None:
+            ctx = engine.update_context_image(image, ctx, vae=False, vit=True)
+        ctx = engine.update_context_text(prompt, ctx)
+        rel_rows.append(relative_error(kernels[i : i + 1], first_logits(engine, ctx, "auto")))
+    log(f"[serve] model gate, an 8-row slot cache prefilled as the runtime does ({SERVE_GATE_PX}"
+        f" px images): kernels vs plain rel err of the first decode step's logits "
+        f"{rels['plain']:.3e} (bf16 cache), {rels['kv8_plain']:.3e} (int8 cache), of a "
+        f"verify block's (T = {SERVE_SPECULATIVE + 1}) {rels['verify']:.3e} (bf16), "
+        f"{rels['kv8_verify']:.3e} (int8) (tol {LOGITS_TOL} each); int8 cache vs bf16 cache, "
+        f"both through the kernels, {rels['int8']:.3e} (tol {INT8_KV_LOGITS_TOL}; by row "
+        f"{', '.join(f'{r:.2e}' for r in int8_rows)}), control with row 0's scales taken as 1 "
+        f"{rels['int8_control']:.3e} (must exceed the tol); each row vs its single-session "
+        f"context {', '.join(f'{r:.2e}' for r in rel_rows)} (tol {LOGITS_TOL} each)")
+    for key in ("plain", "verify", "kv8_plain", "kv8_verify"):
+        check(rels[key] <= LOGITS_TOL, f"serve: slot logits ({key}) kernels vs plain rel err "
+              f"{rels[key]:.3e} > {LOGITS_TOL}")
+    check(rels["int8"] <= INT8_KV_LOGITS_TOL,
+          f"serve: int8 vs bf16 slot logits rel err {rels['int8']:.3e} > {INT8_KV_LOGITS_TOL}")
+    check(rels["int8_control"] > INT8_KV_LOGITS_TOL,
+          f"serve: the int8 gate accepts row 0's scales taken as 1 ({rels['int8_control']:.3e})")
+    check(max(rel_rows) <= LOGITS_TOL,
+          f"serve: a slot row's logits vs its single session rel err {max(rel_rows):.3e} > "
+          f"{LOGITS_TOL}")
+
+    # each served answer against the same request alone (reported)
+    alone = []
+    for body in chats:
+        image = decode_png(body["image"], vit_tf) if body.get("image") else None
+        alone.append(engine(image=image, text=body["prompt"], understanding_output=True,
+                            max_think_token_n=SERVE_TOKENS)["text"])
+    parity = {}
+    for key, run in runs.items():
+        diffs = [first_difference(got, ref) for got, ref in zip(run["answers"], alone)]
+        parity[key] = dict(identical=sum(d is None for d in diffs), of=len(diffs),
+                           first_difference=diffs)
+        log(f"[serve] ({run['label']}) answers identical to the request alone through "
+            f"__call__: {parity[key]['identical']} of {len(diffs)}; first differing token "
+            f"{diffs} (not gated: batched bf16 GEMMs may flip near ties)")
+    del kv_engine
+    torch.cuda.empty_cache()
+    summary = {k: {f: v for f, v in r.items() if f not in ("answers", "stream")}
+               for k, r in dict(runs, one=one).items()}
+    gate = dict(logits_rel=rels, int8_rows_rel=int8_rows, row_logits_rel=rel_rows)
+    log(f"[serve] on {card}: " + json.dumps(dict(summary, parity=parity, **gate)))
+    return dict(runs=summary, parity=parity, **gate,
+                launches={k: runs[k]["launches"] for k in runs})
+
+
 def phase_all_kernels():
     """Phase 3 (3a-3e) on the smoke's configuration: (cfg, tokenizer, and
     each sub-phase's result)."""
@@ -2200,13 +2750,15 @@ def phase_all_kernels():
     edit_shapes = dict(vae_t=n_latents(cfg, edit_px) + 2, vit_valid=vit_patches + 2,
                        vit_t=_bucket(vit_patches + 2), q_len=len(tok.encode(EDIT)) + 2)
     return (cfg, tok,
-            phase_kernels(cfg, prompt_len, _bucket(prompt_len), vqa_shapes, edit_shapes),
+            phase_kernels(cfg, prompt_len, _bucket(prompt_len), vqa_shapes, edit_shapes,
+                          serve_admission(cfg, tok)),
             phase_sparse_kernels(vqa_shapes["vit_t"] - 2, n_patches,
                                  cfg.vit.num_attention_heads, cfg.vit.head_dim),
             phase_int8_matmul(cfg, _bucket(prompt_len)),
             phase_quantize_rows(cfg),
             phase_int4_matmul(cfg),
-            phase_flash_q8(cfg, prompt_len, _bucket(prompt_len), vqa_shapes))
+            phase_flash_q8(cfg, prompt_len, _bucket(prompt_len), vqa_shapes),
+            phase_kv8(cfg))
 
 
 def main() -> int:
@@ -2223,7 +2775,8 @@ def main() -> int:
     from bagel_tpu_torch.models.bagel import init_bagel_params
 
     cfg, tok, (worst, shapes), (worst3, main3), b5_rows, quant_rows, \
-        (worst4, b4_rows, b4_token), (worst2, b2_rows, prep_rows) = phase_all_kernels()
+        (worst4, b4_rows, b4_token), (worst2, b2_rows, prep_rows), \
+        (worst_kv8, kv8_main) = phase_all_kernels()
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -2246,6 +2799,8 @@ def main() -> int:
         batch = phase_batch(engine, t2i)
     w8a8 = phase_t2i_w8a8(engine, gen)
     int4 = phase_vqa_int4(engine, card)
+    with flash_int8(False):
+        serve = phase_serve(engine, card)
 
     main_shape = shapes[0]
     decode = next(r for r in shapes if r["T"] == 1)
@@ -2261,7 +2816,8 @@ def main() -> int:
                     t2i_taylorseer_50=taylorseer["taylorseer"]["launches"][key],
                     t2i_50=taylorseer["all full"]["launches"][key],
                     edit=edit["launches"][key], batch=batch["launches"][key],
-                    t2i_w8a8=w8a8["launches"][key], vqa_int4=int4["launches"][key])
+                    t2i_w8a8=w8a8["launches"][key], vqa_int4=int4["launches"][key],
+                    **{f"serve_{k}": counts[key] for k, counts in serve["launches"].items()})
 
     kernels = [
         dict(
@@ -2287,6 +2843,28 @@ def main() -> int:
                                                  "call_ms", "plain_ms", "library_ms",
                                                  "bound_ms", "bound_by")},
             shapes=shapes,
+        ),
+        dict(
+            name="flash_decode_kv8",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/flash_cached_attention.cu",
+            replaces="bagel_tpu/models/qwen2.py:446-452 (the decode attention over the int8 KV "
+                     "cache: XLA fuses the int8 load and the scale multiply; no Pallas kernel)",
+            launches=sum(by_path("kv8").values()),
+            launches_by_path=by_path("kv8"),
+            max_abs_err=worst_kv8,
+            tol=KERNEL_TOL + ", against kv_dequantize + the plain attention; bit-identical to "
+                             "B1's bf16 decode pair on the dequantized view",
+            ms=kv8_main["device_ms"],  # the kernel's time: its device time (split + combine)
+            device_ms=kv8_main["device_ms"],
+            call_ms=kv8_main["call_ms"],
+            plain_ms=kv8_main["plain_ms"],
+            bound_ms=kv8_main["bound_ms"],
+            bound_by=kv8_main["bound_by"],
+            library_ms=None,
+            library="none: no one PyTorch call computes it",
+            shape=kv8_main["shape"],
+            bf16_pair_device_ms=kv8_main["bf16_pair_device_ms"],
         ),
         dict(
             name="sparse_packed_attention",
@@ -2415,7 +2993,7 @@ def main() -> int:
         ),
     ]
     log(json.dumps({"vqa": vqa, "taylorseer": taylorseer, "edit": edit, "batch": batch,
-                    "t2i_w8a8": w8a8, "vqa_int4": int4}))
+                    "t2i_w8a8": w8a8, "vqa_int4": int4, "serve": serve}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

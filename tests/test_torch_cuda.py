@@ -11,6 +11,7 @@ import torch
 
 from bagel_tpu_torch.ops import flash
 from bagel_tpu_torch.ops import sparse_flash
+from bagel_tpu_torch.utils.cuda_graph import kernels_on_card
 
 
 @pytest.mark.cuda
@@ -153,11 +154,9 @@ def test_int4_matmul_deterministic_with_fused_bias_on_card(m, k, n):
     split and where it is not (one scale group), its fused bias epilogue
     equals the unbiased output followed by JAX's rounding, bf16(f32(out) +
     f32(b)), for bf16 and f32 biases, and a biased call runs one kernel on
-    the card (torch.profiler's record)."""
+    the card (the kernel nodes of one call captured in a CUDA graph)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    from torch.profiler import ProfilerActivity, profile
-
     from bagel_tpu_torch.ops import int4_matmul as m4
     from bagel_tpu_torch.utils.quant import quantize_weight_int4
 
@@ -176,10 +175,7 @@ def test_int4_matmul_deterministic_with_fused_bias_on_card(m, k, n):
         torch.cuda.synchronize()
         assert m4.int4_matmul.launches == before + 1
         assert torch.equal(got, (first.float() + b.float()).bfloat16())
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"], b)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = kernels_on_card(lambda: m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"], b))
     assert len(names) == 1 and "int4_matmul_kernel" in names[0], names
 
 
@@ -314,15 +310,8 @@ def test_decode_pair_matches_plain_on_card(past, valid):
 def test_decode_pair_is_two_kernels_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    from torch.profiler import ProfilerActivity, profile
-
     args = _decode_inputs(torch.Generator(device="cuda").manual_seed(8), [500], [1])
-    flash.flash_cached_attention(*args, causal=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flash.flash_cached_attention(*args, causal=True)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = kernels_on_card(lambda: flash.flash_cached_attention(*args, causal=True))
     assert len(names) == 2 and "split" in names[0] and "combine" in names[1], names
 
 
@@ -549,3 +538,78 @@ def _to_cuda(tree):
     if isinstance(tree, list):
         return [_to_cuda(v) for v in tree]
     return tree.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past,valid", [([0], [1]), ([63], [1]), ([4975], [1]),
+                                        ([50, 4000, 0, 1200, 63, 64, 2047, 700],
+                                         [1, 1, 1, 0, 1, 1, 1, 1])])
+def test_decode_kv8_matches_plain_on_card(past, valid):
+    """B1-kv8 (the decode pair over int8 codes and f32 scales) against its
+    plain twin under B1's gate, with NaN scales and random codes past every
+    live end; bit-identical to the bf16 pair on the dequantized view (the
+    split kernel dequantizes as `kv_dequantize` does); one call counts
+    once; a CUDA graph replays it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, s, h, kh = len(past), 8192 if max(past) > 1000 else 1024, 28, 4
+    q = torch.randn((b, 1, h, 128), generator=gen, device="cuda").bfloat16()
+    k8, v8 = (torch.randint(-127, 128, (b, s, kh, 128), generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, s, kh), generator=gen, device="cuda") * 0.05 for _ in range(2))
+    for row, p in enumerate(past):
+        ks[row, p + 1:] = float("nan")
+        vs[row, p + 1:] = float("nan")
+    pl = torch.tensor(past, dtype=torch.int32, device="cuda")
+    vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    before = flash.flash_decode_kv8.launches
+    got = flash.flash_decode_kv8(q, k8, v8, ks, vs, pl, vl)
+    torch.cuda.synchronize()
+    assert flash.flash_decode_kv8.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    _assert_attention_gate(got, flash.flash_decode_kv8_plain(q, k8, v8, ks, vs, pl, vl), valid)
+    kd, vd = flash.kv8_live(k8, v8, ks, vs, pl, vl)
+    assert torch.equal(got, flash.flash_cached_attention(q, kd, vd, pl, vl, causal=True))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash.flash_decode_kv8(q, k8, v8, ks, vs, pl, vl)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
+
+
+@pytest.mark.cuda
+def test_runtime_chat_on_card():
+    """In-process ServingRuntime chats on the card over an int8 slot cache
+    (tiny widths, head dim 128 for the kernels): every prefill block ran B1
+    and every decode forward B1-kv8, once a layer, and the stats count the
+    answers' tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.configs import tiny_bagel, tiny_qwen2
+    from bagel_tpu_torch.data.tokenizer import MockTokenizer
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models.bagel import init_bagel_params
+    from bagel_tpu_torch.serving.runtime import ServingRuntime
+
+    cfg = tiny_bagel(llm=tiny_qwen2(hidden_size=512, num_attention_heads=4,
+                                    num_key_value_heads=2))
+    params = init_bagel_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                               torch.bfloat16, device="cuda")
+    tok = MockTokenizer(cfg.llm.vocab_size)
+    engine = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=512, device="cuda",
+                         kv_quant=True)
+    rt = ServingRuntime(engine, slots=2, decode_chunk=4, max_new_default=8)
+    b1, kv8 = flash.flash_cached_attention.launches, flash.flash_decode_kv8.launches
+    rt.start()
+    try:
+        answers = [rt.submit_chat(p).result(timeout=300) for p in ("hello there", "why?")]
+    finally:
+        rt.stop()
+    assert all(isinstance(a, str) for a in answers)
+    assert rt.stats["chat_done"] == 2
+    assert rt.stats["tokens_out"] == sum(len(a.split()) for a in answers)
+    L = cfg.llm.num_hidden_layers
+    assert flash.flash_cached_attention.launches - b1 == L * rt.stats["prefill_blocks"]
+    assert flash.flash_decode_kv8.launches - kv8 == L * rt.stats["decode_forwards"]

@@ -114,11 +114,16 @@ def test_update_leaves_sibling_context_untouched(setup):
 
 
 def test_later_slices_raise(setup):
-    """Speculative decode is the one engine option still to port (editing
-    and TaylorSeer run: tests/test_torch_edit.py, test_torch_taylorseer.py)."""
+    """What still raises: serving over a mesh (ROADMAP A8). Speculative
+    decode runs (tests/test_torch_speculative.py), as do editing and
+    TaylorSeer (tests/test_torch_edit.py, test_torch_taylorseer.py)."""
+    from bagel_tpu_torch.serving.runtime import ServingRuntime
+
     _, _, _, teng, _ = setup
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        teng(text="x", understanding_output=True, speculative=4)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ServingRuntime(teng, slots=2, mesh=object())
+    kw = dict(understanding_output=True, max_think_token_n=4)
+    assert teng(text="x", speculative=4, **kw) == teng(text="x", **kw)
 
 
 def test_schedule_runs_both_phases():

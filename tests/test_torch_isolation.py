@@ -29,10 +29,18 @@ def test_import_pulls_in_no_jax():
         "assert not bad, bad\n"
         "new = {'bagel_tpu_torch.utils.quant', 'bagel_tpu_torch.ops.int8_matmul',\n"
         "       'bagel_tpu_torch.ops.int4_matmul', 'bagel_tpu_torch.ops.flash',\n"
-        "       'bagel_tpu_torch.inference.taylorseer', 'bagel_tpu_torch.data.transforms'}\n"
+        "       'bagel_tpu_torch.inference.taylorseer', 'bagel_tpu_torch.data.transforms',\n"
+        "       'bagel_tpu_torch.inference.speculative', 'bagel_tpu_torch.serving.runtime',\n"
+        "       'bagel_tpu_torch.serving.server', 'bagel_tpu_torch.serving.app',\n"
+        "       'bagel_tpu_torch.data.bpe', 'bagel_tpu_torch.data.tokenizer',\n"
+        "       'bagel_tpu_torch.utils.convert', 'bagel_tpu_torch.utils.export_hf',\n"
+        "       'bagel_tpu_torch.utils.cuda_graph'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
-        "# the card's machine has no PIL: only resizing a PIL image may import it\n"
-        "assert 'PIL' not in sys.modules, 'a module imports PIL'\n"
+        "# PIL is imported only where an image is resized, decoded or encoded,\n"
+        "# regex only where a BPE tokenizer is built, safetensors only where a\n"
+        "# checkpoint is read or written\n"
+        "for lazy in ('PIL', 'regex', 'safetensors', 'gradio'):\n"
+        "    assert lazy not in sys.modules, f'a module imports {lazy}'\n"
         "print('modules ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -48,6 +56,10 @@ def test_sources_import_no_jax():
     assert PACKAGE / "utils" / "quant.py" in files and PACKAGE / "ops" / "int4_matmul.py" in files
     assert PACKAGE / "inference" / "taylorseer.py" in files
     assert PACKAGE / "data" / "transforms.py" in files
+    for new in ("serving/runtime.py", "serving/server.py", "serving/app.py", "data/bpe.py",
+                "utils/convert.py", "utils/export_hf.py", "inference/speculative.py",
+                "utils/cuda_graph.py"):
+        assert PACKAGE / new in files, new
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
 

@@ -118,10 +118,17 @@ def test_cache_overflow_raises():
 
 
 def test_later_slice_features_raise():
-    """The int8 KV cache comes with the decode and serving slice; quantized
-    weight leaves are ported (tests/test_torch_quant.py)."""
+    """What still raises: weight sharding over a mesh (ROADMAP A8), here
+    through the serving app's --mesh. The int8 KV cache is ported
+    (tests/test_torch_kv_quant.py), and so are quantized weight leaves
+    (tests/test_torch_quant.py)."""
+    from bagel_tpu_torch.serving import app
+
     cfg = tiny_qwen2()
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        tq.kv_cache_init(cfg, 1, 8, torch.int8, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        app.build_engine(app.parse_args(["--device", "cpu", "--mesh", "1,2,1"]))
+    cache = tq.kv_cache_init(cfg, 1, 8, torch.int8, device="cpu")
+    assert cache.k.dtype == torch.int8 and cache.k_scale.shape == (cfg.num_hidden_layers, 1, 8,
+                                                                   cfg.num_key_value_heads)
     leaf = {"w_q": torch.full((4, 3), 2, dtype=torch.int8), "scale": torch.ones(3)}
     assert torch.equal(tq._linear(torch.ones(2, 4), leaf), torch.full((2, 3), 8.0))
