@@ -10,9 +10,13 @@ data/transforms.py:15-115).
   (mean 0.5, std 0.5) to [-1, 1]; an HWC array is taken as already in
   [-1, 1] and cropped to stride multiples.
 - pil_img2rgb: RGB of a PIL image, a transparent one laid on white.
+- The training pipeline's helpers (bagel_tpu/data/transforms.py:105-203):
+  `patchify_image`, the corruption augmentations for editing-style data
+  (decolorization, downscale, gaussian_blur, shuffle_patch,
+  inpainting_mask), `split_integer_exp_decay` and `len2weight`.
 
 The output is HWC float32, the engine's image layout. PIL is imported only
-where a PIL image is resized: the array path needs numpy alone.
+where a PIL image is made or changed: the array path needs numpy alone.
 """
 
 from __future__ import annotations
@@ -111,3 +115,110 @@ def pil_img2rgb(image):
         white.paste(image, mask=image.split()[3])
         return white
     return image.convert("RGB")
+
+
+def patchify_image(image: np.ndarray, patch_size: int) -> np.ndarray:
+    """HWC image -> [num_patches, p*p*c] rows in (p, q, c) order
+    (data_utils.py:43-50 layout parity)."""
+    h, w, c = image.shape
+    p = patch_size
+    assert h % p == 0 and w % p == 0, (h, w, p)
+    x = image.reshape(h // p, p, w // p, p, c).transpose(0, 2, 1, 3, 4)
+    return x.reshape(-1, p * p * c)
+
+
+# ---------------------------------------------------------------------------
+# Corruption augmentations for editing-style training (reference
+# data/transforms.py:118-287 family) — PIL/numpy implementations.
+# ---------------------------------------------------------------------------
+
+
+def decolorization(image):
+    from PIL import Image
+
+    gray = image.convert("L")
+    if image.mode in ("RGB", "L"):
+        return Image.merge(image.mode, [gray] * (3 if image.mode == "RGB" else 1))
+    return gray
+
+
+def downscale(image, factor: float = 4.0):
+    """Blur-via-resample corruption (downscale then upscale)."""
+    from PIL import Image
+
+    w, h = image.size
+    small = image.resize((max(1, int(w / factor)), max(1, int(h / factor))),
+                         Image.BILINEAR)
+    return small.resize((w, h), Image.BILINEAR)
+
+
+def gaussian_blur(image, radius: float = 5.0):
+    from PIL import ImageFilter
+
+    return image.filter(ImageFilter.GaussianBlur(radius))
+
+
+def shuffle_patch(image, grid: int = 4, rng: "np.random.Generator" = None):
+    """Split into grid x grid patches and permute them."""
+    from PIL import Image
+
+    rng = rng or np.random.default_rng(0)
+    arr = np.asarray(image)
+    h, w = arr.shape[:2]
+    ph, pw = h // grid, w // grid
+    arr = arr[: ph * grid, : pw * grid]
+    tiles = arr.reshape(grid, ph, grid, pw, -1).transpose(0, 2, 1, 3, 4)
+    tiles = tiles.reshape(grid * grid, ph, pw, -1)
+    tiles = tiles[rng.permutation(grid * grid)]
+    out = tiles.reshape(grid, grid, ph, pw, -1).transpose(0, 2, 1, 3, 4)
+    out = out.reshape(ph * grid, pw * grid, -1)
+    return Image.fromarray(out.squeeze())
+
+
+def inpainting_mask(image, num_boxes: int = 3, max_frac: float = 0.4,
+                    rng: "np.random.Generator" = None):
+    """Black out random rectangles (inpainting-source corruption)."""
+    from PIL import Image
+
+    rng = rng or np.random.default_rng(0)
+    arr = np.asarray(image).copy()
+    h, w = arr.shape[:2]
+    for _ in range(num_boxes):
+        bh = int(rng.integers(h // 8, max(h // 8 + 1, int(h * max_frac))))
+        bw = int(rng.integers(w // 8, max(w // 8 + 1, int(w * max_frac))))
+        y = int(rng.integers(0, max(1, h - bh)))
+        x = int(rng.integers(0, max(1, w - bw)))
+        arr[y : y + bh, x : x + bw] = 0
+    return Image.fromarray(arr)
+
+
+def split_integer_exp_decay(total: int, decay: float = 1.0,
+                            rng=None) -> Tuple[list, list]:
+    """Split `total` into N random parts, N drawn uniformly (decay 1.0) or
+    exponentially decayed (data_utils.py:106-115). Returns (parts, cumsum)."""
+    import math
+    import random as pyrandom
+
+    rng = rng or pyrandom
+    if decay == 1.0:
+        n = rng.randint(1, total)
+    else:
+        base = (1 - decay) / (1 - math.pow(decay, total))
+        probs = [base * math.pow(decay, i) for i in range(total)]
+        n = rng.choices(list(range(1, total + 1)), probs, k=1)[0]
+    cuts = [0] + sorted(rng.sample(range(1, total), n - 1)) + [total]
+    parts = [cuts[i + 1] - cuts[i] for i in range(len(cuts) - 1)]
+    return parts, cuts
+
+
+def len2weight(x: int, loss_reduction: str = "square") -> float:
+    """CE loss reweighting by split length (data_utils.py:168-177)."""
+    if x == 0:
+        return x
+    if loss_reduction == "token":
+        return 1.0
+    if loss_reduction == "sample":
+        return 1.0 / x
+    if loss_reduction == "square":
+        return 1.0 / (x**0.5)
+    raise NotImplementedError(loss_reduction)

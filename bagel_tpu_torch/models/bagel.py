@@ -3,13 +3,16 @@
 Adapters and helpers of the inference paths: the ViT -> LLM connector and
 `encode_vit_tokens` (understanding), the timestep embedder, the latent <->
 LLM projections, latent patchify, the shifted denoise schedule and
-classifier-free-guidance combination (generation). The packed training
-forward comes with the training slice.
+classifier-free-guidance combination (generation). Training:
+`PackedTrainBatch` (one packed multi-sample sequence) and
+`bagel_forward_train`, which assembles the sequence, runs the packed MoT
+forward and returns per-element losses.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +22,7 @@ from bagel_tpu_torch.configs import BagelConfig
 from bagel_tpu_torch.models import qwen2
 from bagel_tpu_torch.models.siglip import init_siglip_params, siglip_encode
 from bagel_tpu_torch.models.vae import init_vae_params
+from bagel_tpu_torch.ops.attention import train_packed_mask
 from bagel_tpu_torch.ops.embeds import sincos_2d_grid, timestep_embedding
 from bagel_tpu_torch.utils.device import resolve_device
 
@@ -186,3 +190,148 @@ def cfg_combine(
     if cfg_renorm_type == "channel":
         return renorm(v_cond, v_t, per_token=True)
     raise NotImplementedError(cfg_renorm_type)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PackedTrainBatch:
+    """One packed multi-sample training sequence (the JAX dataclass's fields;
+    numpy arrays or tensors).
+
+    Scatter indexes into a fixed-length buffer plus mask metadata replace the
+    reference's dict of index lists (bagel.py:101-150). Padding convention:
+    the indexes of padded entries point at slot `seq_len - 1`, a sink with
+    document_id 0 and zero loss weight."""
+
+    # text
+    text_ids: torch.Tensor  # [n_text] int32
+    text_idx: torch.Tensor  # [n_text] scatter positions into the sequence
+    # vit (may be empty)
+    vit_patches: torch.Tensor  # [n_vit, vit_patch_dim]
+    vit_pos_ids: torch.Tensor  # [n_vit]
+    vit_seg_ids: torch.Tensor  # [n_vit] image index (1-based), 0 = pad
+    vit_idx: torch.Tensor  # [n_vit]
+    # vae/gen (may be empty); clean latent patches, patchified
+    vae_patches: torch.Tensor  # [n_vae, patch_latent_dim]
+    vae_pos_ids: torch.Tensor  # [n_vae]
+    vae_idx: torch.Tensor  # [n_vae]
+    vae_timesteps: torch.Tensor  # [n_vae] raw (pre-sigmoid) flow timesteps
+    # sequence metadata
+    position_ids: torch.Tensor  # [S]
+    document_id: torch.Tensor  # [S] int32, 0 = pad
+    fan_id: torch.Tensor  # [S] full-and-noise split id, -1 elsewhere
+    noise_id: torch.Tensor  # [S] noise split id, -1 elsewhere
+    gen_mask: torch.Tensor  # [S] bool
+    # losses
+    ce_idx: torch.Tensor  # [n_ce] sequence positions with CE loss
+    ce_labels: torch.Tensor  # [n_ce]
+    ce_weight: torch.Tensor  # [n_ce] float (len2weight * valid)
+    mse_weight: torch.Tensor  # [n_vae] float (1.0 where this vae token has loss)
+
+    @property
+    def seq_len(self) -> int:
+        return self.position_ids.shape[-1]
+
+    def map(self, fn) -> "PackedTrainBatch":
+        """A batch with fn applied to every field."""
+        return PackedTrainBatch(**{f.name: fn(getattr(self, f.name))
+                                   for f in dataclasses.fields(self)})
+
+    def to(self, device) -> "PackedTrainBatch":
+        """Every field as a tensor on `device` (numpy fields converted)."""
+        return self.map(lambda x: torch.as_tensor(x).to(device))
+
+    def row(self, b: int) -> "PackedTrainBatch":
+        """Row b of a stacked batch (leading batch axis on every field)."""
+        return self.map(lambda x: x[b])
+
+
+def bagel_forward_train(
+    params: dict,
+    cfg: BagelConfig,
+    batch: PackedTrainBatch,
+    noise: torch.Tensor,  # [n_vae, patch_latent_dim] flow noise
+    attn_chunk=None,
+    context_parallel=None,
+    sparse_block=None,
+    expert_parallel=None,
+    remat="full",
+) -> Dict[str, torch.Tensor]:
+    """Packed training forward -> per-element losses (upstream
+    Bagel.forward, bagel.py:101-229): text embeds, ViT embeds and noised
+    VAE latents scattered into one sequence; the packed mask; the MoT LLM;
+    CE on ce_idx positions against the labels, MSE against (noise - x0) on
+    vae tokens with timestep > 0.
+
+    Returns 'ce' [n_ce], 'ce_weight', and with VAE tokens 'mse' [n_vae, pd]
+    and 'mse_weight'; the weights zero out padding and no-loss entries, and
+    the reduction happens in the train step (global token counts).
+    `expert_parallel` raises (ROADMAP A8)."""
+    if expert_parallel is not None:
+        raise NotImplementedError(
+            "expert_parallel (the MoT experts sharded over two devices) waits "
+            "for the parallel slice of the port (ROADMAP A8)"
+        )
+    seq, timesteps = _assemble_train_seq(params, cfg, batch, noise)
+    if attn_chunk is None and context_parallel is None and sparse_block is None:
+        mask = train_packed_mask(batch.document_id, batch.fan_id, batch.noise_id)
+        meta = None
+    else:  # long sequences: no dense [S, S] mask
+        mask = None
+        meta = (batch.document_id, batch.fan_id, batch.noise_id)
+    hidden = qwen2.llm_forward_train(
+        params["llm"], cfg.llm, seq, batch.position_ids, mask, batch.gen_mask,
+        remat=remat, mask_meta=meta, attn_chunk=attn_chunk,
+        context_parallel=context_parallel, sparse_block=sparse_block,
+    )
+    return _train_heads(params, cfg, batch, noise, hidden, timesteps)
+
+
+def _assemble_train_seq(params, cfg: BagelConfig, batch: PackedTrainBatch, noise):
+    """Scatter text embeds, ViT embeds and noised VAE latents into one packed
+    [S, d] sequence (upstream bagel.py:151-197). Returns (seq, timesteps)."""
+    s = batch.seq_len
+    emb = params["llm"]["embed"]
+    seq = emb.new_zeros((s, cfg.llm.hidden_size))
+    seq = seq.index_put((batch.text_idx.long(),),
+                        qwen2.embed_tokens(params["llm"], batch.text_ids.long()).to(seq.dtype))
+
+    if cfg.visual_und and batch.vit_patches.shape[0] > 0:
+        vit_emb = encode_vit_tokens(params, cfg, batch.vit_patches.to(seq.dtype),
+                                    batch.vit_pos_ids, batch.vit_seg_ids)
+        seq = seq.index_put((batch.vit_idx.long(),), vit_emb.to(seq.dtype))
+
+    timesteps = None
+    if cfg.visual_gen and batch.vae_patches.shape[0] > 0:
+        # sigmoid + shift of the raw timesteps (upstream bagel.py:191-192)
+        tt = torch.sigmoid(batch.vae_timesteps)
+        ts = cfg.timestep_shift
+        timesteps = ts * tt / (1 + (ts - 1) * tt)
+        x0 = batch.vae_patches
+        x_t = (1 - timesteps[:, None]) * x0 + timesteps[:, None] * noise
+        lat_emb = latent_to_llm(params, cfg, x_t.to(seq.dtype), timesteps,
+                                batch.vae_pos_ids.long())
+        seq = seq.index_put((batch.vae_idx.long(),), lat_emb.to(seq.dtype))
+    return seq, timesteps
+
+
+def _train_heads(params, cfg: BagelConfig, batch: PackedTrainBatch, noise, hidden,
+                 timesteps) -> Dict[str, torch.Tensor]:
+    """Loss heads over the final hidden states: llm2vae -> per-element MSE
+    against (noise - x0) on vae tokens, lm_head -> per-token CE on ce_idx
+    positions (upstream bagel.py:217-229)."""
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.visual_gen and batch.vae_patches.shape[0] > 0:
+        v_pred = _linear(hidden[batch.vae_idx.long()], params["llm2vae"])
+        target = noise - batch.vae_patches  # v = x1 - x0 (upstream bagel.py:220)
+        out["mse"] = (v_pred.float() - target) ** 2
+        out["mse_weight"] = batch.mse_weight * (timesteps > 0)
+    logits = qwen2.lm_logits(params["llm"], hidden[batch.ce_idx.long()])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    out["ce"] = -logp.gather(1, batch.ce_labels.long()[:, None])[:, 0]
+    out["ce_weight"] = batch.ce_weight
+    return out

@@ -37,20 +37,37 @@
   `ops.int4_matmul` for at most 64 activation rows on CUDA (decode) and
   dequantizes otherwise, as the JAX package does.
 
-Training comes with a later slice.
+Training (`llm_forward_train`): the packed multi-sample forward of the MoT
+stack over one sequence, with its four attention choices (a dense [S, S]
+mask, `attn_chunk`, `sparse_block` through the block-sparse kernel with its
+gradient, `context_parallel`, which waits for ROADMAP A8), per-layer
+activation checkpointing (`remat`) and `freeze_und`. Each expert runs over
+its own tokens only (gathered by index and merged back, the reference's
+formulation, qwen2_navit.py:713-755), where JAX runs both experts over every
+token and selects; the values per token are the same, at half the
+projection and FFN products. `freeze_und` detaches the und tokens'
+contributions at JAX's points.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from bagel_tpu_torch.configs import Qwen2Config
 from bagel_tpu_torch.ops import flash
+from bagel_tpu_torch.ops.attention import dot_attention
+from bagel_tpu_torch.ops.chunked import chunked_packed_attention
 from bagel_tpu_torch.ops.flash import (
     flash_cached_attention,
     flash_cached_attention_plain,
@@ -62,6 +79,7 @@ from bagel_tpu_torch.ops.int4_matmul import int4_gemv_eligible, int4_matmul
 from bagel_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
 from bagel_tpu_torch.ops.norms import rms_norm
 from bagel_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from bagel_tpu_torch.ops.sparse_flash import kernel_tables, sparse_packed_attention_train
 from bagel_tpu_torch.utils.device import resolve_device
 from bagel_tpu_torch.utils.quant import dequantize_weight4, is_kmajor
 
@@ -566,6 +584,210 @@ def lm_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
         out = torch.mm(hidden.reshape(-1, hidden.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(lead + (w.shape[-1],))
     return torch.matmul(hidden.float(), w.float())
+
+
+# ---------------------------------------------------------------------------
+# Packed training forward
+# ---------------------------------------------------------------------------
+
+
+def _select(gen_mask, gen_val, und_val):
+    """gen_val on gen tokens, und_val elsewhere (rows of [S, ...])."""
+    mask = gen_mask.reshape(gen_mask.shape + (1,) * (gen_val.ndim - 1))
+    return torch.where(mask, gen_val, und_val)
+
+
+def _by_expert(rows, x, fn_und, fn_gen):
+    """fn_und over x's und rows and fn_gen over its gen rows (`rows` = (und,
+    gen) index tensors), merged back into [S, ...]. fn_* return a tensor or
+    a tuple of tensors."""
+    und, gen = rows
+    ou, og = fn_und(x.index_select(0, und)), fn_gen(x.index_select(0, gen))
+    single = torch.is_tensor(ou)
+    if single:
+        ou, og = (ou,), (og,)
+    merged = tuple(
+        u.new_empty((x.shape[0],) + u.shape[1:]).index_copy(0, und, u)
+        .index_copy(0, gen, g.to(u.dtype))
+        for u, g in zip(ou, og)
+    )
+    return merged[0] if single else merged
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing: keep the outputs of the 2-D products (the
+    projections; JAX's dots_with_no_batch_dims_saveable), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(body, remat):
+    """Per-layer activation checkpointing of `body` (the reference wraps its
+    decoder layers in apply_activation_checkpointing NO_REENTRANT,
+    pretrain_unified_navit.py:567-573).
+
+    remat: True/"full" saves only the layer's input and recomputes the
+    layer in the backward (`torch.utils.checkpoint`, use_reentrant=False);
+    "dots" keeps the projection products' outputs and recomputes the rest
+    (selective checkpointing); False/None/"none" keeps every activation."""
+    if remat in (False, None, "none"):
+        return body
+    if remat in (True, "full"):
+        return lambda *a: checkpoint(body, *a, use_reentrant=False)
+    if remat == "dots":
+        ctx = partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *a: checkpoint(body, *a, use_reentrant=False, context_fn=ctx)
+    raise ValueError(f"remat must be full|dots|none, got {remat!r}")
+
+
+def _train_attend(mask, mask_meta, attn_chunk, sparse_block, context_parallel, device):
+    """The attention of the packed forward: q [S, H, D], k, v [S, KH, D] ->
+    [S, H, D]."""
+    if context_parallel is not None:
+        raise NotImplementedError(
+            "context_parallel (ring attention over a sequence-sharded mesh) "
+            "waits for the parallel slice of the port (ROADMAP A8)"
+        )
+    if sparse_block is not None:
+        if mask_meta is None:
+            raise ValueError("sparse_block needs mask_meta = (document_id, fan_id, noise_id)")
+        ids = tuple(t.to(torch.int32).contiguous() for t in mask_meta)
+        # the kernel's tables depend on the ids alone: built once for every
+        # layer and for the remat recompute
+        tables = kernel_tables(*ids) if device.type == "cuda" else None
+        return lambda q, k, v: sparse_packed_attention_train(q, k, v, *ids, tables=tables)
+    if attn_chunk is not None:
+        if mask_meta is None:
+            raise ValueError("attn_chunk needs mask_meta = (document_id, fan_id, noise_id)")
+        return lambda q, k, v: chunked_packed_attention(q, k, v, *mask_meta, chunk=attn_chunk)
+    if mask is None:
+        raise ValueError("the dense attention path needs the [S, S] mask")
+    return lambda q, k, v: dot_attention(q[None], k[None], v[None], mask=mask[None])[0]
+
+
+def llm_forward_train(
+    params: dict,
+    cfg: Qwen2Config,
+    packed: torch.Tensor,  # [S, d] assembled embeddings
+    position_ids: torch.Tensor,  # [S]
+    mask: Optional[torch.Tensor],  # [S, S] bool (train_packed_mask) or None
+    gen_mask: torch.Tensor,  # [S] bool, True = gen-expert (VAE) token
+    remat="full",
+    mask_meta: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    attn_chunk: Optional[int] = None,
+    context_parallel=None,
+    sparse_block: Optional[int] = None,
+) -> torch.Tensor:
+    """Training forward over one packed multi-sample sequence -> final
+    hidden states [S, d] (post final norm, per expert).
+
+    Attention: `mask` (dense [S, S]) for moderate S; for long packed
+    sequences mask_meta = (document_id, fan_id, noise_id) with `attn_chunk`
+    (chunked, plain PyTorch) or `sparse_block` (the block-sparse kernel
+    B3 on CUDA, whose tiles are fixed at 128: the value only selects the
+    path). `context_parallel` raises (ROADMAP A8)."""
+    hd = cfg.head_dim
+    gen_mask = gen_mask.bool()
+    rows = (torch.nonzero(~gen_mask)[:, 0], torch.nonzero(gen_mask)[:, 0])
+    cos, sin = rope_cos_sin(position_ids, hd, cfg.rope_theta)
+    attend = _train_attend(mask, mask_meta, attn_chunk, sparse_block, context_parallel,
+                           packed.device)
+
+    def freeze_und(z):
+        return _select(gen_mask, z, z.detach()) if cfg.freeze_und else z
+
+    x = freeze_und(packed)
+    layers = params["layers"]
+    per_layer = [{} for _ in range(cfg.num_hidden_layers)]
+    _unbind_into(layers, per_layer)  # one autograd node per stacked leaf
+
+    def body(x, lp):
+        return train_layer_block(cfg, lp, x, attend, rows, cos, sin)
+
+    body = remat_wrap(body, remat)
+    for lp in per_layer:
+        x = body(x, lp)
+
+    eps = cfg.rms_norm_eps
+    if cfg.use_moe:
+        return _select(gen_mask, rms_norm(x, params["final_norm_gen"], eps),
+                       freeze_und(rms_norm(x, params["final_norm"], eps)))
+    return rms_norm(x, params["final_norm"], eps)
+
+
+def _unbind_into(tree: dict, out: list) -> None:
+    """Split every stacked [L, ...] leaf of `tree` into per-layer dicts."""
+    def walk(node, dst_path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, dst_path + (k,))
+                continue
+            for i, t in enumerate(v.unbind(0)):
+                d = out[i]
+                for key in dst_path:
+                    d = d.setdefault(key, {})
+                d[k] = t
+    walk(tree, ())
+
+
+def train_layer_block(cfg: Qwen2Config, lp: dict, x, attend, rows, cos, sin):
+    """One decoder layer of the packed training forward: pre-norm attention
+    and FFN, each expert over its own rows (`rows` = (und, gen) indexes).
+    With cfg.freeze_und the und rows' contributions are detached at JAX's
+    points: v, the normed q and k (qk_norm), the output projection and the
+    FFN."""
+    s = x.shape[0]
+    h, kh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    mot = cfg.layer_module == "mot"
+    eps = cfg.rms_norm_eps
+    fz = (lambda t: t.detach()) if cfg.freeze_und else (lambda t: t)
+    attn_u = lp["attn"]
+    attn_g = lp["attn_gen"] if mot else lp["attn"]
+
+    def qknorm(z, w):
+        return rms_norm(z.float(), w, eps)
+
+    def expert_qkv(ln, attn, freeze):
+        def fn(xr):
+            q, k, v = _proj_qkv(rms_norm(xr, ln, eps), attn, h, kh, hd)
+            if cfg.qk_norm:
+                q, k = freeze(qknorm(q, attn["q_norm"])), freeze(qknorm(k, attn["k_norm"]))
+            return q, k, freeze(v)
+        return fn
+
+    res = x
+    if mot:
+        q, k, v = _by_expert(rows, x, expert_qkv(lp["input_ln"], attn_u, fz),
+                             expert_qkv(lp["input_ln_gen"], attn_g, lambda t: t))
+    else:
+        q, k, v = _proj_qkv(rms_norm(x, lp["input_ln"], eps), attn_u, h, kh, hd)
+        if cfg.qk_norm:
+            q, k = qknorm(q, attn_u["q_norm"]), qknorm(k, attn_u["k_norm"])
+
+    q, k = apply_rope(q, k, cos, sin)
+    att = attend(q.to(v.dtype), k.to(v.dtype), v).reshape(s, h * hd)
+    if mot:
+        o = _by_expert(rows, att, lambda a: fz(_linear(a, attn_u["o"])),
+                       lambda a: _linear(a, attn_g["o"]))
+    else:
+        o = _linear(att, attn_u["o"])
+    x = res + o.to(res.dtype)
+
+    res = x
+
+    def ffn(mlp, pln, freeze=lambda t: t):
+        def fn(xr):
+            z = rms_norm(xr, pln, eps)
+            return freeze(_linear(_ffn_mix(z, mlp), mlp["down"]))
+        return fn
+
+    if cfg.use_moe:
+        pln_g = lp["post_ln_gen"] if mot else lp["post_ln"]
+        m = _by_expert(rows, x, ffn(lp["mlp"], lp["post_ln"], fz), ffn(lp["mlp_gen"], pln_g))
+    else:
+        m = ffn(lp["mlp"], lp["post_ln"])(x)
+    return res + m.to(res.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ learned table when `cfg.rope` is False.
 
 Attention: on a CUDA tensor with attn_impl="auto" (or "flash") every layer
 runs the hand-written block-sparse kernel (`ops.sparse_flash`, kernel B3)
-through `segment_flash_attention`; the O(N^2) segment mask is never built.
+through `segment_flash_attention`, with a gradient; the O(N^2) segment
+mask is never built.
 On the CPU, and with attn_impl="dense", it takes `segment_mask` +
 `dot_attention`.
 """
@@ -22,7 +23,7 @@ from bagel_tpu_torch.configs import SiglipConfig
 from bagel_tpu_torch.ops.attention import dot_attention, segment_mask
 from bagel_tpu_torch.ops.norms import layer_norm
 from bagel_tpu_torch.ops.rope import apply_rope_2d, rope_2d_tables
-from bagel_tpu_torch.ops.sparse_flash import kernel_tables, sparse_packed_attention
+from bagel_tpu_torch.ops.sparse_flash import kernel_tables, sparse_packed_attention_train
 from bagel_tpu_torch.utils.device import resolve_device
 
 
@@ -46,9 +47,12 @@ def segment_flash_attention(
     document_id = fan_id = segment_ids and noise_id = -1 it is exactly
     `same_segment & segment != 0`. Padded rows (segment 0) give 0. The
     kernel takes any N, so nothing is padded around the call. `tables`: the
-    kernel's tables of these ids, shared by the tower's layers."""
-    return sparse_packed_attention(q, k, v, *segment_ids_for_kernel(segment_ids),
-                                   tables=tables)
+    kernel's tables of these ids, shared by the tower's layers.
+    Differentiable (`sparse_packed_attention_train`: the backward recomputes
+    through the chunked path), so the packed training forward trains the
+    tower through it."""
+    return sparse_packed_attention_train(q, k, v, *segment_ids_for_kernel(segment_ids),
+                                         tables=tables)
 
 
 def _dense(generator, d_in, d_out, dtype, device, std=0.02):

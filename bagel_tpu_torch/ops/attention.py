@@ -4,7 +4,8 @@
 against: fp32 logits and softmax, GQA by reshape. Mask builders (bool, True
 = may attend): `cache_block_mask` (a block over a KV buffer),
 `segment_mask` (the ViT's per-image full attention) and `train_packed_mask`
-(the packed causal/full/noise/document predicate).
+(the packed causal/full/noise/document predicate); `mask_to_bias` turns a
+mask into an additive bias.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+NEG_INF = float("-inf")
 
 
 def dot_attention(
@@ -33,7 +36,7 @@ def dot_attention(
     Both products take inputs of the working dtype and give fp32 results
     (the inputs are upcast: a bf16 torch.matmul would round its output to
     bf16). The probabilities are cast to v.dtype before the PV product.
-    Rows with no visible key give 0, not NaN. Returns [B, Sq, H, D] in
+    Rows with no visible key give 0, not NaN (and a zero gradient). Returns [B, Sq, H, D] in
     q.dtype.
     """
     b, sq, h, d = q.shape
@@ -51,7 +54,10 @@ def dot_attention(
         logits.masked_fill_(~mask[:, None, None], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     del logits
-    probs.nan_to_num_(nan=0.0)  # softmax over an all -inf row
+    if probs.requires_grad:  # softmax's backward reads its output: no in-place edit
+        probs = probs.nan_to_num(nan=0.0)
+    else:
+        probs.nan_to_num_(nan=0.0)  # softmax over an all -inf row
     out = torch.einsum(
         "bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(), v.float()
     )
@@ -119,3 +125,9 @@ def train_packed_mask(
     doc_q = document_id[:, None]
     same_doc = (doc_q == document_id[None, :]) & (doc_q != 0)
     return same_doc & ((i >= j) | same_fan) & remove_noise
+
+
+def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """bool mask -> additive bias (0 / NEG_INF), the reference's
+    nested_attention_masks representation (upstream data_utils.py:99-101)."""
+    return torch.where(mask, 0.0, NEG_INF).to(dtype)

@@ -14,9 +14,14 @@ hand-written Hopper kernel `csrc/sparse_packed_attention.cu` (bf16, head dim
 72 or 128; TMA and wgmma) over that table at the kernel's tiles, 128 query
 rows by 128 keys (`kernel_tables`, which also flags the tiles whose every
 pair is visible), or raises; it takes the plain version
-`sparse_packed_attention_plain` only for CPU tensors. The forward only: the
-backward (a recompute through the chunked path in JAX) comes with the
-training slice.
+`sparse_packed_attention_plain` only for CPU tensors.
+
+`sparse_packed_attention_train` is the same attention with a gradient (the
+JAX package's `custom_vjp`): its forward is the call above, its backward
+recomputes the function through the chunked path (`ops.chunked`) one query
+chunk of `bwd_chunk` rows at a time, each against the keys of its rows'
+documents, and takes that recompute's VJP, so memory stays O(chunk * S).
+The ids get no gradient.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from bagel_tpu_torch.ops import _build
 from bagel_tpu_torch.ops.attention import dot_attention, train_packed_mask
+from bagel_tpu_torch.ops.chunked import chunk_attention, key_ranges
 
 KERNEL = "sparse_packed_attention"
 BLOCK_Q = 128  # query rows per tile, compiled into the kernel
@@ -262,3 +268,78 @@ def sparse_packed_attention(
 
 
 sparse_packed_attention.launches = 0
+
+
+BWD_CHUNK = 512  # query rows per chunk of the backward's recompute (JAX's bwd_chunk)
+
+
+class _SparsePackedAttention(torch.autograd.Function):
+    """Forward: `sparse_packed_attention` (the kernel on CUDA, its plain
+    version on the CPU). Backward: the VJP of the chunked recompute."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, document_id, fan_id, noise_id, scale, tables, bwd_chunk):
+        ctx.save_for_backward(q, k, v, document_id, fan_id, noise_id)
+        ctx.scale, ctx.bwd_chunk = scale, bwd_chunk
+        return sparse_packed_attention(q, k, v, document_id, fan_id, noise_id,
+                                       scale=scale, tables=tables)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, doc, fan, noi = ctx.saved_tensors
+        # rows of padding (document 0) take part in no pair: zeroed, so that
+        # whatever they hold (stale NaN) cannot reach a product (0 * NaN)
+        live = (doc != 0)[:, None, None]
+        q, k, v = (torch.where(live, t, 0) for t in (q, k, v))
+        s, h, d = q.shape
+        kh = k.shape[1]
+        chunk = ctx.bwd_chunk
+        pos = torch.arange(s, dtype=torch.int32, device=q.device)
+        qg = q.reshape(s, kh, h // kh, d)
+        g = g.reshape(s, h, d)
+        dq = torch.empty_like(q)
+        with torch.enable_grad():
+            # fp32 leaves: dK and dV sum over the chunks (and a group's query
+            # heads) in fp32, cast once at the end
+            kf = k.detach().float().requires_grad_()
+            vf = v.detach().float().requires_grad_()
+            for lo, (k_lo, k_hi) in zip(range(0, s, chunk), key_ranges(doc, chunk)):
+                sl, ks = slice(lo, lo + chunk), slice(k_lo, k_hi)
+                if k_hi <= k_lo:  # padding rows only: no pair, no gradient
+                    dq[sl] = 0
+                    continue
+                q_blk = qg[sl].detach().requires_grad_()
+                out = chunk_attention(q_blk, kf[ks], vf[ks], doc[sl], fan[sl], noi[sl],
+                                      pos[sl], doc[ks], fan[ks], noi[ks], ctx.scale, q.dtype,
+                                      k_lo)
+                torch.autograd.backward(out, g[sl], inputs=[q_blk, kf, vf])
+                dq[sl] = q_blk.grad.reshape(-1, h, d)
+        dk = kf.grad.to(k.dtype) if kf.grad is not None else torch.zeros_like(k)
+        dv = vf.grad.to(v.dtype) if vf.grad is not None else torch.zeros_like(v)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def sparse_packed_attention_train(
+    q: torch.Tensor,  # [S, H, D]
+    k: torch.Tensor,  # [S, KH, D]
+    v: torch.Tensor,
+    document_id: torch.Tensor,  # [S] int32
+    fan_id: torch.Tensor,
+    noise_id: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    bwd_chunk: int = BWD_CHUNK,
+) -> torch.Tensor:
+    """`sparse_packed_attention` with a gradient for q, k and v. The forward
+    launches the kernel on CUDA tensors (or raises, as the forward-only
+    call does) and takes the plain version on CPU tensors; the backward is
+    the VJP of `ops.chunked`'s function recomputed in chunks of `bwd_chunk`
+    query rows (the last one shorter where `bwd_chunk` does not divide S:
+    JAX's scan needs equal chunks and recomputes all S rows at once there,
+    the same VJP at O(S^2) memory). `tables` as for
+    `sparse_packed_attention`: built once and shared by the layers that use
+    the same ids (and by a remat recompute)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _SparsePackedAttention.apply(q, k, v, document_id, fan_id, noise_id,
+                                        scale, tables, bwd_chunk)

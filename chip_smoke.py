@@ -118,6 +118,33 @@ Phases (the first failure exits non-zero, and no result line is printed):
              (control: one row's scales taken as 1); each answer against
              the request alone (reported);
              tokens/s at 8 slots against one; latencies; cache GiB.
+ 10. train   training at full width and TRAIN_LAYERS of 28 LLM layers (fp32
+             state does not fit deeper; the phase frees phase 9's model
+             first): (a) B3's gradient (sparse_packed_attention_train: the
+             kernel forward, the chunked recompute backward) at S=2048 on
+             the training predicate (three documents, full and noise
+             splits, padding), H/KH/D 28/4/128 and 16/16/72: the forward
+             bit-identical to the forward-only call, dq/dk/dv within B3's
+             gate of the plain version's autograd, stale NaN in padding
+             rows changes nothing, control: the noise predicate dropped;
+             (b) B3 at the LLM's training shape on a packed batch's ids
+             (the packer, TRAIN_TOKENS a step): the forward against the
+             chunked plain version, its device time, its operations bound
+             over the visible pairs, SDPA with the boolean mask in turns,
+             and the recompute backward's time and peak memory; (c) a
+             parquet corpus of seeded images (text-to-image rows and edit
+             chains, an edit chain in every sequence) through the driver's
+             loader (VAE encode on the card): the model gate,
+             --sparse_block vs --attn_chunk 512 on one batch and the same
+             weights (loss within TRAIN_LOSS_TOL, each top-level group's
+             gradient within TRAIN_GRAD_TOL; control: the samples merged
+             into one document), B3 2 x TRAIN_LAYERS + 27 launches a step, a falling
+             loss over TRAIN_STEPS steps on that batch, then driver.main
+             timed over TRAIN_STEPS steps (s/step, tokens/s, MFU at 989
+             TFLOP/s, peak GiB) and a checkpoint run (saves at steps 2 and
+             3, the LLM and SigLIP frozen, no EMA: two full saves would not
+             fit this machine's disk) whose --auto_resume restores every
+             parameter bit for bit.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 int4_split_sweep() times B4 at every split of K it takes, and
@@ -134,6 +161,7 @@ import functools
 import io
 import json
 import os
+import random
 import re
 import subprocess
 import sys
@@ -2731,6 +2759,473 @@ def phase_serve(engine, card):
                 launches={k: runs[k]["launches"] for k in runs})
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training at full width, depth TRAIN_LAYERS
+# ---------------------------------------------------------------------------
+
+# Full depth does not fit one card: 28 layers' training state (fp32 weights,
+# gradients, two Adam moments, EMA: 20 bytes a parameter) is ~280 GB, and
+# sharding it waits for ROADMAP A8. So the trainer runs every width of
+# BAGEL-7B-MoT + SigLIP so400m at TRAIN_LAYERS LLM layers (SigLIP keeps its
+# 27) and packs TRAIN_TOKENS tokens a step, the reference's 32768 (max
+# 36864): at 16384 the step peaked at 59.5 GiB, at 24576 at 62.8 GiB
+# (NVIDIA H100 80GB HBM3), so the length was raised to the reference's.
+TRAIN_PRESET = "7b"
+TRAIN_LAYERS = 2
+TRAIN_TOKENS = (32768, 36864)  # --expected_num_tokens, --max_num_tokens
+TRAIN_STEPS = 4  # steps of the timed driver run (the first warms up) and of the fixed batch
+GRAD_S = 2048  # B3's gradient check: the packed length
+# the model gate, --sparse_block (B3 + its recompute backward) against
+# --attn_chunk 512 (plain) on one batch and the same weights, both under
+# bf16 autocast: the loss within TRAIN_LOSS_TOL relative, each top-level
+# group's gradient within TRAIN_GRAD_TOL (||g_sparse - g_chunk|| / ||g_chunk||)
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 5e-2
+# the learning rate of the fixed batch and the driver runs. With warmup 1
+# the first Adam update (eps 1e-15) moves every weight by about lr, along
+# its gradient's sign: at width 3584 a layer's outputs then move by ~width x
+# lr of their size, coherently. The fixed batch's loss rose for a step by
+# 5x at lr 1e-4 and by 16% at 2e-5 (NVIDIA H100 80GB HBM3, 700 W); the
+# reference warms up over 2000 steps
+TRAIN_LR = 1e-6
+TRAIN_PX = 512  # the corpus's images (VAE: 32 x 32 latent patches; ViT: 35 x 35 patches)
+
+
+def grad_ids(s):
+    """The training predicate on s tokens: three documents, each causal text
+    around a full and a noise split, the second with text after its noise
+    split (so that the noise predicate matters), then 148 padding rows."""
+    doc = segment_ids([600, 700, s - 1448], s)
+    fan = torch.full((s,), -1, dtype=torch.int32, device=DEVICE)
+    noise = fan.clone()
+    for sid, (a, b, is_noise) in enumerate(((200, 400, False), (400, 600, True),
+                                            (700, 900, True), (1000, 1300, False),
+                                            (1500, 1700, False), (1700, 1900, True))):
+        fan[a:b] = sid
+        if is_noise:
+            noise[a:b] = sid
+    return doc, fan, noise
+
+
+def grad_errors(got, want, rows):
+    """[(max abs, elementwise limit ratio, norm-relative)] of dq, dk, dv over
+    the rows that take part (document != 0)."""
+    return [sparse_error(g, w, rows) for g, w in zip(got, want)]
+
+
+def phase_sparse_grad():
+    """10a: B3's gradient (sparse_packed_attention_train: the kernel forward,
+    the chunked recompute backward) against the plain version's autograd."""
+    from bagel_tpu_torch.ops import sparse_flash as sf
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    ids = grad_ids(GRAD_S)
+    rows = []
+    for h, kh, d in ((28, 4, 128), (16, 16, 72)):
+        label = f"B3 gradient S={GRAD_S} H={h} KH={kh} D={d}"
+        q, k, v = sparse_inputs(gen, GRAD_S, h, kh, d)
+        g = torch.randn(q.shape, generator=gen, device=DEVICE).bfloat16()
+
+        def grads(fn, qkv, meta=ids):
+            leaves_ = [t.detach().clone().requires_grad_() for t in qkv]
+            out = fn(*leaves_, *meta)
+            return out.detach(), torch.autograd.grad(out, leaves_, g)
+
+        out, got = grads(sf.sparse_packed_attention_train, (q, k, v))
+        check(torch.equal(out, sf.sparse_packed_attention(q, k, v, *ids)),
+              f"{label}: the Function's forward differs from the forward-only call")
+        _, want = grads(sf.sparse_packed_attention_plain, (q, k, v))
+        errs = grad_errors(got, want, ids[0])
+        for name, (err, ratio, rel) in zip(("dq", "dk", "dv"), errs):
+            check(all(torch.isfinite(t).all() for t in got), f"{label}: non-finite gradient")
+            check(within_tol(ratio, rel), f"{label}: {name} vs plain max abs {err:.3e} "
+                                          f"({ratio:.2f} x the limit), rel {rel:.3e}")
+        # NaN in the rows no query sees (padding) changes no gradient
+        dead = ids[0] == 0
+        stale = [t.clone() for t in (q, k, v)]
+        for t in stale:
+            t[dead] = float("nan")
+        _, again = grads(sf.sparse_packed_attention_train, stale)
+        check(all(torch.equal(a, b) for a, b in zip(again, got)),
+              f"{label}: stale NaN in dead rows leaked into the gradient")
+        # control: the noise predicate dropped must fail the gate
+        _, blind = grads(sf.sparse_packed_attention_train, (q, k, v),
+                         (ids[0], ids[1], torch.full_like(ids[2], -1)))
+        blind_errs = grad_errors(blind, want, ids[0])
+        check(not all(within_tol(r, rel) for _, r, rel in blind_errs),
+              f"{label}: the gate accepts a gradient without the noise predicate")
+        qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = sf.sparse_packed_attention_train(*qkv, *ids)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, g, retain_graph=True), 3)
+        row = dict(shape=f"S={GRAD_S}, H={h}, KH={kh}, D={d}",
+                   **{f"{n}_max_abs_err": e[0] for n, e in zip(("dq", "dk", "dv"), errs)},
+                   **{f"{n}_rel_err": e[2] for n, e in zip(("dq", "dk", "dv"), errs)},
+                   control_rel_err=[e[2] for e in blind_errs], backward_call_ms=bwd_ms)
+        rows.append(row)
+        log(f"[train] {label}: forward bit-identical to the forward-only call; "
+            + ", ".join(f"{n} max abs {e[0]:.3e} ({e[1]:.2f} x the limit) rel {e[2]:.3e}"
+                        for n, e in zip(("dq", "dk", "dv"), errs))
+            + f"; stale NaN in dead rows changes nothing; control without the noise "
+              f"predicate rejected (rel {', '.join(f'{e[2]:.3e}' for e in blind_errs)}); "
+              f"backward (chunked recompute) {bwd_ms:.3f} ms")
+        del q, k, v, g, out, qkv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sparse_train_shape(batch, cfg):
+    """10b: B3 at the LLM's training shape, on the packed predicate of a
+    batch from the packer: the forward against the chunked plain version
+    (the dense [S, S] plain version needs ~30 GB of logits there), its
+    device time, the operations bound over the visible pairs and SDPA with
+    the boolean mask; the recompute backward's time and peak memory."""
+    from bagel_tpu_torch.ops import sparse_flash as sf
+    from bagel_tpu_torch.ops.attention import train_packed_mask
+    from bagel_tpu_torch.ops.chunked import chunked_packed_attention
+
+    h, kh, d = cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, cfg.llm.head_dim
+    ids = tuple(t[0].to(torch.int32).contiguous() for t in
+                (batch.document_id, batch.fan_id, batch.noise_id))
+    s = ids[0].shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    q, k, v = sparse_inputs(gen, s, h, kh, d)
+    tables = sf.kernel_tables(*ids)
+    got = sf.sparse_packed_attention(q, k, v, *ids, tables=tables)
+    with torch.no_grad():
+        want = chunked_packed_attention(q, k, v, *ids, chunk=sf.BWD_CHUNK)
+    err, ratio, rel = sparse_error(got, want, ids[0])
+    # gated here: the norm-relative error. The elementwise limit is reported:
+    # over ~95M outputs (40x phase 3's shapes) its tail reads 0.8-1.02 x the
+    # limit from run to run (NVIDIA H100 80GB HBM3, 700 W; §6 of PERF.md)
+    rows = ids[0] != 0
+    g_, w_ = got[rows].float(), want[rows].float()
+    over = int(((g_ - w_).abs() > KERNEL_RTOL * w_.abs()
+                + KERNEL_ATOL_RMS * w_.pow(2).mean().sqrt()).sum())
+    check(rel <= KERNEL_REL, f"B3 at the training shape S={s}: rel {rel:.3e} (limit "
+                             f"{KERNEL_REL}), max abs {err:.3e} ({ratio:.2f} x the elementwise "
+                             f"limit)")
+    del got, want, g_, w_
+
+    def launch():
+        return sf.sparse_packed_attention(q, k, v, *ids, tables=tables)
+
+    call_ms = cuda_ms(lambda: sf.sparse_packed_attention_train(q, k, v, *ids), 5)
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: chunked_packed_attention(q, k, v, *ids, chunk=sf.BWD_CHUNK), 2)
+    tables_ms = cuda_ms(lambda: sf.kernel_tables(*ids), 5)
+    mask = train_packed_mask(*ids)
+    sdpa = sdpa_call(q[None], k[None], v[None], mask[None, None])
+    turns = [device_ms(fn, 5) for fn in (sdpa, launch, launch, sdpa)]
+    ms, lib_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    pairs = int(mask.sum())
+    del mask, sdpa
+    flops, bytes_ = 4 * d * h * pairs, 2 * 2 * s * d * (h + kh) + 3 * 4 * s
+    bms, by = bound_ms(flops, bytes_)
+    # the recompute backward (plain PyTorch, ops.chunked): time and peak memory
+    g = torch.randn(q.shape, generator=gen, device=DEVICE).bfloat16()
+    qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = sf.sparse_packed_attention_train(*qkv, *ids, tables=tables)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, g, retain_graph=True), 2)
+    bwd_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # the backward's work: the recompute's two products plus the four of the
+    # gradient, over all S x S pairs (the chunked path skips no tile)
+    bwd_flops = 6 * 2 * d * h * s * s
+    row = dict(shape=f"LLM training S={s}, H={h}, KH={kh}, D={d}, {pairs} visible pairs "
+                     f"({pairs / s / s:.3f} of S^2)",
+               max_abs_err=err, limit_ratio=ratio, over_limit=over, outputs=int(rows.sum()) * h * d,
+               rel_err=rel, device_ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, plain="ops.chunked (chunk 512, no grad)", library_ms=lib_ms,
+               turns_ms=turns, bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9,
+               tables_ms=tables_ms, backward_ms=bwd_ms, backward_peak_gib=bwd_peak_gib,
+               backward_tflops=bwd_flops / bwd_ms / 1e9, pairs=pairs, S=s)
+    log(f"[train] B3 at the training shape {row['shape']}: vs chunked rel {rel:.3e} (limit "
+        f"{KERNEL_REL}), max abs {err:.3e}, {ratio:.2f} x the elementwise limit at worst, "
+        f"{over} of {row['outputs']} outputs over it; device time in turns SDPA {turns[0]:.3f}, "
+        f"kernel {turns[1]:.3f}, kernel {turns[2]:.3f}, SDPA {turns[3]:.3f} ms; kernel "
+        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s over the visible pairs), call "
+        f"{call_ms:.3f} ms (tables included), tables {tables_ms:.3f} ms, plain (chunked) "
+        f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}); recompute backward {bwd_ms:.2f} ms "
+        f"({bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s over S^2), peak +{bwd_peak_gib:.2f} GiB")
+    del q, k, v, g, out, qkv, tables
+    torch.cuda.empty_cache()
+    return row
+
+
+def write_train_corpus(root, cfg):
+    """Seeded images in two parquet corpora under `root`: 16 text-to-image
+    rows (TRAIN_PX square, a caption) and 8 edit chains of four frames
+    (three hops of instructions); a dataset config in which every packed
+    sequence holds an edit chain (is_mandatory), so every step runs the
+    SigLIP tower."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import yaml
+    from PIL import Image
+
+    from bagel_tpu_torch.data.datasets import register_dataset_info
+
+    rng = np.random.default_rng(SEED + 12)
+
+    def png(px=TRAIN_PX):
+        # smooth noise: cheap to encode, with structure at every scale
+        small = rng.integers(0, 255, (px // 16, px // 16, 3), dtype=np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(small).resize((px, px), Image.BICUBIC).save(buf, "PNG")
+        return buf.getvalue()
+
+    for d in ("t2i", "edit"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    pq.write_table(pa.Table.from_pylist(
+        [{"image": png(), "captions": json.dumps({"c": f"{PROMPT} ({i})"})} for i in range(16)]),
+        os.path.join(root, "t2i", "p0.parquet"), row_group_size=8)
+    pq.write_table(pa.Table.from_pylist(
+        [{"image_list": [png() for _ in range(4)],
+          "instruction_list": [[EDIT, "Make it darker"]] * 3} for _ in range(8)]),
+        os.path.join(root, "edit", "p0.parquet"), row_group_size=4)
+    register_dataset_info("t2i_pretrain", "smoke_t2i", data_dir=os.path.join(root, "t2i"))
+    register_dataset_info("unified_edit", "smoke_edit", data_dir=os.path.join(root, "edit"))
+    vae_px, vit_px = TRAIN_PX, TRAIN_PX // 14 * 14 - 14  # 490 at 512: 35 patches a side
+    vae_tf = {"max_image_size": vae_px, "min_image_size": vae_px // 2,
+              "image_stride": cfg.latent_downsample, "max_pixels": vae_px * vae_px}
+    vit_tf = {"max_image_size": vit_px, "min_image_size": vit_px // 2,
+              "image_stride": cfg.vit.patch_size, "max_pixels": vit_px * vit_px}
+    path = os.path.join(root, "data.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({
+            "t2i_pretrain": {"dataset_names": ["smoke_t2i"], "weight": 0.5,
+                             "image_transform_args": vae_tf},
+            "unified_edit": {"dataset_names": ["smoke_edit"], "weight": 0.5,
+                             "is_mandatory": True, "image_transform_args": vae_tf,
+                             "vit_image_transform_args": vit_tf},
+        }, f)
+    return path
+
+
+def train_argv(data_yaml, ckpt_dir, *extra):
+    return ["--device", DEVICE, "--preset", TRAIN_PRESET,
+            "--num_hidden_layers", str(TRAIN_LAYERS), "--mock_tokenizer",
+            "--dataset_config", data_yaml, "--ckpt_dir", ckpt_dir,
+            "--expected_num_tokens", str(TRAIN_TOKENS[0]), "--max_num_tokens",
+            str(TRAIN_TOKENS[1]), "--max_num_tokens_per_sample", str(TRAIN_TOKENS[0]),
+            "--sparse_block", "128", "--remat", "full", "--warmup_steps", "1",
+            "--lr", str(TRAIN_LR), "--log_every", "1", "--seed", str(SEED), *extra]
+
+
+def group_grad_gaps(a, b):
+    """{group: ||a - b|| / ||b||} over the top-level groups with a gradient."""
+    from bagel_tpu_torch.train.step import tree_leaves
+
+    out = {}
+    for name in b:
+        pairs = [(x, y) for x, y in zip(tree_leaves(a[name]), tree_leaves(b[name]))
+                 if y is not None]
+        if not pairs:
+            continue
+        num = sum(float((x.float() - y.float()).square().sum()) for x, y in pairs)
+        den = sum(float(y.float().square().sum()) for _, y in pairs)
+        out[name] = (num / max(den, 1e-30)) ** 0.5
+    return out
+
+
+def phase_train(card):
+    """10: the B3 gradient (10a), B3 at the training shape (10b), then the
+    trainer at full width (10c): the model gate and its control, a falling
+    loss on a fixed batch, B3's launches per step, the driver's timed run,
+    and a checkpoint with an --auto_resume that is bit-equal."""
+    import shutil
+
+    from bagel_tpu_torch.data.packing import stack_batches
+    from bagel_tpu_torch.models.bagel import init_bagel_params
+    from bagel_tpu_torch.ops import sparse_flash as sf
+    from bagel_tpu_torch.train import driver
+    from bagel_tpu_torch.train.checkpoint import get_latest_ckpt, step_from_path
+    from bagel_tpu_torch.train.step import (
+        grad_step,
+        init_train_state,
+        make_lr_schedule,
+        make_optimizer,
+        make_train_step,
+        set_trainable,
+        tree_leaves,
+    )
+
+    out = dict(grad=phase_sparse_grad())
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = train_argv(os.path.join(root, "data.yaml"), os.path.join(root, "ckpt"))
+    args = driver.parse_args(argv)
+    cfg = driver.build_config(args)
+    data_yaml = write_train_corpus(root, cfg)
+    import importlib.util
+
+    # the driver's data path reads parquet (pyarrow), its dataset config (yaml)
+    # and the images (PIL): checked here, not caught as a failure later
+    missing = [m for m in ("pyarrow", "yaml", "PIL") if importlib.util.find_spec(m) is None]
+    check(not missing, f"the training data path needs {missing}")
+    import PIL
+    import pyarrow
+    import yaml
+
+    free = shutil.disk_usage(root).free / 2**30
+    log(f"[train] data path: pyarrow {pyarrow.__version__}, yaml {yaml.__version__}, PIL "
+        f"{PIL.__version__}; a parquet corpus of seeded images under {root} ({free:.0f} GiB "
+        f"free); the depth cut: {TRAIN_LAYERS} of 28 LLM "
+        f"layers (SigLIP {cfg.vit.num_hidden_layers}), full width; packed length "
+        f"{TRAIN_TOKENS[0]} expected, {TRAIN_TOKENS[1]} at most (the reference: 32768 / 36864)")
+
+    # one batch from the packer (the driver's loader: the VAE encode on the card)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    params = init_bagel_params(gen, cfg, torch.float32, device=DEVICE)
+    with torch.no_grad():
+        live_weights(params, cfg, gen)
+    frozen = ("vae",)
+    set_trainable(params, frozen)
+    random.seed(SEED)  # the datasets draw captions and edit windows from it
+    loader = driver.make_loader(args, cfg, params["vae"], {}, torch.device(DEVICE))
+    batch, _ = next(iter(loader))
+    loader.stop()
+    bb = stack_batches([batch])
+    noise = torch.randn(bb.vae_patches.shape, generator=gen, device=DEVICE)
+    n_vit = int((bb.vit_seg_ids > 0).sum())
+    log(f"[train] one packed batch: S={bb.seq_len}, {int((bb.document_id > 0).sum())} live "
+        f"tokens in {int(bb.document_id.max())} samples, {n_vit} ViT tokens, "
+        f"{int((bb.mse_weight > 0).sum())} noised VAE tokens, {int((bb.ce_weight > 0).sum())} "
+        f"CE tokens")
+    check(n_vit > 0, "the packed batch holds no ViT token: the SigLIP pass would not run")
+    out["shape"] = phase_sparse_train_shape(bb, cfg)
+
+    # model gate: --sparse_block against --attn_chunk 512, one batch, the same weights
+    kw = dict(ce_weight=args.ce_weight, mse_weight=args.mse_weight, remat="full")
+    counts = counts_reset()
+    g_sparse, m_sparse = grad_step(params, cfg, bb, noise, sparse_block=128, **kw)
+    launches = counts()["b3"]
+    per_step = 2 * TRAIN_LAYERS + cfg.vit.num_hidden_layers
+    check(launches == per_step, f"B3 launched {launches} times in one training forward and "
+                                f"backward, expected 2 x {TRAIN_LAYERS} + "
+                                f"{cfg.vit.num_hidden_layers} = {per_step}")
+    g_chunk, m_chunk = grad_step(params, cfg, bb, noise, attn_chunk=512, **kw)
+    check(counts()["b3"] == launches + cfg.vit.num_hidden_layers,
+          "the --attn_chunk path launched B3 in the LLM")
+    loss_gap = abs(float(m_sparse["loss"]) - float(m_chunk["loss"])) / abs(float(m_chunk["loss"]))
+    gaps = group_grad_gaps(g_sparse, g_chunk)
+    del g_sparse
+    check(loss_gap <= TRAIN_LOSS_TOL and max(gaps.values()) <= TRAIN_GRAD_TOL,
+          f"model gate: loss gap {loss_gap:.3e} (limit {TRAIN_LOSS_TOL}), gradient gaps "
+          f"{json.dumps(gaps)} (limit {TRAIN_GRAD_TOL})")
+    # control: the packed samples merged into one document (attention across
+    # samples, what a packing fault gives); the noise predicate alone may not
+    # matter in a batch (it does only where a token follows a noise split in
+    # its sample), and 10a's control holds it
+    blind_bb = dataclasses.replace(bb, document_id=(bb.document_id != 0).to(bb.document_id.dtype))
+    g_blind, m_blind = grad_step(params, cfg, blind_bb, noise, sparse_block=128, **kw)
+    blind_loss = abs(float(m_blind["loss"]) - float(m_chunk["loss"])) / abs(float(m_chunk["loss"]))
+    blind_gaps = group_grad_gaps(g_blind, g_chunk)
+    del g_blind, g_chunk
+    check(not (blind_loss <= TRAIN_LOSS_TOL and max(blind_gaps.values()) <= TRAIN_GRAD_TOL),
+          f"model gate accepts the sparse path with the samples merged: loss gap "
+          f"{blind_loss:.3e}, gradient gaps {json.dumps(blind_gaps)}")
+    log(f"[train] model gate --sparse_block vs --attn_chunk 512: loss "
+        f"{float(m_sparse['loss']):.5f} "
+        f"vs {float(m_chunk['loss']):.5f} (gap {loss_gap:.2e}, limit {TRAIN_LOSS_TOL}); gradient "
+        f"gaps {json.dumps({k: round(v, 5) for k, v in gaps.items()})} (limit {TRAIN_GRAD_TOL}); "
+        f"B3 {launches} launches a step (2 x {TRAIN_LAYERS} LLM + {cfg.vit.num_hidden_layers} "
+        f"SigLIP); control with the samples merged into one document rejected: loss gap "
+        f"{blind_loss:.2e}, "
+        f"gradient gaps {json.dumps({k: round(v, 5) for k, v in blind_gaps.items()})}")
+    out["gate"] = dict(loss_gap=loss_gap, grad_gaps=gaps, control_loss_gap=blind_loss,
+                       control_grad_gaps=blind_gaps, b3_per_step=launches)
+    torch.cuda.empty_cache()
+
+    # a falling loss on one fixed batch (the same noise every step)
+    tx = make_optimizer(make_lr_schedule(TRAIN_LR, warmup_steps=1), frozen=frozen)
+    state = init_train_state(params, tx, use_ema=True)
+    step = make_train_step(cfg, tx, args.ce_weight, args.mse_weight, args.ema, frozen=frozen,
+                           sparse_block=128)
+    losses = []
+    counts = counts_reset()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, bb, noise=noise)
+        losses.append(float(m["loss"]))
+        check(np.isfinite(losses[-1]) and float(m["grad_norm"]) > 0,
+              f"fixed batch: loss {losses[-1]}, grad norm {float(m['grad_norm'])}")
+    check(counts()["b3"] == TRAIN_STEPS * per_step, f"fixed batch: B3 {counts()['b3']} launches "
+                                                    f"in {TRAIN_STEPS} steps")
+    check(losses[-1] < losses[0], f"fixed batch: the loss does not fall: {losses}")
+    log(f"[train] fixed batch, {TRAIN_STEPS} steps (lr {TRAIN_LR}, warmup 1: the first "
+        f"update has lr 0): losses {[round(x, 5) for x in losses]}")
+    out["fixed_batch_losses"] = losses
+    del state, params, step, tx, bb, blind_bb, batch, noise
+    gc_cuda()
+
+    # the driver, timed: every group but the VAE trained, EMA on; the first
+    # step warms up
+    counts = counts_reset()
+    random.seed(SEED)
+    t0 = time.perf_counter()
+    state, history = driver.main(argv + ["--total_steps", str(TRAIN_STEPS), "--save_every",
+                                         str(10 * TRAIN_STEPS)])
+    wall = time.perf_counter() - t0
+    b3 = counts()["b3"]
+    check(b3 == TRAIN_STEPS * per_step, f"driver: B3 {b3} launches in {TRAIN_STEPS} steps, "
+                                        f"expected {TRAIN_STEPS} x {per_step}")
+    check(all(np.isfinite(h["loss"]) for h in history), f"driver: losses {history}")
+    timed = history[1:]
+    secs = sum(h["seconds"] for h in timed)
+    tokens = sum(h["tokens"] for h in timed)
+    mfu = sum(h["model_tflop"] for h in timed) * 1e12 / secs / PEAK_FLOPS
+    peak = max(h.get("peak_gib", 0.0) for h in history)
+    timing = dict(s_per_step=secs / len(timed), tokens_per_s=tokens / secs, mfu=mfu,
+                  peak_gib=peak, steps=history, wall_s=wall, b3_launches=b3)
+    log(f"[train] driver --sparse_block 128 --remat full, {TRAIN_STEPS} steps ({card}): "
+        f"{timing['s_per_step']:.3f} s/step, {timing['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{mfu * 100:.2f}% of {PEAK_FLOPS / 1e12:.0f} TFLOP/s (analytic model FLOPs, each token "
+        f"through one expert), peak {peak:.2f} GiB; losses "
+        f"{[round(h['loss'], 5) for h in history]}; {wall:.1f} s with the final save")
+    out["timing"] = timing
+    del state
+    shutil.rmtree(os.path.join(root, "ckpt"), ignore_errors=True)
+    gc_cuda()
+
+    # checkpoint and resume through the driver: the LLM and SigLIP frozen and
+    # no EMA, so that two saves fit this machine's disk (a full one is ~40 GB)
+    ck_argv = train_argv(data_yaml, os.path.join(root, "ck"), "--freeze_llm", "--freeze_vit",
+                         "--ema", "0", "--save_every", "2", "--total_steps", "3")
+    random.seed(SEED)
+    state, history = driver.main(ck_argv)
+    ck_dir = os.path.join(root, "ck")
+    saved = sorted(os.listdir(ck_dir))
+    check(saved == ["0000002", "0000003"], f"checkpoints {saved}, expected a save at step 2 "
+                                           f"and the final one at 3")
+    want = [t.detach().cpu() for t in tree_leaves(state.params)]
+    del state
+    gc_cuda()
+    resumed, again = driver.main(ck_argv + ["--auto_resume"])
+    check(again == [] and resumed.step == 3 and resumed.opt_state["count"] == 3,
+          f"--auto_resume: steps run {[h['step'] for h in again]}, step {resumed.step}")
+    same = all(torch.equal(a, b.detach().cpu())
+               for a, b in zip(want, tree_leaves(resumed.params)))
+    check(same, "--auto_resume: the restored parameters differ from the saved run's")
+    check(step_from_path(get_latest_ckpt(ck_dir)) == 3, "--auto_resume: wrong latest checkpoint")
+    log(f"[train] checkpoints at steps 2 (async) and 3 (final); --auto_resume restored step 3 "
+        f"with every parameter bit-equal ({len(want)} leaves) and ran no step past "
+        f"--total_steps")
+    out["resume"] = dict(saved=saved, bit_equal=same)
+    del resumed, want
+    shutil.rmtree(root, ignore_errors=True)
+    gc_cuda()
+    return out
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_all_kernels():
     """Phase 3 (3a-3e) on the smoke's configuration: (cfg, tokenizer, and
     each sub-phase's result)."""
@@ -2801,6 +3296,11 @@ def main() -> int:
     int4 = phase_vqa_int4(engine, card)
     with flash_int8(False):
         serve = phase_serve(engine, card)
+    del engine, params  # phase 10 builds its own fp32 model
+    gc_cuda()
+    check(torch.cuda.memory_allocated() < 2**30,
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated before phase 10")
+    train = phase_train(card)
 
     main_shape = shapes[0]
     decode = next(r for r in shapes if r["T"] == 1)
@@ -2817,7 +3317,8 @@ def main() -> int:
                     t2i_50=taylorseer["all full"]["launches"][key],
                     edit=edit["launches"][key], batch=batch["launches"][key],
                     t2i_w8a8=w8a8["launches"][key], vqa_int4=int4["launches"][key],
-                    **{f"serve_{k}": counts[key] for k, counts in serve["launches"].items()})
+                    **{f"serve_{k}": counts[key] for k, counts in serve["launches"].items()},
+                    train=train["timing"]["b3_launches"] if key == "b3" else 0)
 
     kernels = [
         dict(
@@ -2885,6 +3386,8 @@ def main() -> int:
             library=library,
             shape=main3["shape"],
             tflops=main3["tflops"],
+            train_shape=train["shape"],
+            gradient=train["grad"],
         ),
         dict(
             name="flash_cached_attention_q8",
@@ -2993,7 +3496,7 @@ def main() -> int:
         ),
     ]
     log(json.dumps({"vqa": vqa, "taylorseer": taylorseer, "edit": edit, "batch": batch,
-                    "t2i_w8a8": w8a8, "vqa_int4": int4, "serve": serve}))
+                    "t2i_w8a8": w8a8, "vqa_int4": int4, "serve": serve, "train": train}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

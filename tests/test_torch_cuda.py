@@ -613,3 +613,139 @@ def test_runtime_chat_on_card():
     L = cfg.llm.num_hidden_layers
     assert flash.flash_cached_attention.launches - b1 == L * rt.stats["prefill_blocks"]
     assert flash.flash_decode_kv8.launches - kv8 == L * rt.stats["decode_forwards"]
+
+
+def _train_ids(s):
+    """Three documents with causal text, full and noise splits (text after a
+    noise split in the second), then padding."""
+    doc = _segments([s // 3, s // 3, s // 3 - 40], s)
+    fan = torch.full((s,), -1, dtype=torch.int32, device="cuda")
+    noise = fan.clone()
+    third = s // 3
+    for sid, (a, b, is_noise) in enumerate(((50, 150, False), (150, third, True),
+                                            (third + 20, third + 120, True),
+                                            (third + 200, 2 * third, False))):
+        fan[a:b] = sid
+        if is_noise:
+            noise[a:b] = sid
+    return doc, fan, noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,kh,d", [(1024, 28, 4, 128), (700, 16, 16, 72)])
+def test_sparse_gradient_matches_plain_on_card(s, h, kh, d):
+    """B3's autograd Function on the card: the forward launches the kernel
+    and equals the forward-only call bit for bit; dq, dk, dv within the
+    kernel gate of the plain version's autograd; stale NaN in padding rows
+    changes no gradient; the noise predicate dropped fails the gate. S=700
+    is no multiple of the backward's 512-row chunk (a 188-row last chunk)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((s, h, d), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((s, kh, d), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((s, kh, d), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((s, h, d), generator=gen, device="cuda").bfloat16()
+    ids = _train_ids(s)
+
+    def grads(fn, qkv, meta=ids):
+        leaves = [t.detach().clone().requires_grad_() for t in qkv]
+        out = fn(*leaves, *meta)
+        return out.detach(), torch.autograd.grad(out, leaves, g)
+
+    def within(got, want):
+        rows = ids[0] != 0
+        ok = True
+        for a, b in zip(got, want):
+            a, b = a[rows].float(), b[rows].float()
+            err = (a - b).abs()
+            ok &= bool((err <= 2.0 ** -6 * b.abs() + 0.1 * b.pow(2).mean().sqrt()).all())
+            ok &= bool(err.norm() <= 1e-2 * b.norm())
+        return ok
+
+    before = sparse_flash.sparse_packed_attention.launches
+    out, got = grads(sparse_flash.sparse_packed_attention_train, (q, k, v))
+    assert sparse_flash.sparse_packed_attention.launches == before + 1
+    assert torch.equal(out, sparse_flash.sparse_packed_attention(q, k, v, *ids))
+    _, want = grads(sparse_flash.sparse_packed_attention_plain, (q, k, v))
+    assert within(got, want)
+    stale = [t.clone() for t in (q, k, v)]
+    for t in stale:
+        t[ids[0] == 0] = float("nan")
+    _, again = grads(sparse_flash.sparse_packed_attention_train, stale)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    _, blind = grads(sparse_flash.sparse_packed_attention_train, (q, k, v),
+                     (ids[0], ids[1], torch.full_like(ids[2], -1)))
+    assert not within(blind, want)
+
+
+@pytest.mark.cuda
+def test_sparse_gradient_refuses_what_the_kernel_cannot_take_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    q = torch.zeros((256, 4, 64), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    ids = [torch.ones(256, dtype=torch.int32, device="cuda")] * 3
+    with pytest.raises(ValueError, match="D in"):
+        sparse_flash.sparse_packed_attention_train(q, q, q, *ids)
+    q32 = torch.zeros((256, 4, 128), device="cuda", requires_grad=True)
+    with pytest.raises(TypeError, match="bf16"):
+        sparse_flash.sparse_packed_attention_train(q32, q32, q32, *ids)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card():
+    """A micro model's train step on the card under bf16 autocast through
+    --sparse_block: B3 launches 2 x layers (forward and remat recompute)
+    plus one a SigLIP layer; the loss is finite and falls on a fixed batch;
+    optimizer and EMA offload to pinned host memory give the same
+    parameters bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    import numpy as np
+
+    from bagel_tpu_torch.configs import Qwen2Config, SiglipConfig, micro_bagel
+    from bagel_tpu_torch.data.packing import make_synthetic_batch, stack_batches
+    from bagel_tpu_torch.models.bagel import init_bagel_params
+    from bagel_tpu_torch.train.step import (
+        init_train_state,
+        make_lr_schedule,
+        make_optimizer,
+        make_train_step,
+        tree_leaves,
+    )
+
+    # the micro model at the kernel's head dims (LLM 128, SigLIP 72)
+    cfg = micro_bagel(
+        llm=Qwen2Config(vocab_size=128, hidden_size=256, intermediate_size=256,
+                        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+                        rope_theta=10000.0, max_position_embeddings=256),
+        vit=SiglipConfig(hidden_size=144, intermediate_size=128, num_hidden_layers=1,
+                         num_attention_heads=2, image_size=56, patch_size=14))
+    batch = stack_batches([make_synthetic_batch(cfg, np.random.default_rng(0), seq_len=256,
+                                                n_text=32, vit_hw=(28, 28),
+                                                vae_hw=(32, 32))]).to("cuda")
+    noise = torch.randn(batch.vae_patches.shape, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(2))
+    finals = []
+    for offload in (None, "cpu"):
+        params = init_bagel_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                   torch.float32, device="cuda")
+        with torch.no_grad():
+            params["llm2vae"]["w"].normal_(0, 0.02,
+                                           generator=torch.Generator(device="cuda").manual_seed(3))
+        tx = make_optimizer(make_lr_schedule(1e-3, warmup_steps=1), frozen=("vae",))
+        state = init_train_state(params, tx, opt_device=offload, ema_device=offload)
+        if offload:
+            assert all(t.is_pinned() for t in tree_leaves(state.opt_state["mu"]) if t is not None)
+        step = make_train_step(cfg, tx, ema_decay=0.9, frozen=("vae",), sparse_block=128)
+        losses = []
+        before = sparse_flash.sparse_packed_attention.launches
+        for _ in range(3):
+            state, m = step(state, batch, noise=noise)
+            losses.append(float(m["loss"]))
+        per_step = 2 * cfg.llm.num_hidden_layers + cfg.vit.num_hidden_layers
+        assert sparse_flash.sparse_packed_attention.launches - before == 3 * per_step
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+        finals.append([t.detach().cpu() for t in tree_leaves(state.params)]
+                      + [t.cpu() for t in tree_leaves(state.ema_params)])
+    assert all(torch.equal(a, b) for a, b in zip(*finals))

@@ -34,12 +34,18 @@ def test_import_pulls_in_no_jax():
         "       'bagel_tpu_torch.serving.server', 'bagel_tpu_torch.serving.app',\n"
         "       'bagel_tpu_torch.data.bpe', 'bagel_tpu_torch.data.tokenizer',\n"
         "       'bagel_tpu_torch.utils.convert', 'bagel_tpu_torch.utils.export_hf',\n"
-        "       'bagel_tpu_torch.utils.cuda_graph'}\n"
+        "       'bagel_tpu_torch.utils.cuda_graph', 'bagel_tpu_torch.ops.chunked',\n"
+        "       'bagel_tpu_torch.train.step', 'bagel_tpu_torch.train.checkpoint',\n"
+        "       'bagel_tpu_torch.train.driver', 'bagel_tpu_torch.data.packing',\n"
+        "       'bagel_tpu_torch.data.datasets', 'bagel_tpu_torch.data.loader',\n"
+        "       'bagel_tpu_torch.data.filesystem', 'bagel_tpu_torch.native',\n"
+        "       'bagel_tpu_torch.native.imagepool', 'bagel_tpu_torch.utils.metrics'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "# PIL is imported only where an image is resized, decoded or encoded,\n"
         "# regex only where a BPE tokenizer is built, safetensors only where a\n"
-        "# checkpoint is read or written\n"
-        "for lazy in ('PIL', 'regex', 'safetensors', 'gradio'):\n"
+        "# checkpoint is read or written, pyarrow where a parquet file is\n"
+        "# opened, yaml where the trainer reads its dataset config\n"
+        "for lazy in ('PIL', 'regex', 'safetensors', 'gradio', 'pyarrow', 'yaml'):\n"
         "    assert lazy not in sys.modules, f'a module imports {lazy}'\n"
         "print('modules ok')\n"
     )
@@ -58,7 +64,11 @@ def test_sources_import_no_jax():
     assert PACKAGE / "data" / "transforms.py" in files
     for new in ("serving/runtime.py", "serving/server.py", "serving/app.py", "data/bpe.py",
                 "utils/convert.py", "utils/export_hf.py", "inference/speculative.py",
-                "utils/cuda_graph.py"):
+                "utils/cuda_graph.py", "ops/chunked.py", "train/step.py",
+                "train/checkpoint.py", "train/driver.py", "data/packing.py",
+                "data/datasets.py", "data/loader.py", "data/filesystem.py",
+                "native/__init__.py", "native/imagepool.py", "native/_build.py",
+                "utils/metrics.py"):
         assert PACKAGE / new in files, new
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
