@@ -113,19 +113,40 @@
 // The decode step over an int8 KV cache (B1-kv8: flash_decode_kv8; the JAX
 // package has no kernel for it: XLA fuses the int8 load and the scale
 // multiply into its decode attention, bagel_tpu/models/qwen2.py:439-452):
-// - The split kernel is a template on the K/V element type, and the int8
-//   instance is the bf16 one but for how a warp fills its K/V buffer: it
-//   reads each live key's 128 codes (16-byte loads, a lane's 16 loads of K
-//   and V issued before any is used) and the key's f32 scale, and writes
-//   bf16(float(code) * scale) to shared memory, which is bit for bit the
-//   view `_kv_dequantize` makes (f32 product, round to nearest even). From
-//   there the products, the softmax and the combine kernel are the bf16
-//   pair's. Keys at or past the live bound are written as zeros without
-//   reading their codes or scales, so a NaN scale there changes nothing.
 // - Bound: the live codes (1 byte an element) and scales (4 bytes a key and
-//   KV head), half the bf16 cache's bytes. The loads are synchronous (no
-//   cp.async for a conversion on the way), so a warp waits for its half
-//   tile before its products; a first design, simple and right.
+//   KV head), half the bf16 cache's bytes: at 8 serving slots (12107 live
+//   keys) 3.9 us at 3.35 TB/s. The first design read each half tile's codes
+//   with synchronous loads and wrote them dequantized to shared memory, so a
+//   warp waited out a full memory latency for every half tile: 27 us, no
+//   faster than the bf16 pair over twice the bytes.
+// - The split kernel is a template on the K/V element type; the int8
+//   instance stages instead of loading. Each warp owns a ring of two stages
+//   in shared memory, one half tile (32 keys) a stage: the K and V codes
+//   (16-byte cp.async, 4 KB each) and the keys' K and V scales (4-byte
+//   cp.async), copied as they are. The warp's first two half tiles are in
+//   flight while Q lands; then, for each half tile, it waits for its stage
+//   only, dequantizes the stage's K into one bf16 tile in shared memory,
+//   runs QK^T and the softmax from it, dequantizes V into the same tile, runs
+//   PV, and hands the stage back to the copy of the half tile two turns on:
+//   the next stage's copies fly during this one's products.
+// - The tile holds bf16(float(code) * scale), the f32 product rounded to
+//   nearest even: bit for bit the view `_kv_dequantize` makes. float(code)
+//   takes a byte permute and an add (code_f32), not I2F: at a quarter of the
+//   FP32 rate, I2F over the 12.4 M codes of the 8-slot shape kept the
+//   conversions ~3 us an SM, and the kernel slower than the bf16 pair. From
+//   the tile on, the fragments, the products, the softmax, the warps' order
+//   and the combine are the bf16 pair's, so the output is bit-identical to
+//   that pair's at the same number of splits on the dequantized view.
+// - Keys at or past the live bound are zero-filled by the copies (codes and
+//   scales), whose sources are never read: a NaN scale there changes nothing.
+// - Shared memory: 2 stages (8448 B each) and one tile (8704 B) a warp, 8
+//   warps, Q and the warps' softmax states: 205 KB, one block an SM. The
+//   wrapper launches two waves of blocks (8 splits at 8 slots: 17.5 us; the
+//   bf16 pair's 5 splits, 21.4 us).
+// - What it leaves: each block still walks one row's share; the rows of a
+//   serving batch differ ~100x in length, so the long row's blocks set the
+//   time (a schedule over the rows' tiles would balance them), and the
+//   fixed cost of two dependent kernels (~10 us at one row) stays.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,6 +172,11 @@ using hopper::smem_addr;
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
                "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+// 4-byte async copy (through L1); src_bytes = 0 fills with zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -179,6 +205,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// float(code) of byte i of `biased`, a word of four int8 codes with their
+// sign bits flipped (code + 128): the byte as the low mantissa bits of 2^23,
+// minus 2^23 + 128, exactly; a byte permute and an add, where I2F runs at a
+// quarter of the FP32 rate
+__device__ __forceinline__ float code_f32(uint32_t biased, int i) {
+  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 + i)) - 8388736.f;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -442,12 +476,31 @@ constexpr int kDecBK = 32;                          // keys a warp takes at a ti
 constexpr int kDecRows = 16;                        // the m16 tile: the group's heads
 constexpr int kDecMaxSplits = 256;
 constexpr int kDecQBytes = kDecRows * kLds * 2;
-constexpr int kDecWarpBytes = 2 * kDecBK * kLds * 2;  // a warp's K and V keys
-constexpr int kDecSmemBytes = kDecQBytes + kDecWarps * kDecWarpBytes + kDecWarps * kDecRows * 2 * 4;
+constexpr int kDecTileBytes = kDecBK * kLds * 2;    // a half tile of keys in bf16
+// int8 (B1-kv8): a warp's ring of stages, each the half tile's K and V codes
+// [32][128] and their K and V scales [32], then one bf16 tile
+constexpr int kKv8Codes = kDecBK * kD;
+constexpr int kKv8StageBytes = 2 * kKv8Codes + 2 * kDecBK * 4;
+constexpr int kKv8Stages = 2;
+// a warp's shared memory: bf16, its K and V tiles; int8, its ring and one tile
+template <typename KV>
+__host__ __device__ constexpr int dec_warp_bytes() {
+  return std::is_same<KV, int8_t>::value ? kKv8Stages * kKv8StageBytes + kDecTileBytes
+                                         : 2 * kDecTileBytes;
+}
+template <typename KV>
+__host__ __device__ constexpr int dec_smem_bytes() {
+  return kDecQBytes + kDecWarps * dec_warp_bytes<KV>() + kDecWarps * kDecRows * 2 * 4;
+}
 constexpr int kCombWarps = 4;                       // the combine kernel's warps
 static_assert(kDecThreads % kD == 0, "the block's combine gives each thread one column");
-static_assert(kDecRows * kD * 4 <= kDecWarpBytes, "a warp's partial fits in its K/V buffer");
+static_assert(kDecRows * kD * 4 <= dec_warp_bytes<__nv_bfloat16>() &&
+              kDecRows * kD * 4 <= dec_warp_bytes<int8_t>(),
+              "a warp's partial fits in its shared memory");
 static_assert(kBK % kDecBK == 0, "a warp takes part of a 64-key tile");
+static_assert(dec_smem_bytes<int8_t>() <= 232448, "B1-kv8's block fits an SM");
+static_assert(kDecQBytes % 16 == 0 && dec_warp_bytes<int8_t>() % 16 == 0 &&
+              kKv8Codes % 16 == 0, "16-byte copies land 16-byte aligned");
 
 // partials: acc [B, KH, splits, G, D] and (m, l) [B, KH, splits, G, 2], f32;
 // m in base-2 units (scores x scale x log2 e)
@@ -464,9 +517,10 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           int S, int group, Strides qs, Strides ks, Strides vs,
                           Strides kss, Strides vss, float scale_log2) {
   constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  constexpr int kWarpBytes = dec_warp_bytes<KV>();
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* sML = reinterpret_cast<float*>(smem + kDecQBytes + kDecWarps * kDecWarpBytes);
+  float* sML = reinterpret_cast<float*>(smem + kDecQBytes + kDecWarps * kWarpBytes);
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, splits = gridDim.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -504,61 +558,18 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     return;
   }
 
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + kDecQBytes + warp * kDecWarpBytes);
-  __nv_bfloat16* sV = sK + kDecBK * kLds;
+  unsigned char* wbuf = smem + kDecQBytes + warp * kWarpBytes;
+  // bf16: K and V tiles; int8: K, then V, dequantized into one tile
+  __nv_bfloat16* sK =
+      reinterpret_cast<__nv_bfloat16*>(kInt8 ? wbuf + kKv8Stages * kKv8StageBytes : wbuf);
+  __nv_bfloat16* sV = kInt8 ? sK : sK + kDecBK * kLds;
   const KV* kb = k + b * ks.b + kh * ks.h;
   const KV* vb = v + b * vs.b + kh * vs.h;
-  // keys [32 part, 32 part + 32): K, then V, in two cp.async groups; keys at
-  // or past lim arrive as zeros
+  constexpr int kParts = kBK / kDecBK;  // warp-sized parts of a tile
+  const int first = t0 * kParts + warp, end = t1 * kParts;
+  // bf16: keys [32 part, 32 part + 32): K, then V, in two cp.async groups;
+  // keys at or past lim arrive as zeros
   auto load_kv = [&](int part) {
-    if constexpr (kInt8) {
-      // the codes of a key are 8 chunks of 16; a lane takes 8 chunks of K
-      // and 8 of V, loads all 16 (and their keys' scales), then writes them
-      // dequantized; two empty cp.async groups keep the waits below as
-      // they are for bf16
-      constexpr int kCodeChunks = kD / 16;
-      constexpr int kPer = kDecBK * kCodeChunks / 32;
-      const float* ksb = k_scale + b * kss.b + kh * kss.h;
-      const float* vsb = v_scale + b * vss.b + kh * vss.h;
-      int4 kc[kPer], vc[kPer];
-      float ksc[kPer], vsc[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int c = lane + 32 * i, r = c / kCodeChunks, col = (c % kCodeChunks) * 16;
-        const int j = part * kDecBK + r;
-        if (j < lim) {
-          kc[i] = *reinterpret_cast<const int4*>(kb + j * ks.t + col);
-          vc[i] = *reinterpret_cast<const int4*>(vb + j * vs.t + col);
-          ksc[i] = ksb[j * kss.t];
-          vsc[i] = vsb[j * vss.t];
-        } else {
-          kc[i] = vc[i] = make_int4(0, 0, 0, 0);
-          ksc[i] = vsc[i] = 0.f;
-        }
-      }
-      auto put = [](__nv_bfloat16* dst, const int4& codes, float sc) {
-        const int w[4] = {codes.x, codes.y, codes.z, codes.w};
-        uint32_t o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int word = w[e / 2], sh = (e % 2) * 16;
-          const float lo = static_cast<float>(static_cast<int8_t>(word >> sh)) * sc;
-          const float hi = static_cast<float>(static_cast<int8_t>(word >> (sh + 8))) * sc;
-          o[e] = pack_bf16(lo, hi);
-        }
-        *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
-        *reinterpret_cast<uint4*>(dst + 8) = make_uint4(o[4], o[5], o[6], o[7]);
-      };
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int c = lane + 32 * i, r = c / kCodeChunks, col = (c % kCodeChunks) * 16;
-        put(sK + r * kLds + col, kc[i], ksc[i]);
-        put(sV + r * kLds + col, vc[i], vsc[i]);
-      }
-      cp_async_commit();
-      cp_async_commit();
-      return;
-    }
     for (int c = lane; c < kDecBK * kChunksPerRow; c += 32) {
       const int r = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
       const int j = part * kDecBK + r;
@@ -572,9 +583,57 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     }
     cp_async_commit();
   };
-  constexpr int kParts = kBK / kDecBK;  // warp-sized parts of a tile
-  const int first = t0 * kParts + warp;
-  if (first < t1 * kParts) {
+  // int8: the codes and scales of keys [32 part, 32 part + 32) into stage
+  // `st`, as they are, in one cp.async group (an empty group past the
+  // warp's last part, so that every turn waits the same way)
+  constexpr int kCodeChunks = kD / 16;  // 16-byte chunks of a key's codes
+  auto stage = [&](int st) { return wbuf + st * kKv8StageBytes; };
+  auto stage_kv = [&](int part, int st) {
+    if (part < end) {
+      unsigned char* dst = stage(st);
+      const float* ksb = k_scale + b * kss.b + kh * kss.h;
+      const float* vsb = v_scale + b * vss.b + kh * vss.h;
+#pragma unroll
+      for (int i = 0; i < kDecBK * kCodeChunks / 32; ++i) {
+        const int c = lane + 32 * i, r = c / kCodeChunks, col = (c % kCodeChunks) * 16;
+        const int j = part * kDecBK + r;
+        const bool live = j < lim;
+        cp_async16(dst + r * kD + col, live ? kb + j * ks.t + col : kb, live);
+        cp_async16(dst + kKv8Codes + r * kD + col, live ? vb + j * vs.t + col : vb, live);
+      }
+      const int j = part * kDecBK + lane;
+      const bool live = j < lim;
+      cp_async4(dst + 2 * kKv8Codes + lane * 4, live ? ksb + j * kss.t : ksb, live);
+      cp_async4(dst + 2 * kKv8Codes + kDecBK * 4 + lane * 4, live ? vsb + j * vss.t : vsb, live);
+    }
+    cp_async_commit();
+  };
+  // int8: a staged half tile's codes (K or V) times their keys' scales,
+  // rounded to bf16, into the warp's tile; a lane takes 16 codes of a key
+  auto dequantize = [&](const unsigned char* codes, const float* sc) {
+#pragma unroll
+    for (int i = 0; i < kDecBK * kCodeChunks / 32; ++i) {
+      const int c = lane + 32 * i, r = c / kCodeChunks, col = (c % kCodeChunks) * 16;
+      const int4 c16 = *reinterpret_cast<const int4*>(codes + r * kD + col);
+      const float scale = sc[r];
+      const uint32_t w[4] = {c16.x ^ 0x80808080u, c16.y ^ 0x80808080u, c16.z ^ 0x80808080u,
+                             c16.w ^ 0x80808080u};
+      uint32_t o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {  // codes 2e, 2e + 1: f32 products, rounded once to bf16
+        const int i = (e % 2) * 2;
+        o[e] = pack_bf16(code_f32(w[e / 2], i) * scale, code_f32(w[e / 2], i + 1) * scale);
+      }
+      __nv_bfloat16* dst = sK + r * kLds + col;
+      *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<uint4*>(dst + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+  };
+  if constexpr (kInt8) {
+    stage_kv(first, 0);            // group 1
+    stage_kv(first + kDecWarps, 1);  // group 2
+    cp_async_wait<2>();            // Q has landed (the stages may still be in flight)
+  } else if (first < end) {
     load_kv(first);      // groups 1 (K) and 2 (V)
     cp_async_wait<2>();  // Q has landed (K and V may still be in flight)
   } else {
@@ -591,10 +650,18 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < kD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int part = first; part < t1 * kParts; part += kDecWarps) {
-    if (part != first) load_kv(part);
-    cp_async_wait<1>();
-    __syncwarp();
+  int st = 0;  // int8: the ring's stage of this turn
+  for (int part = first; part < end; part += kDecWarps) {
+    if constexpr (kInt8) {
+      cp_async_wait<1>();  // this part's stage has landed; the next may fly
+      __syncwarp();
+      dequantize(stage(st), reinterpret_cast<const float*>(stage(st) + 2 * kKv8Codes));
+      __syncwarp();
+    } else {
+      if (part != first) load_kv(part);
+      cp_async_wait<1>();
+      __syncwarp();
+    }
 
     // S = Q K^T: 16 rows (the group's heads) x 32 keys
     float s[kDecBK / 8][4];
@@ -653,7 +720,13 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
       acc[dt][3] *= alpha1;
     }
 
-    cp_async_wait<0>();
+    if constexpr (kInt8) {
+      __syncwarp();  // every lane has read K from the tile: V takes its place
+      dequantize(stage(st) + kKv8Codes,
+                 reinterpret_cast<const float*>(stage(st) + 2 * kKv8Codes + kDecBK * 4));
+    } else {
+      cp_async_wait<0>();
+    }
     __syncwarp();
     // O += P V, P rounded to bf16 (the row sums above used f32 P)
 #pragma unroll
@@ -674,12 +747,17 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     __syncwarp();  // this warp's buffers are refilled next
+    if constexpr (kInt8) {
+      stage_kv(part + 2 * kDecWarps, st);  // two turns on, into the stage just read
+      st ^= 1;
+    }
   }
+  if constexpr (kInt8) cp_async_wait<0>();  // no copy may land after the warp's buffer is reused
 
   // this warp's state into its own (now idle) K/V buffer: acc [G][D], (m, l) [G]
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  float* pw = reinterpret_cast<float*>(sK);
+  float* pw = reinterpret_cast<float*>(wbuf);
   const int row0 = lane / 4, row1 = row0 + 8;
 #pragma unroll
   for (int dt = 0; dt < kD / 8; ++dt) {
@@ -708,7 +786,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
       if (mw == -INFINITY) continue;  // a warp without a live key
       const float wgt = exp2f(mw - mmax);
       l += wgt * sML[(w * kDecRows + r) * 2 + 1];
-      a += wgt * reinterpret_cast<const float*>(smem + kDecQBytes + w * kDecWarpBytes)[r * kD + d];
+      a += wgt * reinterpret_cast<const float*>(smem + kDecQBytes + w * kWarpBytes)[r * kD + d];
     }
     pacc[r * kD + d] = a;
     if (d == 0) pml[2 * r] = mmax, pml[2 * r + 1] = l;
@@ -788,12 +866,12 @@ int launch_decode(const void* q, const void* k, const void* v, const float* k_sc
                   long long o_sb, long long o_sh, float scale, void* stream) {
   if (H % KH != 0 || H / KH > kDecRows || splits < 1 || splits > kDecMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmem = dec_smem_bytes<KV>();
   cudaError_t err = cudaFuncSetAttribute(flash_decode_split_kernel<KV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kDecSmemBytes);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  flash_decode_split_kernel<KV><<<dim3(splits, KH, B), kDecThreads, kDecSmemBytes, st>>>(
+  flash_decode_split_kernel<KV><<<dim3(splits, KH, B), kDecThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), k_scale, v_scale, static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), past_len, q_valid, S, H / KH, qs, ks, vs, kss, vss,

@@ -21,15 +21,16 @@ The paths of the JAX engine:
 `think=True` decodes a reasoning text first on either path, and
 `speculative=K` makes greedy text decodes prompt-lookup speculative
 (inference/speculative.py). The loops that
-JAX runs under `lax.scan` / `lax.cond` / `lax.while_loop` are Python loops
-here; PyTorch runs eagerly.
+JAX runs under `lax.scan` / `lax.cond` are Python loops here; its text
+decode (`_decode_jit`'s `lax.while_loop`) runs as captured chunks of steps
+through the engine's `DecodeProgram` (inference/decode_program.py).
 
 Contexts share cache buffers on `copy()` exactly as JAX arrays are shared:
 `qwen2.llm_extend` never writes into the cache it is given, and
-`decode_text` writes only into its own clone, so updating one context cannot
-touch a sibling's buffer. A cache that one call owns (`chat_batch`'s, the
-serving runtime's slot cache) is written in place instead (`_extend`,
-`decode_text(in_place=True)`), where JAX donates it.
+`decode_text` writes only into the program's own copy, so updating one
+context cannot touch a sibling's buffer. A cache that one call owns
+(`chat_batch`'s, the serving runtime's slot cache) is written in place
+instead (`_extend`, `decode_text(in_place=True)`), where JAX donates it.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from bagel_tpu_torch.configs import BagelConfig
+from bagel_tpu_torch.inference.decode_program import DecodeProgram
 from bagel_tpu_torch.inference.speculative import decode_text_spec
 from bagel_tpu_torch.inference.taylorseer import (
     taylor_eval,
@@ -348,6 +350,9 @@ class BagelEngine:
         """`device`: where the engine runs; CUDA unless the caller passes
         one (the params must already be there).
 
+        Text decodes (`gen_text`, `chat_batch`) run through `self.decode`, a
+        `DecodeProgram` (16 steps a CUDA graph).
+
         `kv_quant=True` stores the understanding-path KV caches (`chat_batch`
         and the serving runtime's slot cache, `kv_dtype`) as int8 codes with
         per-(token, head) f32 scales: half the cache's bytes. Generation
@@ -386,6 +391,7 @@ class BagelEngine:
         self.max_kv = kv_bucket(max_kv)
         self.vae_transform = vae_transform
         self.vit_transform = vit_transform
+        self.decode = DecodeProgram()
         self.cache_dtype = torch.bfloat16 if quantized else emb.dtype
         self.kv_dtype = torch.int8 if kv_quant else self.cache_dtype
         if cfg.interpolate_pos:
@@ -533,7 +539,7 @@ class BagelEngine:
     def gen_text(
         self, ctx: GenContext, max_length: int = 500, do_sample: bool = False,
         temperature: float = 1.0, rng: Optional[torch.Generator] = None,
-        speculative: int = 0, ngram: int = 3,
+        speculative: int = 0, ngram: int = 3, graph: bool = True,
     ) -> str:
         """Decode from the context, starting with a bos token at its rope
         position: greedy, or sampled from `rng` (default: a generator seeded
@@ -542,7 +548,12 @@ class BagelEngine:
 
         speculative=K (greedy only): prompt-lookup speculative decode, K
         drafts verified a forward (`inference.speculative`), the same
-        tokens; it needs K + 1 entries of KV room past a plain decode's."""
+        tokens; it needs K + 1 entries of KV room past a plain decode's.
+
+        The decode runs through the engine's `DecodeProgram` (`self.decode`):
+        on CUDA one graph replay a chunk, over the program's own copy of the
+        context's cache; graph=False runs the same steps eagerly (to compare
+        against)."""
         eos = self.new_token_ids["eos_token_id"]
         start = self._tensor([self.new_token_ids["bos_token_id"]], torch.long)
         pos = self._tensor([ctx.rope])
@@ -560,7 +571,7 @@ class BagelEngine:
                 self.params["llm"], self.cfg.llm, ctx.cache, start, pos,
                 self._tensor(harr, torch.long), self._tensor([len(hist)], torch.long),
                 max_steps=max_length, eos_id=eos, draft_len=speculative, ngram=ngram,
-                attn_impl=self.attn_impl,
+                attn_impl=self.attn_impl, program=self.decode, graph=graph,
             )
         else:
             if rng is None:
@@ -569,6 +580,7 @@ class BagelEngine:
                 self.params["llm"], self.cfg.llm, ctx.cache, start, pos,
                 max_steps=max_length, eos_id=eos, temperature=temperature,
                 do_sample=do_sample, generator=rng, attn_impl=self.attn_impl,
+                program=self.decode, graph=graph,
             )
         toks = toks[0].tolist()
         if eos in toks:
@@ -845,9 +857,12 @@ class BagelEngine:
         do_sample: bool = False,
         temperature: float = 1.0,
         rng: Optional[torch.Generator] = None,
+        graph: bool = True,
     ) -> List[str]:
         """Answer B (images, prompt) pairs in one batched prefill and one
-        batched decode, over a B-row cache of `kv_dtype`.
+        batched decode, over a B-row cache of `kv_dtype` that the engine's
+        `DecodeProgram` owns (its graphs stay valid from call to call; the
+        call holds the program's lock; graph=False as in `gen_text`).
 
         Each row passes None, one image (HWC float in [-1, 1]) or a list of
         images. All images of all rows go through SigLIP in one packed pass;
@@ -863,23 +878,27 @@ class BagelEngine:
             i: [] if im is None else ([im] if isinstance(im, np.ndarray) else list(im))
             for i, im in enumerate(images)
         }
-        cache = kv_cache_init(self.cfg.llm, b, self.max_kv, self.kv_dtype, device=self.device)
-        rope = {i: 0 for i in range(b)}
-        vit_emb, per_img = self._pack_images(row_images)
-        if vit_emb is not None:
-            cache = self._image_rounds(cache, list(range(b)), row_images, vit_emb, per_img, rope)
-        ids_rows = {i: self._prompt_ids(p) for i, p in enumerate(prompts)}
-        cache = self._text_rows(cache, ids_rows, rope)
-        if rng is None:
-            rng = torch.Generator(device=self.device).manual_seed(0)
-        eos = self.new_token_ids["eos_token_id"]
-        toks, _ = qwen2.decode_text(
-            self.params["llm"], self.cfg.llm, cache,
-            self._tensor([self.new_token_ids["bos_token_id"]] * b, torch.long),
-            self._tensor([rope[i] + len(ids_rows[i]) for i in range(b)]),
-            max_steps=max_length, eos_id=eos, temperature=temperature,
-            do_sample=do_sample, generator=rng, attn_impl=self.attn_impl, in_place=True,
-        )
+        with self.decode.lock:  # its owned cache is one call's from prefill to decode
+            cache = self.decode.owned_cache(self.cfg.llm, b, self.max_kv, self.kv_dtype,
+                                            self.device)
+            rope = {i: 0 for i in range(b)}
+            vit_emb, per_img = self._pack_images(row_images)
+            if vit_emb is not None:
+                cache = self._image_rounds(cache, list(range(b)), row_images, vit_emb,
+                                           per_img, rope)
+            ids_rows = {i: self._prompt_ids(p) for i, p in enumerate(prompts)}
+            cache = self._text_rows(cache, ids_rows, rope)
+            if rng is None:
+                rng = torch.Generator(device=self.device).manual_seed(0)
+            eos = self.new_token_ids["eos_token_id"]
+            toks, _ = qwen2.decode_text(
+                self.params["llm"], self.cfg.llm, cache,
+                self._tensor([self.new_token_ids["bos_token_id"]] * b, torch.long),
+                self._tensor([rope[i] + len(ids_rows[i]) for i in range(b)]),
+                max_steps=max_length, eos_id=eos, temperature=temperature,
+                do_sample=do_sample, generator=rng, attn_impl=self.attn_impl, in_place=True,
+                program=self.decode, graph=graph,
+            )
         outs = []
         for row in toks.tolist():
             if eos in row:

@@ -13,10 +13,12 @@ one-row one and flip a near tie; the tests hold it in fp32).
 
 Each row accepts its own number of drafts: the cache's length is per row,
 and the rejected tail of a verify block is rolled back by lowering that
-row's length (the K/V written past it are dead). The loop is eager; the
-shapes are the JAX package's static ones (a [B, C] history buffer, a K + 1
-verify block for every row, rows that are done or out of budget ride along
-with q_valid = 0).
+row's length (the K/V written past it are dead). The shapes are the JAX
+package's static ones (a [B, C] history buffer, a K + 1 verify block for
+every row, rows that are done or out of budget ride along with q_valid =
+0), and JAX's while_loop runs as chunks of `spec_verify` on static tensors
+(`SpecState`) through a `DecodeProgram`: a CUDA-graph replay a chunk on
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -51,14 +53,91 @@ def ngram_propose(ctx: torch.Tensor, ctx_len: torch.Tensor, n: int, k: int) -> t
     return torch.gather(ctx, 1, start[:, None] + torch.arange(k, device=dev)[None, :])
 
 
-def _scatter_rows(buf: torch.Tensor, cols: torch.Tensor, keep: torch.Tensor,
-                  src: torch.Tensor) -> torch.Tensor:
-    """buf with buf[r, cols[r, i]] = src[r, i] where keep[r, i]; the other
-    entries land in a scratch column past the end and are dropped (JAX's
-    mode="drop")."""
-    pad = torch.cat([buf, buf[:, :1]], dim=1)
-    idx = torch.where(keep, cols, buf.shape[1])
-    return pad.scatter(1, idx, src.to(buf.dtype))[:, : buf.shape[1]]
+@dataclasses.dataclass
+class SpecState:
+    """The static tensors of a verify (JAX's while_loop carry), updated in
+    place: the input token `cur`, its position, `done`, the tokens emitted
+    `out_len` [B], the step budget `limit` [1] on the device, the output
+    `out` [B, W + 1] and the lookup history `ctx` [B, C + 1] with its length
+    `hist_len` (each with a last, scratch column that takes the writes JAX
+    drops), and the cache, whose `length` is the state's own."""
+
+    cache: KVCache
+    cur: torch.Tensor
+    pos: torch.Tensor
+    done: torch.Tensor
+    out_len: torch.Tensor
+    limit: torch.Tensor
+    out: torch.Tensor
+    ctx: torch.Tensor
+    hist_len: torch.Tensor
+
+
+PREFIX_STEPS = 4  # the int8 verify's prefix bounds: quarters of the buffer
+
+
+def prefix_bound(need: int, s_max: int) -> int:
+    """The dequantized prefix of an int8 cache's verifies for a decode whose
+    lengths stay within `need`: the next of PREFIX_STEPS fixed bounds of an
+    s_max-slot buffer (a quarter, a half, ...). A key of the program's
+    graphs, so that a serving run, whose longest row grows chunk by chunk,
+    captures at most PREFIX_STEPS verify graphs; the cost is up to a quarter
+    of the buffer dequantized past the live keys."""
+    step = -(-s_max // PREFIX_STEPS)
+    return min(-(-need // step) * step, s_max)
+
+
+def spec_verify(params: dict, cfg: Qwen2Config, st: SpecState, *, draft_len: int, ngram: int,
+                eos_id: int, attn_impl: str, kv_bound: int) -> None:
+    """One verify of JAX's speculative loop on `st`, with no read back to the
+    host: draft from the history, one causal block of draft_len + 1 through
+    the decoder, accept the longest agreeing prefix (cut at the first eos and
+    at the budget), then write the emitted tokens and roll the rejected
+    entries back. A row that is done or out of budget verifies with q_valid
+    0 and emits nothing; once every row is, the verify also writes nothing
+    into the cache (JAX's loop has left). `kv_bound`: a host bound on the
+    cache lengths over the whole decode (an int8 cache's verify dequantizes
+    that prefix)."""
+    b = st.cur.shape[0]
+    k = draft_len
+    dev = st.cur.device
+    rows = torch.arange(b, device=dev)
+    jj = torch.arange(k + 1, device=dev)[None, :]
+    ctx = st.ctx[:, :-1]
+    draft = ngram_propose(ctx, st.hist_len, ngram, k)  # [B, k]
+    block = torch.cat([st.cur[:, None], draft], dim=1)  # [B, k + 1]
+    live = ~(st.done | (st.out_len >= st.limit))
+    q_valid = torch.where(live, k + 1, 0).to(torch.int32)
+    hidden, new = llm_extend(
+        params, cfg, embed_tokens(params, block), st.pos[:, None] + jj.to(st.pos.dtype),
+        st.cache, q_valid, und_len=k + 1, causal=True, update_cache=True, attn_impl=attn_impl,
+        in_place=True, kv_bound=kv_bound, keep=live.any().expand(b),
+    )
+    y = lm_logits(params, hidden.reshape(b * (k + 1), -1)).argmax(dim=-1).reshape(b, k + 1)
+
+    # the longest accepted draft prefix, cut at the first eos
+    a = torch.cumprod((draft == y[:, :k]).to(torch.int64), dim=1).sum(dim=1)
+    is_eos = (y == eos_id) & (jj <= a[:, None])
+    e = torch.where(is_eos.any(dim=1), is_eos.to(torch.int64).argmax(dim=1), k)
+    n_emit = torch.where(live, torch.minimum(a, e) + 1, 0)
+    # never emit (or keep cache entries) past the step budget
+    n_emit = torch.minimum(n_emit, torch.clamp(st.limit - st.out_len, min=0))
+
+    emit = jj < n_emit[:, None]
+    st.out.scatter_(1, torch.where(emit, st.out_len[:, None] + jj, st.out.shape[1] - 1), y)
+    st.ctx.scatter_(1, torch.where(emit, st.hist_len[:, None] + jj, st.ctx.shape[1] - 1), y)
+
+    # roll back the rejected entries: the block wrote k + 1, and only
+    # n_emit inputs (cur and the accepted drafts) were consumed
+    back = torch.where(live, (k + 1) - n_emit, 0).to(new.length.dtype)
+    st.cache.length.copy_(new.length - back)
+
+    y_last = y[rows, torch.clamp(n_emit - 1, min=0)]
+    st.cur.copy_(torch.where(live, y_last, st.cur))
+    st.done.copy_(st.done | (live & (y_last == eos_id)))
+    st.out_len.add_(n_emit)
+    st.pos.add_(n_emit.to(st.pos.dtype))
+    st.hist_len.add_(n_emit)
 
 
 def decode_text_spec(
@@ -78,6 +157,8 @@ def decode_text_spec(
     attn_impl: str = "auto",
     in_place: bool = False,
     stats: Optional[dict] = None,
+    program=None,
+    graph: bool = True,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Greedy decode with prompt-lookup speculation: the tokens of
     `decode_text(..., do_sample=False)` ([B, max_steps], eos-padded) and the
@@ -85,67 +166,82 @@ def decode_text_spec(
 
     Each verify writes draft_len + 1 entries past a row's length before the
     rollback, so the caller leaves that much room beyond what plain decode
-    needs (`llm_extend` raises on a write past the buffer). No row emits
-    past max_steps, and its cache holds exactly the tokens it consumed: a
-    chunked caller (the serving runtime) relies on both. `active`,
-    `in_place` and `stats` (its "forwards": the verify forwards) as in
-    `decode_text`.
+    needs (a live row that would write past the buffer raises after its
+    chunk). No row emits past max_steps, and its cache holds exactly the
+    tokens it consumed: a chunked caller (the serving runtime) relies on
+    both. The verifies run through `program` as `decode_text`'s steps do
+    (`spec_verify`, min(program.spec_chunk, max_steps) verifies a chunk); `active`,
+    `in_place`, `stats` (its "forwards": the verify forwards run) and
+    `graph` as in `decode_text`. The given cache's lengths are read once,
+    before the first chunk: with draft_len + max_steps + 1 on top, rounded
+    up by `prefix_bound`, they bound an int8 cache's dequantized prefix, a
+    key of the program's graphs.
     """
+    from bagel_tpu_torch.inference.decode_program import (
+        DecodeProgram,
+        buffers_key,
+        weights_key,
+    )
+
     b = start_tokens.shape[0]
     dev = start_tokens.device
     k = draft_len
-    if not in_place:
-        cache = cache.clone()
-    c0 = ctx_tokens.shape[1]
-    cbuf = c0 + max_steps + k + 2  # history + start + generated + slack
-    rows = torch.arange(b, device=dev)
-    ctx_len = ctx_len.to(device=dev, dtype=torch.int64)
-    ctx = torch.zeros((b, cbuf), dtype=torch.int64, device=dev)
-    ctx[:, :c0] = ctx_tokens.to(device=dev, dtype=torch.int64)
-    ctx[rows, ctx_len] = start_tokens.to(torch.int64)  # the start token joins the history
-    hist_len = ctx_len + 1
+    if max_steps <= 0:
+        return torch.full((b, 0), eos_id, dtype=start_tokens.dtype, device=dev), cache
+    prog = program if program is not None else DecodeProgram()
+    with prog.lock:  # the program's static buffers are one caller's at a time
+        n = min(prog.spec_chunk, max_steps)
+        work = cache if in_place else prog.owned_copy(cache)
+        s_max = work.max_len
+        # an int8 cache's verify dequantizes a prefix that covers every length of
+        # the decode; a bf16 verify reads the buffer itself
+        bound = (prefix_bound(int(cache.length.max()) + max_steps + k + 1, s_max)
+                 if work.k.dtype == torch.int8 else s_max)
+        c0 = ctx_tokens.shape[1]
+        width = max(s_max, max_steps)  # out: at most max_steps tokens a row
+        cwidth = max(s_max, c0) + k + 2  # the history, its start token and emitted tokens
+        key = ("spec", b, s_max, work.k.dtype, weights_key(params), n, k, ngram, eos_id, bound,
+               width, cwidth, attn_impl)
 
-    done = ~active if active is not None else torch.zeros(b, dtype=torch.bool, device=dev)
-    out = torch.full((b, max_steps + k + 1), eos_id, dtype=torch.int64, device=dev)
-    out_len = torch.zeros(b, dtype=torch.int64, device=dev)
-    cur = start_tokens.to(torch.int64)
-    pos = position_ids
-    jj = torch.arange(k + 1, device=dev)[None, :]
-    while not bool((done | (out_len >= max_steps)).all()):
-        draft = ngram_propose(ctx, hist_len, ngram, k)  # [B, k]
-        block = torch.cat([cur[:, None], draft], dim=1)  # [B, k + 1]
-        live = ~(done | (out_len >= max_steps))
-        q_valid = torch.where(live, k + 1, 0).to(torch.int32)
-        hidden, cache = llm_extend(
-            params, cfg, embed_tokens(params, block), pos[:, None] + jj.to(pos.dtype), cache,
-            q_valid, und_len=k + 1, causal=True, update_cache=True, attn_impl=attn_impl,
-            in_place=True,
-        )
-        y = lm_logits(params, hidden.reshape(b * (k + 1), -1)).argmax(dim=-1).reshape(b, k + 1)
+        def make_state():
+            def z(*shape, dtype=torch.int64):
+                return torch.zeros(shape, dtype=dtype, device=dev)
 
-        # the longest accepted draft prefix, cut at the first eos
-        a = torch.cumprod((draft == y[:, :k]).to(torch.int64), dim=1).sum(dim=1)
-        is_eos = (y == eos_id) & (jj <= a[:, None])
-        e = torch.where(is_eos.any(dim=1), is_eos.to(torch.int64).argmax(dim=1), k)
-        n_emit = torch.where(live, torch.minimum(a, e) + 1, 0)
-        # never emit (or keep cache entries) past the step budget
-        n_emit = torch.minimum(n_emit, torch.clamp(max_steps - out_len, min=0))
+            return SpecState(
+                cache=dataclasses.replace(work, length=z(b, dtype=torch.int32)), cur=z(b), pos=z(b),
+                done=z(b, dtype=torch.bool), out_len=z(b), limit=z(1), out=z(b, width + 1),
+                ctx=z(b, cwidth + 1), hist_len=z(b))
 
-        emit = jj < n_emit[:, None]
-        out = _scatter_rows(out, out_len[:, None] + jj, emit, y)
-        ctx = _scatter_rows(ctx, hist_len[:, None] + jj, emit, y)
+        def make_step(st):
+            return lambda i, gen: spec_verify(params, cfg, st, draft_len=k, ngram=ngram,
+                                              eos_id=eos_id, attn_impl=attn_impl, kv_bound=bound)
 
-        # roll back the rejected entries: the block wrote k + 1, and only
-        # n_emit inputs (cur and the accepted drafts) were consumed
-        back = torch.where(live, (k + 1) - n_emit, 0).to(cache.length.dtype)
-        cache = dataclasses.replace(cache, length=cache.length - back)
-
-        y_last = y[rows, torch.clamp(n_emit - 1, min=0)]
-        cur = torch.where(live, y_last, cur)
-        done = done | (live & (y_last == eos_id))
-        out_len = out_len + n_emit
-        pos = pos + n_emit.to(pos.dtype)
-        hist_len = hist_len + n_emit
-        if stats is not None:
-            stats["forwards"] = stats.get("forwards", 0) + 1
-    return out[:, :max_steps].to(start_tokens.dtype), cache
+        e = prog.entry(key, buffers_key(work), make_state, make_step,
+                       lambda st: st.done.fill_(True), n=n, graph=graph and dev.type == "cuda",
+                       sampling=False)
+        st = e.state
+        rows = torch.arange(b, device=dev)
+        ctx_len = ctx_len.to(device=dev, dtype=torch.int64)
+        st.cache.length.copy_(work.length)
+        st.cur.copy_(start_tokens)
+        st.pos.copy_(position_ids)
+        st.done.copy_(~active if active is not None else torch.zeros_like(st.done))
+        st.out_len.zero_()
+        st.limit.fill_(max_steps)
+        st.out.fill_(eos_id)
+        st.ctx.zero_()
+        st.ctx[:, :c0] = ctx_tokens
+        st.ctx[rows, ctx_len] = start_tokens.to(torch.int64)  # the start token joins the history
+        st.hist_len.copy_(ctx_len + 1)
+        while True:
+            prog.run(e, stats=stats)
+            # the one host read of the chunk: the tokens so far, done, out_len, lengths
+            rep = torch.cat([st.out[:, :max_steps], st.done[:, None].long(), st.out_len[:, None],
+                             st.cache.length[:, None].long()], dim=1).cpu()
+            if int(rep[:, -1].max()) > s_max:
+                raise ValueError(f"KV buffer too small: a row's length reached "
+                                 f"{int(rep[:, -1].max())} > {s_max}")
+            if bool((rep[:, max_steps].bool() | (rep[:, max_steps + 1] >= max_steps)).all()):
+                break
+        return (rep[:, :max_steps].to(device=dev, dtype=start_tokens.dtype),
+                dataclasses.replace(work, length=st.cache.length.clone()))

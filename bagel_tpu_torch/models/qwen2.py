@@ -12,9 +12,13 @@
   share buffers (`GenContext.copy()`), exactly as JAX arrays do. The
   exception is the port's own: a caller that owns its cache passes
   `in_place=True` (where JAX donates the buffer), and the block's K/V are
-  written into it. `decode_text` clones its context's cache once and then
-  writes every token in place; with `in_place=True` (the serving runtime's
-  slot cache, `chat_batch`) it does not clone at all.
+  written into it. `decode_text` copies its context's cache into its
+  decode program's own buffer and writes every token there in place; with
+  `in_place=True` (the serving runtime's slot cache, `chat_batch`) it
+  writes into the given cache.
+- `decode_text` is JAX's compiled decode loop as chunks of `decode_step`
+  on static tensors (`DecodeState`), each chunk one CUDA-graph replay of
+  an `inference.decode_program.DecodeProgram` on CUDA tensors.
 - The int8 KV cache (`kv_cache_init(dtype=torch.int8)`, JAX's `kv_quant`):
   codes `[L, B, S, KH, D]` and f32 scales `[L, B, S, KH]` per (token, KV
   head), `_kv_quantize`'s symmetric rounding. A block is quantized and
@@ -54,7 +58,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from functools import partial
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -384,7 +388,7 @@ def _layer_extend(
     ks_buf: Optional[torch.Tensor],  # [B, S, KH] f32 scales of an int8 cache, else None
     vs_buf: Optional[torch.Tensor],
     past_len: torch.Tensor,  # [B] int32 on x's device
-    past_host: List[int],  # the same lengths on the host
+    live: int,  # a host bound on the keys the block sees: max(past_len) + T
     q_valid: torch.Tensor,  # [B]
     cos: torch.Tensor,  # [B, T, D]
     sin: torch.Tensor,
@@ -392,7 +396,8 @@ def _layer_extend(
 ) -> torch.Tensor:
     """One decoder layer over a new token block; writes the block's K/V into
     k_buf/v_buf at [past_len, past_len + T) (an int8 cache: codes, and
-    scales into ks_buf/vs_buf) and returns the new x."""
+    scales into ks_buf/vs_buf) and returns the new x. The block's start is
+    clamped into the buffer, as JAX's dynamic_update_slice clamps it."""
     b, t, d = x.shape
     h = cfg.num_attention_heads
     kh = cfg.num_key_value_heads
@@ -442,8 +447,7 @@ def _layer_extend(
     cdt = torch.bfloat16 if quant else k_buf.dtype
     q = q.to(cdt)
     # append the block at per-row offsets, one indexed write a buffer
-    rows = torch.arange(b, device=x.device)[:, None]
-    at = past_len.to(torch.int64)[:, None] + torch.arange(t, device=x.device)[None, :]
+    rows, at = _block_at(past_len, t, k_buf.shape[1])
     if quant:  # quantize first, then attend over the cache's codes
         (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
         ks_buf[rows, at] = ks
@@ -459,7 +463,6 @@ def _layer_extend(
     else:
         k_use, v_use = k_buf, v_buf
         if quant:  # the live prefix, dequantized once for the layer
-            live = max(past_host) + t
             k_use = _kv_dequantize(k_buf[:, :live], ks_buf[:, :live], cdt)
             v_use = _kv_dequantize(v_buf[:, :live], vs_buf[:, :live], cdt)
         # the JAX package sends every block of more than one token to its
@@ -498,6 +501,15 @@ def _layer_extend(
     return res + m.to(res.dtype)
 
 
+def _block_at(past_len: torch.Tensor, t: int, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (rows [B, 1], slots [B, T]) a T-token block takes in an s-slot
+    buffer: [past_len, past_len + T), the start clamped into the buffer as
+    JAX's dynamic_update_slice clamps it."""
+    rows = torch.arange(past_len.shape[0], device=past_len.device)[:, None]
+    start = torch.clamp(past_len.to(torch.int64), max=s - t)
+    return rows, start[:, None] + torch.arange(t, device=past_len.device)[None, :]
+
+
 def llm_extend(
     params: dict,
     cfg: Qwen2Config,
@@ -511,6 +523,8 @@ def llm_extend(
     update_cache: bool,
     attn_impl: str = "auto",
     in_place: bool = False,
+    kv_bound: Optional[int] = None,
+    keep: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder stack over one new block of tokens.
 
@@ -520,22 +534,37 @@ def llm_extend(
     update_cache: then the block's K/V are written into the given buffers
     themselves, which the caller must own (no other context may share
     them), and the returned cache holds those buffers.
+
+    `kv_bound`: the caller's host bound on the cache lengths (at least
+    max(cache.length)); the caller then answers for the capacity, and the
+    call reads nothing back from the device (the decode program's steps).
+    Without it the lengths are read to the host and a block that would
+    overflow the buffer raises. `keep` ([B] bool, with update_cache): rows
+    where it is False end with the cache as they found it (a decode step
+    after the loop's exit): the entries the block overwrites are read once
+    before the layers and put back after them, one gather and one write a
+    buffer for the whole stack.
     """
     t = embeds.shape[1]
-    past_host = cache.length.tolist()
-    for off in past_host:
-        if off + t > cache.max_len:
-            raise ValueError(
-                f"KV buffer too small: length {off} + block {t} > {cache.max_len}"
-            )
+    if kv_bound is None:
+        past_host = cache.length.tolist()
+        for off in past_host:
+            if off + t > cache.max_len:
+                raise ValueError(
+                    f"KV buffer too small: length {off} + block {t} > {cache.max_len}"
+                )
+        kv_bound = max(past_host)
     q_valid = q_valid.to(torch.int32)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
 
     if update_cache:
         new = cache if in_place else cache.clone()
+        if keep is not None:
+            rows, at = _block_at(cache.length, t, cache.max_len)
+            held = [None if buf is None else buf[:, rows, at] for buf in new.buffers()]
     # without update_cache the per-layer scratch buffer holds only the live
     # prefix: no key past it is visible, so the bucket's tail is never copied
-    live = max(past_host) + t
+    live = min(kv_bound + t, cache.max_len)
     x = embeds
     for i in range(cfg.num_hidden_layers):
         if update_cache:
@@ -544,7 +573,7 @@ def llm_extend(
             bufs = [None if buf is None else buf[i, :, :live].clone() for buf in cache.buffers()]
         x = _layer_extend(
             cfg, und_len, causal, x, _layer_params(params["layers"], i),
-            *bufs, cache.length, past_host, q_valid, cos, sin,
+            *bufs, cache.length, live, q_valid, cos, sin,
             attn_impl=attn_impl,
         )
 
@@ -556,6 +585,11 @@ def llm_extend(
         lambda z: rms_norm(z, fin_g, cfg.rms_norm_eps),
     )
     if update_cache:
+        if keep is not None:
+            for buf, old in zip(new.buffers(), held):
+                if buf is not None:
+                    kept = keep.view((1, -1) + (1,) * (old.ndim - 2))
+                    buf[:, rows, at] = torch.where(kept, buf[:, rows, at], old)
         return x, dataclasses.replace(new, length=cache.length + q_valid)
     return x, cache
 
@@ -795,6 +829,60 @@ def train_layer_block(cfg: Qwen2Config, lp: dict, x, attend, rows, cos, sin):
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class DecodeState:
+    """The static tensors of a decode step (JAX's while_loop carry), updated
+    in place: the input token and its rope position [B], `done` [B], the
+    step counter and the step limit [1] on the device, the chunk's output
+    [B, chunk] (column i holds step i of the chunk) and the cache, whose
+    `length` [B] is the state's own."""
+
+    cache: KVCache
+    tok: torch.Tensor
+    pos: torch.Tensor
+    done: torch.Tensor
+    step: torch.Tensor
+    limit: torch.Tensor
+    out: torch.Tensor
+
+
+def decode_step(
+    params: dict, cfg: Qwen2Config, st: DecodeState, col: int,
+    generator: Optional[torch.Generator], *, eos_id: int, temperature: float,
+    do_sample: bool, early_stop: bool, frozen: bool, attn_impl: str,
+) -> None:
+    """One step of JAX's decode loop on `st`, with no read back to the host.
+
+    The loop's condition (step < limit, and with early_stop not every row
+    done) is evaluated on the device; a step past it attends with q_valid 0,
+    writes nothing into the cache, emits eos into `st.out[:, col]` and
+    leaves the rest of the state as it was. `frozen` (an `active` mask was
+    given): done rows attend with q_valid 0 too."""
+    b = st.tok.shape[0]
+    go = st.step < st.limit  # [1]
+    if early_stop:
+        go = go & ~st.done.all()
+    rows = go.expand(b) & ~st.done if frozen else go.expand(b)
+    hidden, new = llm_extend(
+        params, cfg, embed_tokens(params, st.tok)[:, None, :], st.pos[:, None], st.cache,
+        rows.to(torch.int32).contiguous(), und_len=1, causal=True, update_cache=True,
+        attn_impl=attn_impl, in_place=True, kv_bound=st.cache.max_len, keep=go.expand(b),
+    )
+    logits = lm_logits(params, hidden[:, 0])
+    if do_sample:
+        probs = torch.softmax(logits / temperature, dim=-1)
+        nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    else:
+        nxt = logits.argmax(dim=-1)
+    nxt = torch.where(st.done | ~go, eos_id, nxt)
+    st.out[:, col] = nxt
+    st.done.copy_(st.done | (go & (nxt == eos_id)))
+    st.tok.copy_(torch.where(go, nxt, st.tok))
+    st.pos.add_(go.to(st.pos.dtype))
+    st.step.add_(go.to(st.step.dtype))
+    st.cache.length.copy_(new.length)
+
+
 def decode_text(
     params: dict,
     cfg: Qwen2Config,
@@ -812,6 +900,8 @@ def decode_text(
     attn_impl: str = "auto",
     in_place: bool = False,
     stats: Optional[dict] = None,
+    program=None,
+    graph: bool = True,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Autoregressive decode. Returns [B, max_steps] tokens (eos-padded
     after stop) and the final cache.
@@ -825,43 +915,76 @@ def decode_text(
     active: optional [B] bool. Rows with active=False are frozen: they emit
     eos from the first step and their cache length never advances.
 
-    The loop owns its cache: it clones the given cache once and then writes
-    each token's K/V into that private buffer in place, where `llm_extend`
-    would clone the whole [L, B, S, KH, D] buffer per token. The given cache
-    is left untouched, so a context that shares it stays as it was. With
-    in_place=True the caller owns the given cache (JAX donates it): the
-    tokens are written into its buffers, with no clone. `stats`, if given,
-    gets the number of decoder forwards the loop ran added to its
-    "forwards".
+    The loop runs as JAX's compiled one does: `decode_step` chunk by chunk
+    through `program` (an `inference.decode_program.DecodeProgram`; a new
+    one if None), min(program.chunk, max_steps) steps a chunk, each chunk
+    one CUDA-graph replay on CUDA tensors, or its steps run eagerly on CPU
+    tensors or with graph=False (the eager loop, kept to compare against).
+    The host reads once a chunk. A live row that would write past the
+    buffer raises after its chunk.
+
+    The given cache is left untouched: the loop decodes in the program's own
+    copy of it, which the returned cache holds until the program's next
+    decode of that shape. With in_place=True the caller owns the given cache
+    (JAX donates it): the tokens are written into its buffers. `stats`, if
+    given, gets the decoder forwards the loop ran (chunks x chunk) added to
+    its "forwards".
     """
+    from bagel_tpu_torch.inference.decode_program import (
+        DecodeProgram,
+        buffers_key,
+        weights_key,
+    )
+
     b = start_tokens.shape[0]
     dev = start_tokens.device
-    if not in_place:
-        cache = cache.clone()
-    done = ~active if active is not None else torch.zeros(b, dtype=torch.bool, device=dev)
-    ones = torch.ones(b, dtype=torch.int32, device=dev)
-    out = torch.full((b, max_steps), eos_id, dtype=start_tokens.dtype, device=dev)
-    tok, pos = start_tokens, position_ids
-    for step in range(max_steps):
-        if early_stop and bool(done.all()):
-            break
-        embeds = embed_tokens(params, tok)[:, None, :]
-        q_valid = (~done).to(torch.int32) if active is not None else ones
-        hidden, cache = llm_extend(
-            params, cfg, embeds, pos[:, None], cache, q_valid,
-            und_len=1, causal=True, update_cache=True, attn_impl=attn_impl,
-            in_place=True,
-        )
-        logits = lm_logits(params, hidden[:, 0])
-        if do_sample:
-            probs = torch.softmax(logits / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        else:
-            nxt = logits.argmax(dim=-1)
-        nxt = torch.where(done, eos_id, nxt.to(tok.dtype))
-        done = done | (nxt == eos_id)
-        out[:, step] = nxt
-        tok, pos = nxt, pos + 1
-        if stats is not None:
-            stats["forwards"] = stats.get("forwards", 0) + 1
-    return out, cache
+    if max_steps <= 0:
+        return torch.full((b, 0), eos_id, dtype=start_tokens.dtype, device=dev), cache
+    prog = program if program is not None else DecodeProgram()
+    with prog.lock:  # the program's static buffers are one caller's at a time
+        n = min(prog.chunk, max_steps)
+        work = cache if in_place else prog.owned_copy(cache)
+        frozen = active is not None
+        key = ("decode", b, work.max_len, work.k.dtype, weights_key(params), n, do_sample,
+               temperature if do_sample else None, eos_id, early_stop, frozen, attn_impl)
+
+        def make_state():
+            def z(*shape, dtype=torch.int64):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            return DecodeState(
+                cache=dataclasses.replace(work, length=z(b, dtype=torch.int32)), tok=z(b),
+                pos=z(b), done=z(b, dtype=torch.bool), step=z(1), limit=z(1), out=z(b, n))
+
+        def make_step(st):
+            return lambda i, gen: decode_step(
+                params, cfg, st, i, gen, eos_id=eos_id, temperature=temperature,
+                do_sample=do_sample, early_stop=early_stop, frozen=frozen, attn_impl=attn_impl)
+
+        e = prog.entry(key, buffers_key(work), make_state, make_step,
+                       lambda st: st.limit.zero_(), n=n, graph=graph and dev.type == "cuda",
+                       sampling=do_sample)
+        st = e.state
+        st.cache.length.copy_(work.length)
+        st.tok.copy_(start_tokens)
+        st.pos.copy_(position_ids)
+        st.done.copy_(~active if frozen else torch.zeros_like(st.done))
+        st.step.zero_()
+        st.limit.fill_(max_steps)
+        cols = []
+        while True:
+            prog.run(e, generator=generator, stats=stats)
+            # the one host read of the chunk: its tokens, done, lengths, the counter
+            rep = torch.cat([st.out, st.done[:, None].long(), st.cache.length[:, None].long(),
+                             st.step.expand(b)[:, None]], dim=1).cpu()
+            cols.append(rep[:, :n])
+            if int(rep[:, n + 1].max()) > work.max_len:
+                raise ValueError(f"KV buffer too small: a row's length reached "
+                                 f"{int(rep[:, n + 1].max())} > {work.max_len}")
+            if int(rep[0, n + 2]) >= max_steps or (early_stop and bool(rep[:, n].all())):
+                break
+        toks = torch.cat(cols, dim=1)[:, :max_steps]
+        if toks.shape[1] < max_steps:  # the loop left early: eos past its exit
+            toks = torch.cat([toks, torch.full((b, max_steps - toks.shape[1]), eos_id)], dim=1)
+        return (toks.to(device=dev, dtype=start_tokens.dtype),
+                dataclasses.replace(work, length=st.cache.length.clone()))

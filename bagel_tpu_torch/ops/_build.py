@@ -8,6 +8,9 @@ report beside it
 (`build/<name>-<hash>.ptxas.txt`); ctypes loads it. Nothing here runs
 at import time. A missing or failing nvcc raises with nvcc's own error
 output: there is no fallback.
+
+`count_launch(fn)` is where each wrapper counts the launches of its kernel
+(`fn.launches`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -125,3 +130,12 @@ def load(name: str) -> ctypes.CDLL:
                 build(name)
                 lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def count_launch(fn) -> None:
+    """Add one to `fn.launches` for a launch of fn's kernel, unless the
+    current stream is capturing a CUDA graph: that call records the kernel
+    and launches nothing, and each replay of the graph launches it (counted
+    from the graph's own nodes: `inference.decode_program.replayed_launches`)."""
+    if not torch.cuda.is_current_stream_capturing():
+        fn.launches += 1

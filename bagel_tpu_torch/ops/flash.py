@@ -28,10 +28,12 @@ the layout the kernel's PV product reads.
 
 `flash_decode_kv8` is the decode step (T = 1) over an int8 KV cache (codes
 [B, S, KH, D] and f32 scales [B, S, KH] per key and KV head, as
-`models.qwen2` stores them): on CUDA the same split-KV pair, whose split
-kernel dequantizes the codes on their way into shared memory (B1-kv8); on
-the CPU its plain version `flash_decode_kv8_plain` (`kv_dequantize`, then
-the plain attention).
+`models.qwen2` stores them): on CUDA the same split-KV pair (B1-kv8), whose
+split kernel stages the codes and scales with cp.async in a ring of two
+half tiles a warp and dequantizes each landed half tile into shared memory
+while the next one's copies fly, at its own split count (`kv8_splits`); on the
+CPU its plain version `flash_decode_kv8_plain` (`kv_dequantize`, then the
+plain attention).
 """
 
 from __future__ import annotations
@@ -180,16 +182,31 @@ def flash_decode_split_plain(q, k, v, past_len, q_valid, *, splits: int,
 _sm_counts: dict = {}
 
 
+def _device_index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def _sms(device) -> int:
+    index = _device_index(device)
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
 def decode_splits(b: int, kh: int, device) -> int:
     """Blocks of the decode kernel per (batch row, KV head): enough that
     B x KH x splits blocks fill the card's SMs once (33 at B=1, KH=4 on an
     H100's 132), at most DECODE_MAX_SPLITS."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    sms = _sm_counts.get(index)
-    if sms is None:
-        sms = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return min(DECODE_MAX_SPLITS, max(1, -(-sms // (b * kh))))
+    return min(DECODE_MAX_SPLITS, max(1, -(-_sms(device) // (b * kh))))
+
+
+def kv8_splits(b: int, kh: int, device) -> int:
+    """B1-kv8's blocks per (batch row, KV head): enough for two waves of one
+    block an SM (its 205 KB of shared memory fill an SM): 8 at 8 slots,
+    where the 5 of `decode_splits` took 21.4 µs and 8 took 17.5
+    (`chip_smoke.kv8_split_sweep`; NVIDIA H100 80GB HBM3, 700 W)."""
+    return min(DECODE_MAX_SPLITS, max(1, 2 * _sms(device) // (b * kh)))
 
 
 def _to_i8(x: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
@@ -304,7 +321,7 @@ def q8_prep(q, k, v, past_len, q_valid):
     if err:
         msg = lib.flash_cached_attention_q8_error_string(err).decode()
         raise RuntimeError(f"q8_prep launch failed: {msg} ({err})")
-    q8_prep.launches += 1
+    _build.count_launch(q8_prep)
     return q8, k8, v8t, qs, ks, vs
 
 
@@ -498,7 +515,7 @@ def flash_cached_attention_q8(
     if err:
         msg = lib.flash_cached_attention_q8_error_string(err).decode()
         raise RuntimeError(f"flash_cached_attention_q8 launch failed: {msg} ({err})")
-    flash_cached_attention_q8.launches += 1
+    _build.count_launch(flash_cached_attention_q8)
     return out
 
 
@@ -577,7 +594,7 @@ def flash_cached_attention(
     if err:
         msg = lib.flash_cached_attention_error_string(err).decode()
         raise RuntimeError(f"flash_cached_attention launch failed: {msg} ({err})")
-    flash_cached_attention.launches += 1
+    _build.count_launch(flash_cached_attention)
     return out
 
 
@@ -616,6 +633,23 @@ def _check_kv8(q, k8, v8, k_scale, v_scale, past_len, q_valid) -> None:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
 
 
+def _decode_kv8(lib, q, k8, v8, k_scale, v_scale, out, past_len, q_valid, scale, stream,
+                splits: int) -> int:
+    """Launch B1-kv8's pair with `splits` blocks a (row, KV head) into
+    `out`; returns the library's error code."""
+    b, _, h, d = q.shape
+    s, kh = k8.shape[1], k8.shape[2]
+    part_acc = torch.empty(b * splits * h * d, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(b * splits * h * 2, dtype=torch.float32, device=q.device)
+    return lib.flash_decode_kv8(
+        q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), past_len.data_ptr(),
+        q_valid.data_ptr(), b, s, h, kh, splits, q.stride(0), q.stride(2),
+        *k8.stride()[:3], *v8.stride()[:3], *k_scale.stride(), *v_scale.stride(),
+        out.stride(0), out.stride(2), scale, stream,
+    )
+
+
 def flash_decode_kv8(
     q: torch.Tensor,  # [B, 1, H, D] bf16
     k8: torch.Tensor,  # [B, S, KH, D] int8 codes
@@ -642,25 +676,17 @@ def flash_decode_kv8(
         raise ValueError(f"no kernel for device {q.device}")
     _check_kv8(q, k8, v8, k_scale, v_scale, past_len, q_valid)
     b, _, h, d = q.shape
-    s, kh = k8.shape[1], k8.shape[2]
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    splits = decode_splits(b, kh, q.device)
     lib = _library()
-    part_acc = torch.empty(b * splits * h * d, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(b * splits * h * 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.flash_decode_kv8(
-            q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), past_len.data_ptr(),
-            q_valid.data_ptr(), b, s, h, kh, splits, q.stride(0), q.stride(2),
-            *k8.stride()[:3], *v8.stride()[:3], *k_scale.stride(), *v_scale.stride(),
-            out.stride(0), out.stride(2), d**-0.5 if scale is None else scale,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        err = _decode_kv8(lib, q, k8, v8, k_scale, v_scale, out, past_len, q_valid,
+                          d**-0.5 if scale is None else scale,
+                          torch.cuda.current_stream(q.device).cuda_stream,
+                          kv8_splits(b, k8.shape[2], q.device))
     if err:
         msg = lib.flash_cached_attention_error_string(err).decode()
         raise RuntimeError(f"flash_decode_kv8 launch failed: {msg} ({err})")
-    flash_decode_kv8.launches += 1
+    _build.count_launch(flash_decode_kv8)
     return out
 
 

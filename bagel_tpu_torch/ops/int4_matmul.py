@@ -175,7 +175,7 @@ def _run(x, w_p4, scale4, bias, rps: int) -> torch.Tensor:
     if err:
         msg = _build.load(KERNEL).int4_matmul_error_string(err).decode()
         raise RuntimeError(f"int4_matmul launch failed: {msg} ({err})")
-    int4_matmul.launches += 1
+    _build.count_launch(int4_matmul)
     return out
 
 

@@ -84,7 +84,7 @@ def quantize_rows(x: torch.Tensor):
     if err:
         msg = lib.int8_matmul_error_string(err).decode()
         raise RuntimeError(f"quantize_rows launch failed: {msg} ({err})")
-    quantize_rows.launches += 1
+    _build.count_launch(quantize_rows)
     return xq, xs
 
 
@@ -191,7 +191,7 @@ def int8_matmul(
     if err:
         msg = lib.int8_matmul_error_string(err).decode()
         raise RuntimeError(f"int8_matmul launch failed: {msg} ({err})")
-    int8_matmul.launches += 1
+    _build.count_launch(int8_matmul)
     return out
 
 

@@ -263,7 +263,7 @@ def sparse_packed_attention(
     if err:
         msg = lib.sparse_packed_attention_error_string(err).decode()
         raise RuntimeError(f"sparse_packed_attention launch failed: {msg} ({err})")
-    sparse_packed_attention.launches += 1
+    _build.count_launch(sparse_packed_attention)
     return out
 
 

@@ -7,7 +7,9 @@ the engine's `kv_dtype`: int8 with `kv_quant`) and a scheduler thread that
   cache rows while the other rows keep their live sessions (the ragged
   machinery of `BagelEngine.chat_batch`);
 - decodes every active slot together in chunks of `decode_chunk` steps
-  (`decode_text(active=...)`, or `decode_text_spec` with `speculative=K`);
+  (`decode_text(active=...)`, or `decode_text_spec` with `speculative=K`),
+  each through the runtime's `DecodeProgram` (JAX's `_decode_chunk_jit` /
+  `_decode_spec_chunk_jit`): CUDA-graph replays over the slot cache;
 - retires rows that emit eos or exhaust their budget and refills the slots
   from the queue;
 - runs image-generation jobs (text-to-image, edit; `generate_batch` for up
@@ -39,6 +41,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from bagel_tpu_torch.inference.decode_program import DecodeProgram
 from bagel_tpu_torch.inference.engine import _bucket, gen_batch_key
 from bagel_tpu_torch.inference.speculative import decode_text_spec
 from bagel_tpu_torch.models import qwen2
@@ -112,6 +115,7 @@ class ServingRuntime:
         speculative: int = 0,
         ngram: int = 3,
         gen_batch: int = 1,
+        graph: bool = True,
     ):
         """`engine`: a `BagelEngine`; the slot cache lives on its device.
         speculative=K: prompt-lookup speculative decode in every chunk (each
@@ -124,7 +128,13 @@ class ServingRuntime:
         that carries images), prefill_blocks (the batched extends of
         admissions: one per image round, one for the text) and
         decode_forwards (decoder forwards of the decode chunks: a step of
-        one token a row, or a speculative verify of K + 1)."""
+        one token a row, or a speculative verify of K + 1, past the chunk's
+        exit included: the program runs whole chunks).
+
+        Each decode chunk runs through the runtime's own `DecodeProgram`
+        (`self.decode`: one CUDA-graph replay over the slot cache, captured
+        again when `_recover_cache` replaces the cache); graph=False runs
+        the same steps eagerly (to compare against)."""
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh-sharded slot cache is not ported yet (ROADMAP A8, parallelism)"
@@ -136,6 +146,8 @@ class ServingRuntime:
         self.speculative = speculative
         self.ngram = ngram
         self.gen_batch = gen_batch
+        self.graph = graph
+        self.decode = DecodeProgram(chunk=decode_chunk)
         self.hist = np.zeros((slots, engine.max_kv), np.int64)
         self.hist_len = np.zeros(slots, np.int64)
         self.cache: KVCache = self._new_cache()
@@ -215,6 +227,7 @@ class ServingRuntime:
                 self.slot_state[i] = None
                 if not s.req.future.done():
                     s.req.future.set_error(err)
+        self.decode.release(self.cache)
         self.cache = self._new_cache()
 
     def _retire(self, i: int):
@@ -371,7 +384,7 @@ class ServingRuntime:
         counted: dict = {}
         common = dict(max_steps=self.decode_chunk, eos_id=eos,
                       active=torch.as_tensor(active, device=dev), attn_impl=eng.attn_impl,
-                      in_place=True, stats=counted)
+                      in_place=True, stats=counted, program=self.decode, graph=self.graph)
         start_t, pos_t = torch.as_tensor(start, device=dev), torch.as_tensor(pos, device=dev)
         llm = eng.params["llm"]
         if self.speculative > 0:

@@ -1,10 +1,12 @@
-"""The kernels one call runs on the card, read from a CUDA graph.
+"""The kernels a CUDA graph launches, read from its nodes.
 
-One call of fn() is captured into a CUDA graph and its nodes are read back
-through the CUDA driver API (libcuda): each kernel node by its function's
-(mangled) name, in launch order, any other node (a memory copy or set) by
-its type. Unlike a profiler session, which now and then records no device
-activity at all, the capture either lists every launch or raises.
+`kernels_on_card(fn)` captures one call of fn() into a CUDA graph and reads
+its nodes back through the CUDA driver API (libcuda): each kernel node by
+its function's (mangled) name, in launch order, any other node (a memory
+copy or set) by its type. Unlike a profiler session, which now and then
+records no device activity at all, the capture either lists every launch or
+raises. `kernel_counts(graph)` counts the kernel nodes of a graph captured
+with `keep_graph=True` by name (what each replay launches).
 
     from bagel_tpu_torch.utils.cuda_graph import kernels_on_card
     names = kernels_on_card(lambda: flash.flash_cached_attention(q, k, v, p, n, causal=True))
@@ -12,6 +14,7 @@ activity at all, the capture either lists every launch or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -82,20 +85,44 @@ def kernels_on_card(fn) -> list:
     with torch.cuda.graph(g):
         fn()
     call = _driver()
+    known: dict = {}
     names = []
     for node in _ordered(call, ctypes.c_void_p(g.raw_cuda_graph())):
-        kind = ctypes.c_int(-1)
-        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
-        if kind.value != 0:
-            names.append(_NODE_TYPES.get(kind.value, f"node type {kind.value}"))
-            continue
-        params = _KernelNodeParams()
-        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(params))
+        kind, name = _node(call, node, known)
+        names.append(name if kind == 0 else _NODE_TYPES.get(kind, f"node type {kind}"))
+    del g
+    return names
+
+
+def _node(call, node, known: dict) -> tuple:
+    """(the node's type, its kernel's name or None); `known` caches the names
+    by function."""
+    kind = ctypes.c_int(-1)
+    call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+    if kind.value != 0:
+        return kind.value, None
+    params = _KernelNodeParams()
+    call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(params))
+    fn = (params.func, params.kern)
+    if fn not in known:
         name = ctypes.c_char_p()
         if params.func:
             call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params.func))
         else:
             call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params.kern))
-        names.append(name.value.decode())
-    del g
-    return names
+        known[fn] = name.value.decode()
+    return 0, known[fn]
+
+
+def kernel_counts(graph: "torch.cuda.CUDAGraph") -> collections.Counter:
+    """The kernel nodes of a captured graph (made with keep_graph=True), by
+    kernel name: what one replay launches."""
+    call = _driver()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(count))
+    known: dict = {}
+    kinds = (_node(call, node, known) for node in nodes)
+    return collections.Counter(name for kind, name in kinds if kind == 0)

@@ -37,8 +37,10 @@ Phases (the first failure exits non-zero, and no result line is printed):
                 against kv_dequantize + the plain attention: edge cases and
                 the 8-slot serving shape (ragged pasts 50-4975 of an
                 8192-slot cache), NaN scales and random codes past every
-                live end, bit-identical to the bf16 pair on the
-                dequantized view (control: one row's scales taken as 1);
+                live end, bit-identical to the bf16 pair at B1-kv8's splits
+                (kv8_splits) on the dequantized view (control: one row's
+                scales taken as 1), timed against its bytes bound and
+                against B1's bf16 pair over the same live keys;
              3b B3 sparse_packed_attention (control: two packed images merged
                 into one segment; the full-tile flags timed against the same
                 launch without them; the SigLIP shape timed against SDPA in
@@ -71,9 +73,14 @@ Phases (the first failure exits non-zero, and no result line is printed):
              L x (2 + 7).
   6. vqa     image understanding through BagelEngine.__call__ on the same
              weights: a seeded 980 px image and a question, 32 greedy decode
-             tokens at most; B3 launches once per SigLIP layer (27), B1
-             L x (2 prefills + decode steps); the first decode step's logits
-             through the kernels vs the dense path; the pieces' times.
+             tokens at most, decoded through the engine's decode program
+             (CUDA graphs of 16 steps); B3 launches once per SigLIP layer
+             (27), B1 L x (2 prefills + the capture's warm-up step + decode
+             steps), the decode steps in the program's whole chunks and
+             launched by its replays, which are counted from the graph's
+             kernel nodes (L x decode steps of them); the first decode
+             step's logits through the kernels vs the dense path; the
+             pieces' times.
   6a. taylorseer  phase 5's image with every step full (first_enhance 7):
              its latent equal to phase 5's; a 50-timestep 1024 px __call__
              with the default step cache, B1 L x (2 + 19), against the same
@@ -97,7 +104,10 @@ Phases (the first failure exits non-zero, and no result line is printed):
              the plain versions (and, as a control, the plain path at another
              key tile), w8a8 vs bf16; seconds per image and peak memory.
   8. int4    the weights quantized to int4 and fused, the VQA of phase 6
-             through __call__: B4 L x 4 x decode steps, B1 and B3 as in 6; the
+             through __call__: B4 L x 4 x (the warm-up step + decode steps)
+             (whole chunks, as in 6; B4 captured in the decode program's
+             graphs and its replays counted from their nodes), B1 and B3 as
+             in 6; the
              first decode step's logits through the kernels vs the plain
              versions; ms per decode token.
   9. serve   the serving path on phase 5's weights: a ServingRuntime (8
@@ -106,18 +116,35 @@ Phases (the first failure exits non-zero, and no result line is printed):
              driven by urllib from client threads: (a) 8 chats (2 on the
              VQA image as PNG, 6 text-only of 20-200 prompt tokens, 32
              tokens each), a streaming chat and a 1024 px generate at once,
-             B1 L x (prefill blocks + decode forwards + 2 + 7), B3 LV x
-             the runtime's packed SigLIP passes (all runs); (b) the 8
-             chats on a second engine over the same parameter tensors with
+             B1 L x (prefill blocks + decode forwards + the decode
+             program's warm-up steps, one a capture + 2 + 7), B3 LV x the
+             runtime's packed SigLIP passes (all runs); (b) the 8 chats on
+             a second engine over the same parameter tensors with
              kv_quant=True: B1 L x prefill blocks (none at T = 1), B1-kv8 L
-             x decode steps; (c) the 8 chats with speculative=4: B1 L x
-             (prefill blocks + verify forwards). Every reply 200, /v1/stats
+             x (decode steps + warm-up steps); (c) the 8 chats with
+             speculative=4: B1 L x (prefill blocks + verify forwards +
+             warm-up verifies); the replays' launches counted from the
+             graphs' kernel nodes. Every reply 200, /v1/stats
              exact; the first decode step's and a T = 5 verify block's
              logits of an 8-row slot cache prefilled as the runtime does,
              kernels vs plain over a bf16 and an int8 cache, int8 vs bf16
              (control: one row's scales taken as 1); each answer against
              the request alone (reported);
              tokens/s at 8 slots against one; latencies; cache GiB.
+  9d. decode program  the decode program (CUDA graphs of decode chunks)
+             against the eager loop (graph=False: the same steps without a
+             graph) on phase 9's weights: greedy tokens identical for
+             gen_text (one row, 32 tokens) and for the 8-slot runtime over a
+             bf16 cache, an int8 cache, with speculative=4 and with int8 and
+             speculative=4 (captures and chunk times); an 8-row slot
+             cache decoded 20 steps in 16-step chunks with one row frozen:
+             tokens and lengths identical (control: a program whose 4th
+             step attends with the frozen row's q_valid on must fail); no
+             replay syncs with the host (set_sync_debug_mode("error")); ms
+             a token at one row and a step at 8 slots, eager and program
+             (and the program captured without keep, its put-back's cost),
+             tokens/s at 8 slots, capture seconds and graph pool GiB, the
+             card's idle share over a 16-step decode (torch.profiler).
  10. train   training at full width and TRAIN_LAYERS of 28 LLM layers (fp32
              state does not fit deeper; the phase frees phase 9's model
              first): (a) B3's gradient (sparse_packed_attention_train: the
@@ -131,7 +158,9 @@ Phases (the first failure exits non-zero, and no result line is printed):
              (the packer, TRAIN_TOKENS a step): the forward against the
              chunked plain version, its device time, its operations bound
              over the visible pairs, SDPA with the boolean mask in turns,
-             and the recompute backward's time and peak memory; (c) a
+             the recompute backward's time and peak memory, and SDPA's
+             backward under autograd (at the full length, or its half if
+             that does not fit); (c) a
              parquet corpus of seeded images (text-to-image rows and edit
              chains, an edit chain in every sequence) through the driver's
              loader (VAE encode on the card): the model gate,
@@ -147,9 +176,10 @@ Phases (the first failure exits non-zero, and no result line is printed):
              parameter bit for bit.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
-int4_split_sweep() times B4 at every split of K it takes, and
-decode_split_sweep() B1's decode pair at several numbers of splits (not run
-by the smoke; their docstrings say how to run them).
+int4_split_sweep() times B4 at every split of K it takes,
+decode_split_sweep() B1's decode pair at several numbers of splits, and
+kv8_split_sweep() B1-kv8 at several numbers of splits (not run by the smoke;
+their docstrings say how to run them).
 """
 
 from __future__ import annotations
@@ -721,6 +751,19 @@ def kv8_work(past, valid, h, kh, d=128):
     return 4 * d * h * live, live * kh * 2 * (d + 4) + 2 * len(past) * h * d * 2
 
 
+def bf16_pair_at(q, k, v, past_len, q_valid):
+    """B1's bf16 decode pair at B1-kv8's splits (`kv8_splits`: the same
+    arithmetic) over the dequantized view."""
+    from bagel_tpu_torch.ops import flash
+
+    out = torch.empty_like(q)
+    splits = flash.kv8_splits(q.shape[0], k.shape[2], q.device)
+    err = flash._decode(flash._library(), q, k, v, out, past_len, q_valid, q.shape[-1]**-0.5,
+                        torch.cuda.current_stream().cuda_stream, splits)
+    check(err == 0, f"the bf16 pair at B1-kv8's splits failed ({err})")
+    return out
+
+
 def phase_kv8(cfg):
     """B1-kv8 against its plain twin (kv_dequantize + the plain attention)
     under B1's gate: edge cases, then the serving runtime's slot decode
@@ -756,7 +799,7 @@ def phase_kv8(cfg):
               f"{label}: kernel vs plain max abs {err:.3e} ({ratio:.2f} x the elementwise "
               f"limit), rel {rel:.3e} (limit {KERNEL_REL})")
         kd, vd = flash.kv8_live(k8, v8, ks, vs, pl, vl)
-        check(torch.equal(got, flash.flash_cached_attention(q, kd, vd, pl, vl, causal=True)),
+        check(torch.equal(got, bf16_pair_at(q, kd, vd, pl, vl)),
               f"{label}: not bit-identical to B1's bf16 pair on the dequantized view")
         worst = max(worst, err)
         log(f"[kernels] {label}: past={past} max abs err {err:.3e} ({ratio:.2f} x the "
@@ -775,14 +818,15 @@ def phase_kv8(cfg):
     bf16_ms = device_ms(lambda: flash.flash_cached_attention(q, kd, vd, pl, vl, causal=True), 20)
     flops, bytes_ = kv8_work(SLOT_PASTS, valid, h, kh)
     bms, by = bound_ms(flops, bytes_)
-    splits = flash.decode_splits(len(SLOT_PASTS), kh, q.device)
+    splits = flash.kv8_splits(len(SLOT_PASTS), kh, q.device)
     res = dict(shape=f"B={len(SLOT_PASTS)} S={MAX_KV} H={h} KH={kh} D=128, past={SLOT_PASTS}",
                splits=splits, max_abs_err=worst, device_ms=ms, call_ms=call_ms,
                plain_ms=plain_ms, bf16_pair_device_ms=bf16_ms, bound_ms=bms, bound_by=by,
                bytes=bytes_, gb_per_s=bytes_ / ms / 1e6)
     log(f"[kernels] kv8 control that takes row {row}'s scales as 1 is rejected: max abs "
         f"{b_err:.3e} ({b_ratio:.1f} x the elementwise limit), rel {b_rel:.3e}")
-    log(f"[kernels] kv8 at the slot shape ({res['shape']}, {splits} splits): device "
+    log(f"[kernels] kv8 at the slot shape ({res['shape']}, {splits} splits of 8 warps): "
+        f"device "
         f"{ms:.4f} ms ({bytes_ / ms / 1e6:.0f} GB/s), call {call_ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, B1's bf16 pair on the same live keys {bf16_ms:.4f} ms, bound "
         f"{bms:.4f} ms ({by}, {bytes_ / 1e6:.2f} MB); no one PyTorch call computes it")
@@ -1352,6 +1396,51 @@ def decode_split_sweep(rounds: int = 2) -> dict:
     return times
 
 
+def kv8_split_sweep(rounds: int = 2) -> dict:
+    """Not part of the smoke: B1-kv8 at the 8-slot serving shape (SLOT_PASTS
+    of an 8192-slot cache, 28/4 heads) at several numbers of splits a KV
+    head, device µs in turns (forward, back, ...), each held to the gate and
+    bit for bit to B1's bf16 pair at the same splits on the dequantized view
+    (whose µs it reports beside), with `kv8_splits`' choice.
+    Run:  python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build(); c.kv8_split_sweep()"
+    """
+    from bagel_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    valid = [1] * len(SLOT_PASTS)
+    q, k8, v8, ks, vs, pl, vl = kv8_inputs(gen, SLOT_PASTS, valid, MAX_KV)
+    kd, vd = flash.kv8_live(k8, v8, ks, vs, pl, vl)
+    want = flash.flash_decode_kv8_plain(q, k8, v8, ks, vs, pl, vl)
+    lib, out, out16 = flash._library(), torch.empty_like(q), torch.empty_like(q)
+    splits = (5, 8, 11, 16, 22, 33)
+    times = {n: [] for n in splits}
+    bf16 = {n: [] for n in splits}
+    for turn in range(rounds):
+        for n in splits if turn % 2 == 0 else splits[::-1]:
+            def call(n=n):
+                stream = torch.cuda.current_stream().cuda_stream  # the capture's, in device_ms
+                check(flash._decode_kv8(lib, q, k8, v8, ks, vs, out, pl, vl, 128**-0.5, stream,
+                                        n) == 0, f"kv8 sweep: {n} splits failed")
+                return out
+
+            def pair(n=n):
+                stream = torch.cuda.current_stream().cuda_stream
+                check(flash._decode(lib, q, kd, vd, out16, pl, vl, 128**-0.5, stream, n) == 0,
+                      f"kv8 sweep: the bf16 pair at {n} splits failed")
+                return out16
+
+            check(within_tol(*kernel_error(call(), want, valid)[1:]),
+                  f"kv8 sweep: {n} splits fail the gate")
+            check(torch.equal(call(), pair()),
+                  f"kv8 sweep: {n} splits not bit-identical to the bf16 pair at {n}")
+            times[n].append(device_ms(call, 50) * 1e3)
+            bf16[n].append(device_ms(pair, 50) * 1e3)
+    log(f"[sweep] B1-kv8 at the slot shape, device µs by splits: {json.dumps(times)}; "
+        f"the bf16 pair at each: {json.dumps(bf16)}; kv8_splits' choice: "
+        f"{flash.kv8_splits(len(SLOT_PASTS), 4, q.device)}")
+    return dict(kv8=times, bf16=bf16)
+
+
 def int4_token(cfg, m4, gen, fused, results):
     """One decode token's B4 work: a CUDA graph of the 112 launches (28
     layers x the 4 fused linears) over 28 layers' own int4 weights (3.47
@@ -1796,39 +1885,67 @@ def first_logits(engine, ctx, impl):
     return qwen2.lm_logits(llm, hidden[:, 0])
 
 
+def program_steps(steps: int, chunk: int, max_steps: int = MAX_THINK) -> int:
+    """The decode steps the decode program runs for a loop that JAX leaves
+    after `steps` steps: whole chunks of min(chunk, max_steps) steps, up to
+    the chunk in which the loop left (the later steps of that chunk attend
+    with q_valid 0 and change nothing, but launch their kernels). A capture
+    runs one more step eagerly first (its warm-up), which the gates count
+    apart."""
+    n = min(chunk, max_steps)
+    return -(-steps // n) * n
+
+
 def phase_vqa(engine, card):
     from bagel_tpu_torch.inference.engine import BagelEngine
     from bagel_tpu_torch.models import qwen2
     from bagel_tpu_torch.models.bagel import encode_vit_tokens
-    from bagel_tpu_torch.ops import flash
-    from bagel_tpu_torch.ops import sparse_flash as sf
 
     cfg = engine.cfg
     L, LV = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
     image = vqa_image()
     torch.cuda.reset_peak_memory_stats()
 
-    # the main path, through the user entry point, counted
-    flash.flash_cached_attention.launches = 0
-    sf.sparse_packed_attention.launches = 0
+    # the main path, through the user entry point, counted: each wrapper's
+    # eager launches and the launches the decode program's replays made, read
+    # from its graph's kernel nodes
+    read = counts_reset()
+    caps0 = engine.decode.captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = engine(image=image, text=QUESTION, understanding_output=True,
                  max_think_token_n=MAX_THINK)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    b1, b3 = flash.flash_cached_attention.launches, sf.sparse_packed_attention.launches
+    counts, replayed = read(), read.replayed()
+    b1, b3 = counts["b1"], counts["b3"]
+    caps = engine.decode.captures - caps0
     peak = torch.cuda.max_memory_allocated()
     answer = out["text"]
     n_tok = len(answer.split())  # MockTokenizer.decode joins ids with spaces
     steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK  # the eos step counts
+    run = program_steps(steps, engine.decode.chunk)  # the program's whole chunks
+    want = L * (2 + caps + run)
     log(f"[vqa] __call__ {VQA_PX} px + {len(QUESTION)}-char question, {MAX_THINK} tokens at "
         f"most: {total_s:.2f} s, answer of {n_tok} tokens, B3 launches {b3} (expected {LV}), "
-        f"B1 launches {b1} (expected {L} x (2 prefills + {steps} decode steps) = "
-        f"{L * (2 + steps)}), peak memory {peak / 2**30:.2f} GiB")
+        f"B1 launches {b1} (expected {L} x (2 prefills + {caps} capture warm-up steps + {run} "
+        f"decode steps: {steps} of the loop in chunks of {engine.decode.chunk}) = {want}; "
+        f"{replayed['b1']} of them replayed from the graph's nodes, expected {L * run}), peak "
+        f"memory {peak / 2**30:.2f} GiB")
     check(out["image"] is None and n_tok > 0, f"empty answer {answer!r}")
     check(b3 == LV, f"B3 launch count {b3} != {LV}")
-    check(b1 == L * (2 + steps), f"B1 launch count {b1} != {L * (2 + steps)}")
+    check(b1 == want, f"B1 launch count {b1} != {want}")
+    check(replayed["b1"] == L * run,
+          f"B1 launches by the graph's replays {replayed['b1']} != {L * run}")
+    # the same answer again: the decode program's graph is captured now
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = engine(image=image, text=QUESTION, understanding_output=True,
+                  max_think_token_n=MAX_THINK)["text"]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(warm == answer, "a second __call__ gave another answer")
+    log(f"[vqa] the same __call__ again (its decode replays the captured chunk): {warm_s:.2f} s")
 
     # the same question through the dense path: the first step's logits and
     # the greedy tokens
@@ -1872,10 +1989,11 @@ def phase_vqa(engine, card):
     log(f"[vqa] on {card}: SigLIP encode {vit_ms:.1f} ms ({n} patches, {LV} layers); "
         f"vit-block prefill {prefill_ms:.1f} ms (T={t}, {n + 2} valid); question prefill "
         f"{question_ms:.1f} ms ({ctx.kv_len - img_ctx.kv_len} tokens after "
-        f"{img_ctx.kv_len}); decode "
+        f"{img_ctx.kv_len}); decode through the decode program "
         f"{decode_ms:.2f} ms per token (host clock, {steps} steps); total __call__ "
         f"{total_s:.2f} s; peak {peak / 2**30:.2f} GiB")
-    return dict(b1=b1, b3=b3, total_s=total_s, peak_gib=peak / 2**30, vit_ms=vit_ms,
+    return dict(b1=b1, b3=b3, total_s=total_s, warm_s=warm_s, peak_gib=peak / 2**30,
+                vit_ms=vit_ms,
                 prefill_ms=prefill_ms, question_ms=question_ms, decode_ms=decode_ms,
                 steps=steps, logits_rel=rel, tokens_agree=agree)
 
@@ -2216,6 +2334,12 @@ def quantized_engine(engine, mode):
 
 
 def counts_reset():
+    """Every launch count set to 0: each wrapper's `.launches` (its eager
+    launches, a capture's warm-up step included) and the decode programs'
+    replayed kernels. Returns read(): each kernel's launches since, eager
+    plus replayed, as the graphs' kernel nodes list the replays; and
+    read.replayed(), the replayed part alone."""
+    from bagel_tpu_torch.inference import decode_program
     from bagel_tpu_torch.ops import flash, int4_matmul, int8_matmul, sparse_flash
 
     fns = dict(b1=flash.flash_cached_attention, b2=flash.flash_cached_attention_q8,
@@ -2224,7 +2348,16 @@ def counts_reset():
                prep=flash.q8_prep, kv8=flash.flash_decode_kv8)
     for fn in fns.values():
         fn.launches = 0
-    return lambda: {k: fn.launches for k, fn in fns.items()}
+    decode_program.replayed_kernels.clear()
+
+    def replayed():
+        return {k: decode_program.replayed_launches(fn) for k, fn in fns.items()}
+
+    def read():
+        return {k: fn.launches + n for (k, fn), n in zip(fns.items(), replayed().values())}
+
+    read.replayed = replayed
+    return read
 
 
 def linear_glue(qeng, rows):
@@ -2362,19 +2495,27 @@ def phase_vqa_int4(engine, card):
                    max_think_token_n=MAX_THINK)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        counts = read()
+        counts, replayed = read(), read.replayed()
+        caps = qeng.decode.captures  # a new engine: its program's captures are this call's
         peak = torch.cuda.max_memory_allocated()
         answer = out["text"]
         n_tok = len(answer.split())
         steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK
-        want = dict(b1=L * (2 + steps), b2=0, b3=LV, b4=L * 4 * steps, b5=0, quant=0, prep=0,
-                    kv8=0)
+        run = program_steps(steps, qeng.decode.chunk)  # the program's whole chunks
+        want = dict(b1=L * (2 + caps + run), b2=0, b3=LV, b4=L * 4 * (caps + run), b5=0,
+                    quant=0, prep=0, kv8=0)
         log(f"[vqa int4] __call__ {VQA_PX} px + question, {MAX_THINK} tokens at most: "
             f"{total_s:.2f} s, answer of {n_tok} tokens, peak memory {peak / 2**30:.2f} GiB; "
-            f"launches {counts} (expected B4 {L} x 4 fused linears x {steps} decode steps = "
-            f"{want['b4']}, B1 {L} x (2 + {steps}) = {want['b1']}, B3 {LV})")
+            f"launches {counts} (expected B4 {L} x 4 fused linears x ({caps} capture warm-up "
+            f"steps + {run} decode steps ({steps} of the loop in chunks of "
+            f"{qeng.decode.chunk})) = {want['b4']}, B1 {L} x (2 + {caps} + {run}) = "
+            f"{want['b1']}, B3 {LV}); replayed from the graph's nodes: B4 {replayed['b4']}, B1 "
+            f"{replayed['b1']} (expected {L * 4 * run}, {L * run})")
         check(out["image"] is None and n_tok > 0, f"int4: empty answer {answer!r}")
         check(counts == want, f"int4 launch counts {counts} != {want}")
+        check((replayed["b4"], replayed["b1"]) == (L * 4 * run, L * run),
+              f"int4: launches by the graph's replays {replayed} != B4 {L * 4 * run}, "
+              f"B1 {L * run}")
 
         ctx = vqa_context(qeng, image)
         kern = first_logits(qeng, ctx, "auto")
@@ -2390,8 +2531,9 @@ def phase_vqa_int4(engine, card):
         decode_ms = (time.perf_counter() - t0) * 1e3 / steps
         check(again == answer, "int4: gen_text on the same context gave another answer")
         log(f"[vqa int4] on {card}: first decode step logits, kernels vs plain versions "
-            f"(B4 plain, dense attention): rel err {rel:.3e} (tol {LOGITS_TOL}); decode "
-            f"{decode_ms:.2f} ms per token (host clock, {steps} steps); total __call__ "
+            f"(B4 plain, dense attention): rel err {rel:.3e} (tol {LOGITS_TOL}); decode through "
+            f"the decode program {decode_ms:.2f} ms per token (host clock, {steps} steps); "
+            f"total __call__ "
             f"{total_s:.2f} s")
     del qeng, ctx
     torch.cuda.empty_cache()
@@ -2477,7 +2619,9 @@ def run_serving(engine, label, chats, extra=(), slots=SERVE_SLOTS, speculative=0
     """A ServingRuntime and the HTTP server on 127.0.0.1 (an ephemeral
     port) in this process; the chats and the extra (path, body) requests
     sent at once from client threads with urllib. Every launch count is set
-    to 0 just before the runtime starts and read once every reply is in.
+    to 0 just before the runtime starts and read once every reply is in
+    (eager launches, and the decode program's replays read from its graphs'
+    nodes).
     Any reply that is not 200, an error event in a stream, or a stats
     counter that disagrees with the replies fails the phase. Both threads
     are stopped before it returns."""
@@ -2560,7 +2704,8 @@ def run_serving(engine, label, chats, extra=(), slots=SERVE_SLOTS, speculative=0
     check(got == want, f"serve ({label}): /v1/stats {got} != the replies' {want}")
     decode_s = sum(chunk_s)
     res = dict(label=label, answers=answers, stream=stream, tokens=tokens, launches=counts,
-               stats=stats, wall_s=wall, peak_gib=peak, cache_gib=cache_gib, gen_s=gen_s,
+               captures=rt.decode.captures, stats=stats, wall_s=wall, peak_gib=peak,
+               cache_gib=cache_gib, gen_s=gen_s,
                chunks=len(chunk_s), chunk_ms_median=1e3 * float(np.median(chunk_s)),
                chunk_ms_max=1e3 * max(chunk_s), latency_s_median=float(np.median(latency)),
                latency_s_max=max(latency), decode_s=decode_s,
@@ -2572,7 +2717,8 @@ def run_serving(engine, label, chats, extra=(), slots=SERVE_SLOTS, speculative=0
         f"{stats['prefill_blocks']} prefill blocks, {res['tokens_per_s']:.1f} tokens/s over the "
         f"chunks, latency {res['latency_s_median']:.2f} s median / {res['latency_s_max']:.2f} max"
         + (f", generate {gen_s:.2f} s" if gen_s is not None else "")
-        + f"; slot cache {cache_gib:.2f} GiB, peak {peak:.2f} GiB; launches {counts}")
+        + f"; slot cache {cache_gib:.2f} GiB, peak {peak:.2f} GiB; launches {counts} "
+          f"({rt.decode.captures} decode program captures, each with a warm-up step)")
     return res
 
 
@@ -2651,21 +2797,24 @@ def phase_serve(engine, card):
     runs = {}
     a = runs["a"] = run_serving(engine, "a: bf16 cache", chats, extra)
     want = bf16_counts(b1=L * (a["stats"]["prefill_blocks"] + a["stats"]["decode_forwards"]
-                               + 2 + NUM_TIMESTEPS - 1), b3=LV * a["stats"]["vit_passes"])
+                               + a["captures"] + 2 + NUM_TIMESTEPS - 1),
+                       b3=LV * a["stats"]["vit_passes"])
     check(a["launches"] == want, f"serve (a) launch counts {a['launches']} != {want} (B1 = "
-          f"{L} x (prefill blocks + decode forwards + the image's 2 + {NUM_TIMESTEPS - 1}), B3 = "
-          f"{LV} x the packed SigLIP passes)")
+          f"{L} x (prefill blocks + decode forwards + capture warm-up steps + the image's 2 + "
+          f"{NUM_TIMESTEPS - 1}), B3 = {LV} x the packed SigLIP passes)")
     b = runs["b"] = run_serving(kv_engine, "b: int8 cache", chats)
     want = bf16_counts(b1=L * b["stats"]["prefill_blocks"], b3=LV * b["stats"]["vit_passes"],
-                       kv8=L * b["stats"]["decode_forwards"])
+                       kv8=L * (b["stats"]["decode_forwards"] + b["captures"]))
     check(b["launches"] == want, f"serve (b) launch counts {b['launches']} != {want} (B1 at "
-          f"T = 1 never; B1-kv8 = {L} x the decode steps; B3 = {LV} x the SigLIP passes)")
+          f"T = 1 never; B1-kv8 = {L} x (the decode steps + capture warm-up steps); B3 = {LV} "
+          f"x the SigLIP passes)")
     c = runs["c"] = run_serving(engine, f"c: speculative={SERVE_SPECULATIVE}", chats,
                                 speculative=SERVE_SPECULATIVE)
-    want = bf16_counts(b1=L * (c["stats"]["prefill_blocks"] + c["stats"]["decode_forwards"]),
-                       b3=LV * c["stats"]["vit_passes"])
+    want = bf16_counts(b1=L * (c["stats"]["prefill_blocks"] + c["stats"]["decode_forwards"]
+                               + c["captures"]), b3=LV * c["stats"]["vit_passes"])
     check(c["launches"] == want, f"serve (c) launch counts {c['launches']} != {want} (B1 = "
-          f"{L} x (prefill blocks + verify forwards), B3 = {LV} x the SigLIP passes)")
+          f"{L} x (prefill blocks + verify forwards + capture warm-up verifies), B3 = {LV} x "
+          f"the SigLIP passes)")
     check(all(r["stats"]["vit_passes"] >= 1 for r in runs.values()),
           "serve: a run with two image chats made no packed SigLIP pass")
     one = run_serving(engine, "one slot", chats[2:3], slots=1)
@@ -2757,6 +2906,282 @@ def phase_serve(engine, card):
     log(f"[serve] on {card}: " + json.dumps(dict(summary, parity=parity, **gate)))
     return dict(runs=summary, parity=parity, **gate,
                 launches={k: runs[k]["launches"] for k in runs})
+
+
+# ---------------------------------------------------------------------------
+# phase 9d: the decode program against the eager loop
+# ---------------------------------------------------------------------------
+
+
+DP_EXIT_STEPS = 20  # the exit gate: 16-step chunks, 12 steps past the exit
+
+
+@contextlib.contextmanager
+def strict_replays():
+    """Every replay of a decode program under torch.cuda.set_sync_debug_mode
+    ("error"): an operation inside it that syncs with the host raises. Yields
+    the count of replays made."""
+    from bagel_tpu_torch.inference.decode_program import DecodeProgram
+
+    real = DecodeProgram._replay
+    made = [0]
+
+    def strict(self, e):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(self, e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        made[0] += 1
+
+    DecodeProgram._replay = strict
+    try:
+        yield made
+    finally:
+        DecodeProgram._replay = real
+
+
+def idle_share(fn, steps: int = 1):
+    """The card's idle share while fn() runs, from torch.profiler's kernel
+    records: 1 - (the union of the kernels' intervals) / (the first start to
+    the last end), with the kernels a step (of `steps`) and the eight that
+    took the most device time (µs a step); None if every session recorded
+    no kernel."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_TRIES):
+        with profile_session(attempt) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.time_range.end > e.time_range.start)
+        if spans:
+            busy, (lo, hi) = 0.0, spans[0]
+            first, last = spans[0][0], max(end for _, end in spans)
+            for a, b in spans[1:]:
+                if a > hi:
+                    busy, lo, hi = busy + hi - lo, a, b
+                else:
+                    hi = max(hi, b)
+            busy += hi - lo
+            by_name: dict = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    name = short_name(e.name) if e.name.startswith("_Z") else e.name[:60]
+                    by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / steps
+            top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+            return dict(idle=1.0 - busy / (last - first), window_us=last - first,
+                        kernels_a_step=len(spans) / steps, busy_us_a_step=busy / steps,
+                        top_us_a_step=top)
+    return None
+
+
+def served_answers(engine, chats, *, speculative, graph):
+    """The 8 chats through a ServingRuntime in this process (no HTTP): the
+    answers, the decode chunks' host ms, tokens/s over them, and the
+    runtime's program."""
+    from bagel_tpu_torch.serving.runtime import ServingRuntime
+    from bagel_tpu_torch.serving.server import decode_png
+
+    _, vit_tf = serve_transforms(engine.cfg)
+    rt = ServingRuntime(engine, slots=SERVE_SLOTS, decode_chunk=SERVE_CHUNK,
+                        max_new_default=SERVE_TOKENS, speculative=speculative, graph=graph)
+    chunk_s, step = [], rt._decode_step
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+
+    rt._decode_step = timed_step
+    rt.start()
+    try:
+        futs = [rt.submit_chat(b["prompt"], image=decode_png(b["image"], vit_tf)
+                               if b.get("image") else None) for b in chats]
+        answers = [f.result(timeout=900) for f in futs]
+    finally:
+        rt.stop()
+    tokens = sum(len(a.split()) for a in answers)
+    # steady: every slot busy, a 16-step chunk (the fastest: no capture in it)
+    return dict(answers=answers, chunks=len(chunk_s), forwards=rt.stats["decode_forwards"],
+                chunk_ms_median=1e3 * float(np.median(chunk_s)), chunk_ms_min=1e3 * min(chunk_s),
+                chunk_ms_max=1e3 * max(chunk_s),
+                tokens_per_s=tokens / sum(chunk_s),
+                steady_tokens_per_s=SERVE_SLOTS * SERVE_CHUNK / min(chunk_s), program=rt.decode)
+
+
+def phase_decode_program(engine, card, vqa):
+    """Phase 9d: the decode program (CUDA graphs of chunks of decode steps)
+    against the eager loop (graph=False, the same steps without a graph), on
+    phase 9's weights:
+    - greedy tokens identical for gen_text (one row, 32 tokens, the VQA
+      context), and for the 8-slot runtime over a bf16 cache, an int8 cache,
+      with speculative=4 and with both (the int8 verify's graphs are keyed
+      by its prefix bound: captures and chunk times recorded);
+    - the exit: an 8-row slot cache (phase 9's chats prefilled as the
+      runtime admits them) decoded for DP_EXIT_STEPS steps with one row
+      frozen: tokens and final lengths identical; the control, a program
+      whose 4th step attends with the frozen row's q_valid on, fails that
+      gate;
+    - no replay syncs with the host (set_sync_debug_mode("error"));
+    - ms per token at one row and ms per step at 8 slots, eager and
+      program, and the program captured without `keep` (the put-back of the
+      entries a step past the exit would overwrite); tokens/s at 8 slots;
+      capture seconds and graph pool GiB; the card's idle share over a
+      16-step decode at 8 slots, eager and program (a torch.profiler
+      trace)."""
+    from bagel_tpu_torch.inference.decode_program import DecodeProgram
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.serving.runtime import Future, ServingRuntime, _ChatRequest
+    from bagel_tpu_torch.serving.server import decode_png
+
+    cfg = engine.cfg
+    llm = engine.params["llm"]
+    kv_engine = BagelEngine(engine.params, cfg, engine.tokenizer, engine.new_token_ids,
+                            max_kv=MAX_KV, device=DEVICE, kv_quant=True)
+    res = {}
+    with strict_replays() as replays:
+        # gen_text, one row
+        ctx = vqa_context(engine, vqa_image())
+        texts, ms = {}, {}
+        for graph in (False, True, True):  # the first program call may capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            texts[graph] = engine.gen_text(ctx, max_length=MAX_THINK, graph=graph)
+            torch.cuda.synchronize()
+            ms[graph] = (time.perf_counter() - t0) * 1e3 / MAX_THINK
+        check(texts[True] == texts[False], "decode program: gen_text's tokens differ from the "
+              f"eager loop's: {first_difference(texts[True], texts[False])}")
+        res["one_row"] = dict(eager_ms_per_token=ms[False], program_ms_per_token=ms[True],
+                              tokens=len(texts[True].split()))
+
+        # the 8-slot runtime: bf16, int8, speculative
+        chats = serve_chats()
+        res["slots"] = {}
+        for label, eng, spec in (("bf16", engine, 0), ("int8", kv_engine, 0),
+                                 (f"speculative={SERVE_SPECULATIVE}", engine, SERVE_SPECULATIVE),
+                                 (f"int8, speculative={SERVE_SPECULATIVE}", kv_engine,
+                                  SERVE_SPECULATIVE)):
+            runs = {graph: served_answers(eng, chats, speculative=spec, graph=graph)
+                    for graph in (True, False)}
+            diffs = [first_difference(a, b) for a, b in zip(runs[True]["answers"],
+                                                            runs[False]["answers"])]
+            check(all(d is None for d in diffs), f"decode program: the runtime's answers "
+                  f"({label}) differ from the eager loop's at tokens {diffs}")
+            prog = runs[True].pop("program")
+            runs[False].pop("program")
+            res["slots"][label] = dict(
+                program={k: v for k, v in runs[True].items() if k != "answers"},
+                eager={k: v for k, v in runs[False].items() if k != "answers"},
+                captures=prog.captures, capture_s=prog.capture_s,
+                pool_gib=prog.pool_bytes() / 2**30)
+            log(f"[decode program] runtime ({label}), 8 slots: answers identical to the eager "
+                f"loop's; a {SERVE_CHUNK}-step chunk {runs[True]['chunk_ms_min']:.1f} ms "
+                f"(program) vs {runs[False]['chunk_ms_min']:.1f} ms (eager) at best, "
+                f"{runs[True]['steady_tokens_per_s']:.1f} vs "
+                f"{runs[False]['steady_tokens_per_s']:.1f} tokens/s in such a chunk, "
+                f"{runs[True]['tokens_per_s']:.1f} vs {runs[False]['tokens_per_s']:.1f} over all "
+                f"chunks (the capture included), {runs[True]['chunks']} chunks, the slowest "
+                f"{runs[True]['chunk_ms_max']:.1f} ms; {prog.captures} captures in "
+                f"{prog.capture_s:.2f} s, pool {res['slots'][label]['pool_gib']:.3f} GiB")
+
+        # the exit, on an 8-row slot cache prefilled as the runtime admits the chats
+        _, vit_tf = serve_transforms(cfg)
+        rt = ServingRuntime(engine, slots=SERVE_SLOTS, decode_chunk=SERVE_CHUNK)
+        rt._prefill_rows(list(range(SERVE_SLOTS)), [
+            _ChatRequest(b["prompt"], decode_png(b["image"], vit_tf) if b.get("image") else None,
+                         SERVE_TOKENS, Future()) for b in chats])
+        start = engine._tensor([s.next_token for s in rt.slot_state], torch.long)
+        pos = engine._tensor([s.next_pos for s in rt.slot_state])
+        active = torch.ones(SERVE_SLOTS, dtype=torch.bool, device=DEVICE)
+        active[3] = False
+        eos = engine.new_token_ids["eos_token_id"]
+        prog = DecodeProgram(chunk=SERVE_CHUNK)
+
+        def decode(program, graph, steps=DP_EXIT_STEPS, frozen=active):
+            return qwen2.decode_text(llm, cfg.llm, rt.cache, start, pos, max_steps=steps,
+                                     eos_id=eos, active=frozen, program=program, graph=graph)
+
+        (t_p, c_p), (t_e, c_e) = decode(prog, True), decode(prog, False)
+        def exit_gate(t, c):
+            return torch.equal(t, t_e) and torch.equal(c.length, c_e.length)
+
+        check(exit_gate(t_p, c_p), "decode program: tokens or lengths past the exit differ "
+              f"from the eager loop's ({c_p.length.tolist()} vs {c_e.length.tolist()})")
+        real_step = qwen2.decode_step
+
+        def q_valid_on(params, cfg_, st, col, gen, **kw):  # the control's step
+            if col == 3:
+                kw["frozen"] = False
+            real_step(params, cfg_, st, col, gen, **kw)
+
+        qwen2.decode_step = q_valid_on
+        try:
+            t_c, c_c = decode(DecodeProgram(chunk=SERVE_CHUNK), True)
+        finally:
+            qwen2.decode_step = real_step
+        check(not exit_gate(t_c, c_c), "decode program: the exit gate accepts a program whose "
+              "4th step attends with the frozen row's q_valid on")
+        res["exit"] = dict(lengths=c_p.length.tolist(), control_lengths=c_c.length.tolist())
+        log(f"[decode program] exit: {DP_EXIT_STEPS} steps in chunks of {SERVE_CHUNK}, row 3 "
+            f"frozen: tokens and lengths {c_p.length.tolist()} identical to the eager loop's; "
+            f"the control (the 4th step with row 3's q_valid on) gives lengths "
+            f"{c_c.length.tolist()} and is rejected")
+        del c_p, c_e, c_c
+
+        # ms per step at 8 slots and the idle share, eager and program; and
+        # the program captured without `keep` (its steps no longer put back
+        # what a step past the exit overwrites: the put-back's cost)
+        steps = 2 * SERVE_CHUNK
+        all_on = torch.ones(SERVE_SLOTS, dtype=torch.bool, device=DEVICE)
+        keepless = DecodeProgram(chunk=SERVE_CHUNK)
+        real_extend = qwen2.llm_extend
+
+        def no_keep(*a, **kw):
+            kw.pop("keep", None)
+            return real_extend(*a, **kw)
+
+        qwen2.llm_extend = no_keep
+        try:
+            decode(keepless, True, SERVE_CHUNK, all_on)  # its capture
+        finally:
+            qwen2.llm_extend = real_extend
+        step_ms, idle = {}, {}
+        for label, p, graph in (("program", prog, True), ("eager", prog, False),
+                                ("program without keep", keepless, True)) * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(p, graph, steps, all_on)
+            torch.cuda.synchronize()
+            step_ms.setdefault(label, []).append((time.perf_counter() - t0) * 1e3 / steps)
+        for graph in (True, False):
+            idle[graph] = idle_share(lambda: decode(prog, graph, SERVE_CHUNK, all_on),
+                                     SERVE_CHUNK)
+        res["eight_slots"] = dict(program_ms_per_step=min(step_ms["program"]),
+                                  eager_ms_per_step=min(step_ms["eager"]),
+                                  no_keep_ms_per_step=min(step_ms["program without keep"]),
+                                  program_idle=idle[True], eager_idle=idle[False])
+    check(replays[0] > 0, "decode program: no replay ran")
+    eng_prog = engine.decode
+    res.update(replays=replays[0], vqa_s=vqa["total_s"], vqa_warm_s=vqa["warm_s"],
+               engine_captures=eng_prog.captures,
+               engine_capture_s=eng_prog.capture_s, engine_pool_gib=eng_prog.pool_bytes() / 2**30)
+    fmt = lambda d: "not measured" if d is None else f"{100 * d['idle']:.1f}%"  # noqa: E731
+    log(f"[decode program] on {card}: one row {ms[False]:.2f} -> {ms[True]:.2f} ms a token "
+        f"(eager -> program); 8 slots {res['eight_slots']['eager_ms_per_step']:.2f} -> "
+        f"{res['eight_slots']['program_ms_per_step']:.2f} ms a step (without keep "
+        f"{res['eight_slots']['no_keep_ms_per_step']:.2f}), idle share "
+        f"{fmt(idle[False])} -> {fmt(idle[True])}; {replays[0]} replays, none synced with the "
+        f"host; the engine's program: {eng_prog.captures} captures in {eng_prog.capture_s:.2f} "
+        f"s, pool {res['engine_pool_gib']:.3f} GiB; the VQA answer (phase 6) "
+        f"{vqa['total_s']:.2f} s with the capture, {vqa['warm_s']:.2f} s after it")
+    del rt, kv_engine, prog, keepless
+    gc_cuda()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2930,6 +3355,8 @@ def phase_sparse_train_shape(batch, cfg):
     torch.cuda.reset_peak_memory_stats()
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, g, retain_graph=True), 2)
     bwd_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del out
+    sdpa_bwd = sdpa_backward(q, k, v, ids, g)
     # the backward's work: the recompute's two products plus the four of the
     # gradient, over all S x S pairs (the chunked path skips no tile)
     bwd_flops = 6 * 2 * d * h * s * s
@@ -2940,6 +3367,7 @@ def phase_sparse_train_shape(batch, cfg):
                plain_ms=plain_ms, plain="ops.chunked (chunk 512, no grad)", library_ms=lib_ms,
                turns_ms=turns, bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9,
                tables_ms=tables_ms, backward_ms=bwd_ms, backward_peak_gib=bwd_peak_gib,
+               sdpa_backward=sdpa_bwd,
                backward_tflops=bwd_flops / bwd_ms / 1e9, pairs=pairs, S=s)
     log(f"[train] B3 at the training shape {row['shape']}: vs chunked rel {rel:.3e} (limit "
         f"{KERNEL_REL}), max abs {err:.3e}, {ratio:.2f} x the elementwise limit at worst, "
@@ -2948,10 +3376,38 @@ def phase_sparse_train_shape(batch, cfg):
         f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s over the visible pairs), call "
         f"{call_ms:.3f} ms (tables included), tables {tables_ms:.3f} ms, plain (chunked) "
         f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}); recompute backward {bwd_ms:.2f} ms "
-        f"({bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s over S^2), peak +{bwd_peak_gib:.2f} GiB")
-    del q, k, v, g, out, qkv, tables
+        f"({bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s over S^2), peak +{bwd_peak_gib:.2f} GiB; "
+        + (f"SDPA's backward (bool mask, autograd) {sdpa_bwd['ms']:.2f} ms at S={sdpa_bwd['S']}"
+           if sdpa_bwd["ms"] is not None else "SDPA's backward not measured")
+        + ("" if sdpa_bwd["S"] == s else f" (S={s} did not fit: {sdpa_bwd['oom']})"))
+    del q, k, v, g, qkv, tables
     torch.cuda.empty_cache()
     return row
+
+
+def sdpa_backward(q, k, v, ids, g):
+    """The backward of SDPA with the packed predicate as a boolean mask, under
+    autograd: one PyTorch call's gradient of the same function (a yardstick
+    for B3's backward; the port never calls it). At the full length, or, if
+    that runs out of memory, at the first half of the packed sequence (the
+    ids of a prefix are a packed predicate too): {ms, S, oom}; ms and S None
+    if neither fits (reported, not gated)."""
+    from bagel_tpu_torch.ops.attention import train_packed_mask
+
+    oom = None
+    for n in (q.shape[0], q.shape[0] // 2):
+        try:
+            mask = train_packed_mask(*(t[:n] for t in ids))
+            qkv = [t[:n].detach().clone().requires_grad_() for t in (q, k, v)]
+            out = sdpa_call(*(t[None] for t in qkv), mask[None, None])()
+            grad = g[:n].transpose(0, 1)[None]  # [1, H, n, D], as SDPA's output
+            ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, grad, retain_graph=True), 2)
+            return dict(ms=ms, S=n, oom=oom)
+        except torch.cuda.OutOfMemoryError as e:
+            oom = str(e).splitlines()[0][:200]
+            mask = qkv = out = grad = None
+            torch.cuda.empty_cache()
+    return dict(ms=None, S=None, oom=oom)  # reported as not measured
 
 
 def write_train_corpus(root, cfg):
@@ -3296,6 +3752,7 @@ def main() -> int:
     int4 = phase_vqa_int4(engine, card)
     with flash_int8(False):
         serve = phase_serve(engine, card)
+        program = phase_decode_program(engine, card, vqa)
     del engine, params  # phase 10 builds its own fp32 model
     gc_cuda()
     check(torch.cuda.memory_allocated() < 2**30,
@@ -3365,6 +3822,7 @@ def main() -> int:
             library_ms=None,
             library="none: no one PyTorch call computes it",
             shape=kv8_main["shape"],
+            launch=f"{kv8_main['splits']} splits of 8 warps",
             bf16_pair_device_ms=kv8_main["bf16_pair_device_ms"],
         ),
         dict(
@@ -3496,7 +3954,8 @@ def main() -> int:
         ),
     ]
     log(json.dumps({"vqa": vqa, "taylorseer": taylorseer, "edit": edit, "batch": batch,
-                    "t2i_w8a8": w8a8, "vqa_int4": int4, "serve": serve, "train": train}))
+                    "t2i_w8a8": w8a8, "vqa_int4": int4, "serve": serve,
+                    "decode_program": program, "train": train}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -549,7 +549,7 @@ def test_decode_kv8_matches_plain_on_card(past, valid):
     plain twin under B1's gate, with NaN scales and random codes past every
     live end; bit-identical to the bf16 pair on the dequantized view (the
     split kernel dequantizes as `kv_dequantize` does); one call counts
-    once; a CUDA graph replays it."""
+    once, its capture into a CUDA graph none; the graph replays it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -570,10 +570,15 @@ def test_decode_kv8_matches_plain_on_card(past, valid):
     assert bool(torch.isfinite(got).all())
     _assert_attention_gate(got, flash.flash_decode_kv8_plain(q, k8, v8, ks, vs, pl, vl), valid)
     kd, vd = flash.kv8_live(k8, v8, ks, vs, pl, vl)
-    assert torch.equal(got, flash.flash_cached_attention(q, kd, vd, pl, vl, causal=True))
+    pair = torch.empty_like(q)  # B1's bf16 pair at B1-kv8's splits: the same arithmetic
+    assert flash._decode(flash._library(), q, kd, vd, pair, pl, vl, 128**-0.5,
+                         torch.cuda.current_stream().cuda_stream,
+                         flash.kv8_splits(b, kh, q.device)) == 0
+    assert torch.equal(got, pair)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = flash.flash_decode_kv8(q, k8, v8, ks, vs, pl, vl)
+    assert flash.flash_decode_kv8.launches == before + 1
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, got)
@@ -583,8 +588,9 @@ def test_decode_kv8_matches_plain_on_card(past, valid):
 def test_runtime_chat_on_card():
     """In-process ServingRuntime chats on the card over an int8 slot cache
     (tiny widths, head dim 128 for the kernels): every prefill block ran B1
-    and every decode forward B1-kv8, once a layer, and the stats count the
-    answers' tokens."""
+    and every decode forward B1-kv8, once a layer (the forwards the decode
+    program's graphs replayed, counted from their nodes, and one warm-up
+    step a capture), and the stats count the answers' tokens."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     from bagel_tpu_torch.configs import tiny_bagel, tiny_qwen2
@@ -600,8 +606,11 @@ def test_runtime_chat_on_card():
     tok = MockTokenizer(cfg.llm.vocab_size)
     engine = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=512, device="cuda",
                          kv_quant=True)
+    from bagel_tpu_torch.inference import decode_program
+
     rt = ServingRuntime(engine, slots=2, decode_chunk=4, max_new_default=8)
     b1, kv8 = flash.flash_cached_attention.launches, flash.flash_decode_kv8.launches
+    decode_program.replayed_kernels.clear()
     rt.start()
     try:
         answers = [rt.submit_chat(p).result(timeout=300) for p in ("hello there", "why?")]
@@ -612,7 +621,85 @@ def test_runtime_chat_on_card():
     assert rt.stats["tokens_out"] == sum(len(a.split()) for a in answers)
     L = cfg.llm.num_hidden_layers
     assert flash.flash_cached_attention.launches - b1 == L * rt.stats["prefill_blocks"]
-    assert flash.flash_decode_kv8.launches - kv8 == L * rt.stats["decode_forwards"]
+    assert decode_program.replayed_launches(flash.flash_cached_attention) == 0
+    kv8 = flash.flash_decode_kv8.launches - kv8
+    replayed = decode_program.replayed_launches(flash.flash_decode_kv8)
+    assert replayed > 0 and rt.decode.captures == 1
+    assert kv8 + replayed == L * (rt.stats["decode_forwards"] + rt.decode.captures)
+
+
+def _card_engine(kv_quant):
+    """A tiny engine on the card whose head dim (128) the kernels take."""
+    from bagel_tpu_torch.configs import tiny_bagel, tiny_qwen2
+    from bagel_tpu_torch.data.tokenizer import MockTokenizer
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models.bagel import init_bagel_params
+
+    cfg = tiny_bagel(llm=tiny_qwen2(hidden_size=512, num_attention_heads=4,
+                                    num_key_value_heads=2))
+    params = init_bagel_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                               torch.bfloat16, device="cuda")
+    tok = MockTokenizer(cfg.llm.vocab_size)
+    return BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=512, device="cuda",
+                       kv_quant=kv_quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_decode_program_matches_eager_on_card(kv_quant, monkeypatch):
+    """The decode program's CUDA graphs against the same steps run eagerly
+    (graph=False): identical greedy tokens and lengths for a 3-row decode
+    with a frozen row (chunks of 5 over 12 steps), a speculative decode and
+    tokens sampled from one seed; the kernel's launches, eager and replayed
+    (read from the graph's nodes), are L a step and L for the warm-up step
+    of a capture; no replay syncs with the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.inference import decode_program, speculative
+    from bagel_tpu_torch.inference.decode_program import DecodeProgram
+    from bagel_tpu_torch.models import qwen2
+
+    engine = _card_engine(kv_quant)
+    cfg, llm, L = engine.cfg.llm, engine.params["llm"], engine.cfg.llm.num_hidden_layers
+    real = DecodeProgram._replay
+
+    def strict(self, e):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(self, e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(DecodeProgram, "_replay", strict)
+    cache = engine.decode.owned_cache(cfg, 3, engine.max_kv, engine.kv_dtype, "cuda")
+    cache = engine._text_rows(cache, {0: list(range(3, 40)), 1: list(range(5, 20)),
+                                      2: list(range(7, 60))}, {0: 0, 1: 0, 2: 0})
+    start = torch.tensor([1, 2, 3], device="cuda")
+    pos = torch.tensor([37, 15, 53], dtype=torch.int32, device="cuda")
+    counted = flash.flash_decode_kv8 if kv_quant else flash.flash_cached_attention
+    runs = {}
+    for graph in (True, False):
+        prog, stats = DecodeProgram(chunk=5), {}
+        before = counted.launches
+        decode_program.replayed_kernels.clear()
+        toks, out = qwen2.decode_text(llm, cfg, cache, start, pos, max_steps=12, eos_id=-1,
+                                      active=torch.tensor([True, False, True], device="cuda"),
+                                      program=prog, graph=graph, stats=stats)
+        eager = counted.launches - before
+        replayed = decode_program.replayed_launches(counted)
+        assert prog.replays == (3 if graph else 0) and prog.captures == (1 if graph else 0)
+        assert stats["forwards"] == 15
+        assert (eager, replayed) == ((L, L * 15) if graph else (L * 15, 0))
+        spec, sout = speculative.decode_text_spec(
+            llm, cfg, cache, start, pos, torch.arange(60, device="cuda").repeat(3, 1),
+            pos.long(), max_steps=12, eos_id=-1, draft_len=3, program=prog, graph=graph)
+        sampled, _ = qwen2.decode_text(llm, cfg, cache, start, pos, max_steps=8, eos_id=-1,
+                                       do_sample=True, temperature=1.5, program=prog,
+                                       graph=graph,
+                                       generator=torch.Generator(device="cuda").manual_seed(4))
+        runs[graph] = (toks, out.length, spec, sout.length, sampled)
+    for a, b in zip(runs[True], runs[False]):
+        assert torch.equal(a, b)
 
 
 def _train_ids(s):

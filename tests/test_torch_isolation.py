@@ -39,7 +39,8 @@ def test_import_pulls_in_no_jax():
         "       'bagel_tpu_torch.train.driver', 'bagel_tpu_torch.data.packing',\n"
         "       'bagel_tpu_torch.data.datasets', 'bagel_tpu_torch.data.loader',\n"
         "       'bagel_tpu_torch.data.filesystem', 'bagel_tpu_torch.native',\n"
-        "       'bagel_tpu_torch.native.imagepool', 'bagel_tpu_torch.utils.metrics'}\n"
+        "       'bagel_tpu_torch.native.imagepool', 'bagel_tpu_torch.utils.metrics',\n"
+        "       'bagel_tpu_torch.inference.decode_program'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "# PIL is imported only where an image is resized, decoded or encoded,\n"
         "# regex only where a BPE tokenizer is built, safetensors only where a\n"
@@ -68,7 +69,7 @@ def test_sources_import_no_jax():
                 "train/checkpoint.py", "train/driver.py", "data/packing.py",
                 "data/datasets.py", "data/loader.py", "data/filesystem.py",
                 "native/__init__.py", "native/imagepool.py", "native/_build.py",
-                "utils/metrics.py"):
+                "utils/metrics.py", "inference/decode_program.py"):
         assert PACKAGE / new in files, new
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
