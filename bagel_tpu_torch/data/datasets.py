@@ -197,16 +197,19 @@ class T2IIterableDataset(DistributedIterable):
 
 class SftJSONLIterableDataset(DistributedIterable):
     """LLaVA-style conversations: '<image>' -> vit_image, gpt turns get CE
-    loss (vlm_dataset.py:20-195). A video sample raises: its frame sampler
-    (data/video.py) waits for a later slice of the port."""
+    loss (vlm_dataset.py:20-195). A video sample takes `frame_sampler`'s
+    frames (data/video.py FrameSampler), one '<image>' each in place of
+    '<video>'."""
 
     def __init__(self, dataset_name, transform: ImageTransform, tokenizer,
                  jsonl_path_list, data_dir_list, num_used_data=None,
                  local_rank=0, world_size=1, num_workers=1, worker_id=0,
-                 data_status=None, shuffle_lines=False, shuffle_seed=0):
+                 data_status=None, shuffle_lines=False, shuffle_seed=0,
+                 frame_sampler=None):
         super().__init__(dataset_name, local_rank, world_size, num_workers, worker_id)
         self.transform = transform
         self.tokenizer = tokenizer
+        self.frame_sampler = frame_sampler
         self.data_status = data_status
         rows = []
         num_used_data = num_used_data or [0] * len(jsonl_path_list)
@@ -261,15 +264,6 @@ class SftJSONLIterableDataset(DistributedIterable):
             for row_idx, (line, image_dir) in enumerate(rows[row_start:], start=row_start):
                 try:
                     data = json.loads(line)
-                except Exception:
-                    traceback.print_exc()
-                    continue
-                if "video" in data:
-                    raise NotImplementedError(
-                        "video samples need data/video.py's frame sampler, which "
-                        "waits for a later slice of the port (ROADMAP A7)"
-                    )
-                try:
                     raw_images = []
                     if "image" in data:
                         names = data["image"]
@@ -278,6 +272,17 @@ class SftJSONLIterableDataset(DistributedIterable):
                             pil_img2rgb(_open_image(os.path.join(image_dir, n)))
                             for n in names
                         ]
+                    elif "video" in data:
+                        if self.frame_sampler is None:
+                            raise RuntimeError("video sample but no frame_sampler")
+                        raw_images = self.frame_sampler(
+                            os.path.join(image_dir, data["video"])
+                        )
+                        tags = "<image>" * len(raw_images)
+                        for conv in data["conversations"]:
+                            if "<video>" in conv["value"]:
+                                conv["value"] = conv["value"].replace("<video>", tags)
+                                break
                 except Exception:
                     traceback.print_exc()
                     continue

@@ -270,11 +270,11 @@ def bagel_forward_train(
     Returns 'ce' [n_ce], 'ce_weight', and with VAE tokens 'mse' [n_vae, pd]
     and 'mse_weight'; the weights zero out padding and no-loss entries, and
     the reduction happens in the train step (global token counts).
-    `expert_parallel` raises (ROADMAP A8)."""
+    `expert_parallel` raises (ROADMAP A, parallelism)."""
     if expert_parallel is not None:
         raise NotImplementedError(
             "expert_parallel (the MoT experts sharded over two devices) waits "
-            "for the parallel slice of the port (ROADMAP A8)"
+            "for the parallel slice of the port (ROADMAP A, parallelism)"
         )
     seq, timesteps = _assemble_train_seq(params, cfg, batch, noise)
     if attn_chunk is None and context_parallel is None and sparse_block is None:

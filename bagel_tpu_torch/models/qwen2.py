@@ -44,7 +44,7 @@
 Training (`llm_forward_train`): the packed multi-sample forward of the MoT
 stack over one sequence, with its four attention choices (a dense [S, S]
 mask, `attn_chunk`, `sparse_block` through the block-sparse kernel with its
-gradient, `context_parallel`, which waits for ROADMAP A8), per-layer
+gradient, `context_parallel`, which waits for ROADMAP A, parallelism), per-layer
 activation checkpointing (`remat`) and `freeze_und`. Each expert runs over
 its own tokens only (gathered by index and merged back, the reference's
 formulation, qwen2_navit.py:713-755), where JAX runs both experts over every
@@ -681,7 +681,7 @@ def _train_attend(mask, mask_meta, attn_chunk, sparse_block, context_parallel, d
     if context_parallel is not None:
         raise NotImplementedError(
             "context_parallel (ring attention over a sequence-sharded mesh) "
-            "waits for the parallel slice of the port (ROADMAP A8)"
+            "waits for the parallel slice of the port (ROADMAP A, parallelism)"
         )
     if sparse_block is not None:
         if mask_meta is None:
@@ -720,7 +720,7 @@ def llm_forward_train(
     sequences mask_meta = (document_id, fan_id, noise_id) with `attn_chunk`
     (chunked, plain PyTorch) or `sparse_block` (the block-sparse kernel
     B3 on CUDA, whose tiles are fixed at 128: the value only selects the
-    path). `context_parallel` raises (ROADMAP A8)."""
+    path). `context_parallel` raises (ROADMAP A, parallelism)."""
     hd = cfg.head_dim
     gen_mask = gen_mask.bool()
     rows = (torch.nonzero(~gen_mask)[:, 0], torch.nonzero(gen_mask)[:, 0])

@@ -1,9 +1,9 @@
 """Serving entry point (port of bagel_tpu/serving/app.py).
 
 Loads a released BAGEL checkpoint (or, without one, a random micro model
-for a demo) and serves the three modes (text-to-image, edit, understand,
-each with think mode) through a Gradio UI when gradio is installed, else an
-interactive prompt, or once from the command line. `serving/server.py`
+for a demo: `demo_config`) and serves the three modes (text-to-image,
+edit, understand, each with think mode) through a Gradio UI when gradio is
+installed, else an interactive prompt, or once from the command line. `serving/server.py`
 serves the same engine over HTTP.
 
   python -m bagel_tpu_torch.serving.app [--checkpoint /path/to/BAGEL-7B-MoT] \
@@ -68,6 +68,23 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def demo_config(device: torch.device):
+    """(config, dtype) of the random demo model that runs without a
+    checkpoint: the JAX package's micro depth (one layer each) at the
+    kernels' head dims (LLM 128, SigLIP 72), so that its attention runs
+    through them on CUDA; fp32 on the CPU, bf16 on CUDA."""
+    from bagel_tpu_torch.configs import Qwen2Config, SiglipConfig, micro_bagel
+
+    cfg = micro_bagel(
+        llm=Qwen2Config(vocab_size=128, hidden_size=256, intermediate_size=256,
+                        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+                        rope_theta=10000.0, max_position_embeddings=256),
+        vit=SiglipConfig(hidden_size=144, intermediate_size=128, num_hidden_layers=1,
+                         num_attention_heads=2, image_size=56, patch_size=14),
+    )
+    return cfg, torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
 def build_engine(args):
     """(engine, vae_transform, vit_transform) from parsed arguments."""
     from bagel_tpu_torch.data.transforms import ImageTransform
@@ -77,7 +94,7 @@ def build_engine(args):
 
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: weight sharding over a mesh is not ported yet (ROADMAP A8, parallelism)"
+            "--mesh: weight sharding over a mesh is not ported yet (ROADMAP A, parallelism)"
         )
     device = resolve_device(args.device)
     if args.checkpoint:
@@ -93,13 +110,12 @@ def build_engine(args):
                            dtype=torch.bfloat16)
         tokenizer, new_token_ids, _ = load_tokenizer(args.checkpoint)
     else:
-        from bagel_tpu_torch.configs import micro_bagel
         from bagel_tpu_torch.data.tokenizer import MockTokenizer
         from bagel_tpu_torch.models.bagel import init_bagel_params
 
-        cfg = micro_bagel()
+        cfg, dtype = demo_config(device)
         params = init_bagel_params(torch.Generator(device=device).manual_seed(0), cfg,
-                                   torch.float32, device=device)
+                                   dtype, device=device)
         tokenizer = MockTokenizer(cfg.llm.vocab_size)
         new_token_ids = tokenizer.new_token_ids
 
@@ -120,8 +136,8 @@ def build_engine(args):
         vae_tf = ImageTransform(64, 16, stride, max_pixels=64 * 64)
         vit_tf = ImageTransform(56, 28, cfg.vit.patch_size, max_pixels=56 * 56)
     engine = BagelEngine(params, cfg, tokenizer, new_token_ids, max_kv=args.max_kv,
-                         vae_transform=vae_tf, vit_transform=vit_tf, kv_quant=args.kv_quant,
-                         device=device)
+                         vae_transform=vae_tf, vit_transform=vit_tf,
+                         kv_quant=getattr(args, "kv_quant", False), device=device)
     return engine, vae_tf, vit_tf
 
 

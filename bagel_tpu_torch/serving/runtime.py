@@ -137,7 +137,7 @@ class ServingRuntime:
         the same steps eagerly (to compare against)."""
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh-sharded slot cache is not ported yet (ROADMAP A8, parallelism)"
+                "a mesh-sharded slot cache is not ported yet (ROADMAP A, parallelism)"
             )
         self.engine = engine
         self.slots = slots

@@ -5,7 +5,8 @@ Layout: <dir>/<step:07d>/{state/, data_status.json, config.json}, as in the
 JAX package, but `state/` holds safetensors files (params, ema, the Adam
 moments mu and nu, each leaf under its '/'-joined path) and `state.json`
 (step, update count, which trees exist) in place of Orbax's format. A JAX
-Orbax checkpoint is not read (ROADMAP A7).
+Orbax checkpoint is not read (ROADMAP A, reading a JAX Orbax training
+state).
 
 A save writes the files into `state.tmp-*`, renamed to `state` when
 complete: with block=False it first copies the whole state to host memory
@@ -168,8 +169,7 @@ def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Option
     its device): parameters, EMA, moments, update count and step. Returns
     (state, data_status)."""
     state_dir = os.path.join(path, "state")
-    with open(os.path.join(state_dir, "state.json")) as f:
-        meta = json.load(f)
+    meta = checkpoint_meta(path)
     for name, tree in _trees(state).items():
         if tree is None:
             continue
@@ -205,8 +205,7 @@ def restore_params_only(
     else None. The sin-cos tables, and groups the checkpoint lacks, keep
     current_params' values (the reference loads with strict=False)."""
     state_dir = os.path.join(path, "state")
-    with open(os.path.join(state_dir, "state.json")) as f:
-        has_ema = "ema" in json.load(f)["trees"]
+    has_ema = "ema" in checkpoint_meta(path)["trees"]
     if from_ema and not has_ema:
         raise ValueError(f"--finetune_from_ema: checkpoint {path} was saved without EMA")
 
@@ -220,6 +219,40 @@ def restore_params_only(
     params = build("ema" if from_ema else "params")
     ema = build("ema") if has_ema else None
     return params, ema
+
+
+def _unflatten(flat: dict):
+    """Inverse of `_flatten`: a level whose keys are 0..n-1 becomes a list."""
+    tree: dict = {}
+    for path, t in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
+
+
+def checkpoint_meta(path: str) -> dict:
+    """A step directory's state.json: step, update count and saved trees."""
+    with open(os.path.join(path, "state", "state.json")) as f:
+        return json.load(f)
+
+
+def load_tree(path: str, name: str) -> dict:
+    """One saved tree of a step directory ('params', 'ema', 'mu' or 'nu')
+    as it was saved, with no model to fill: nested dicts and lists of CPU
+    tensors."""
+    return _unflatten(_load(os.path.join(path, "state"), name))
 
 
 def get_latest_ckpt(ckpt_dir: str) -> Optional[str]:

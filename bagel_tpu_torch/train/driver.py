@@ -13,7 +13,7 @@ offload (pinned host memory between steps), `--profile_dir`,
 `--auto_resume`, `--resume_from`, `--resume_model_only`,
 `--finetune_from_ema`, and a device-OOM log before the re-raise. The
 parallel layouts (`--mesh`, `--context_parallel`, `--pipeline_parallel`,
-`--expert_parallel`) and multi-process runs raise: they wait for ROADMAP A8.
+`--expert_parallel`) and multi-process runs raise: they wait for ROADMAP A, parallelism.
 
 `main` returns the final TrainState and the per-step records (loss,
 seconds, tokens, the analytic model TFLOP of the step, peak device memory
@@ -57,7 +57,7 @@ from bagel_tpu_torch.train.step import (
 from bagel_tpu_torch.utils.device import resolve_device
 from bagel_tpu_torch.utils.metrics import ThroughputMeter, make_logger, profile_trace
 
-A8 = "waits for the parallel slice of the port (ROADMAP A8)"
+PARALLEL = "waits for the parallel slice of the port (ROADMAP A, parallelism)"
 
 
 def seqlen_sq(document_id: torch.Tensor) -> float:
@@ -132,7 +132,7 @@ def parse_args(argv=None):
     p.add_argument("--optimizer_offload", action="store_true",
                    help="keep the Adam moments in pinned host memory between "
                         "steps; each leaf visits the card for its update")
-    p.add_argument("--mesh", type=str, default=None, help=f"dp,fsdp,tp: {A8}")
+    p.add_argument("--mesh", type=str, default=None, help=f"dp,fsdp,tp: {PARALLEL}")
     p.add_argument("--remat", type=str, default="full", choices=["full", "dots", "none"],
                    help="per-layer activation checkpointing: full = save the "
                         "layer input only (reference NO_REENTRANT); dots = keep "
@@ -142,10 +142,10 @@ def parse_args(argv=None):
     p.add_argument("--sparse_block", type=int, default=None,
                    help="block-sparse packed attention through the CUDA kernel "
                         "(its tiles are 128; the value selects the path)")
-    p.add_argument("--context_parallel", type=str, default=None, help=A8)
-    p.add_argument("--pipeline_parallel", type=str, default=None, help=A8)
+    p.add_argument("--context_parallel", type=str, default=None, help=PARALLEL)
+    p.add_argument("--pipeline_parallel", type=str, default=None, help=PARALLEL)
     p.add_argument("--pp_microbatches", type=int, default=4)
-    p.add_argument("--expert_parallel", type=str, default=None, help=A8)
+    p.add_argument("--expert_parallel", type=str, default=None, help=PARALLEL)
     # logging / ckpt
     p.add_argument("--ckpt_dir", type=str, default="results/ckpt")
     p.add_argument("--save_every", type=int, default=2000)
@@ -197,9 +197,9 @@ def build_config(args) -> BagelConfig:
 def _refuse_parallel(args) -> None:
     for flag in ("mesh", "context_parallel", "pipeline_parallel", "expert_parallel"):
         if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} {A8}")
+            raise NotImplementedError(f"--{flag} {PARALLEL}")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"multi-process training {A8}")
+        raise NotImplementedError(f"multi-process training {PARALLEL}")
 
 
 def frozen_groups(args, params: dict) -> tuple:

@@ -249,11 +249,11 @@ def compute_losses(
     """(loss, metrics) over the rows of a stacked batch: a loop over rows in
     place of JAX's vmap, then CE and MSE normalized by the token counts of
     all rows. On CUDA the forward runs under bf16 autocast.
-    `pipeline_parallel` raises (ROADMAP A8)."""
+    `pipeline_parallel` raises (ROADMAP A, parallelism)."""
     if pipeline_parallel is not None:
         raise NotImplementedError(
             "pipeline_parallel (GPipe over the layer stack) waits for the "
-            "parallel slice of the port (ROADMAP A8)"
+            "parallel slice of the port (ROADMAP A, parallelism)"
         )
     if context_parallel is not None and batch.position_ids.shape[0] != 1:
         raise ValueError("context_parallel needs B=1")

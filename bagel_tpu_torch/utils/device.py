@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -21,3 +21,25 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
             "port on the CPU"
         )
     return torch.device("cuda")
+
+
+def process_rank_world(device: torch.device) -> Tuple[int, int, bool]:
+    """(rank, world size, whether this call started the group) of the
+    default torch.distributed group: (0, 1, False) without one. Under
+    torchrun (WORLD_SIZE > 1 in the environment) it starts the group from
+    the environment's MASTER_ADDR / MASTER_PORT / RANK: nccl on CUDA, with
+    each process on the card LOCAL_RANK names, gloo otherwise."""
+    import os
+
+    import torch.distributed as dist
+
+    started = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method="env://")
+        started = True
+    if not dist.is_initialized():
+        return 0, 1, False
+    return dist.get_rank(), dist.get_world_size(), started

@@ -145,6 +145,27 @@ Phases (the first failure exits non-zero, and no result line is printed):
              (and the program captured without keep, its put-back's cost),
              tokens/s at 8 slots, capture seconds and graph pool GiB, the
              card's idle share over a 16-step decode (torch.profiler).
+  9e. eval  the eval runners (bagel_tpu_torch.eval) on phase 9's weights:
+             (a) gen_runner.run_gen with the JAX runner's defaults at 8
+             timesteps: 3 text rows over phase 5's engine, each timed
+             (median and spread), B1 L x (2 + 7) a row, and an edit row on
+             a seeded 976 px PNG over an engine like 6b's, B1 L x (4 + 7)
+             and B3 27; each PNG within one level of a direct __call__
+             with a generator seeded seed + index; a second run writes
+             nothing and launches nothing; (b) vlm_runner.run_eval on 8
+             seeded 980 px PNGs with yes/no questions: 3 rows alone, one
+             by one, each answer equal to a direct __call__ (B3 27 and B1
+             as in 6 a row), then all 8 batched through chat_batch (B3 27,
+             B1 L x (2 + warm-up steps + decode steps)), each answer
+             against its row alone (reported), the first decode step's
+             logits of each batched row within LOGITS_TOL of its row
+             alone, score_yesno written; (c) judge_scorer wise over (a)'s layout through the
+             HTTP judge against a mock endpoint on 127.0.0.1: the summary
+             its fixed reply implies; (d) gen_runner.main and
+             vlm_runner.main with no --device (so CUDA) on the demo
+             weights (serving.app.demo_config): the layout written, B1
+             launched; seconds per eval image and per answer, alone and
+             batched, and the phase's wall time.
  10. train   training at full width and TRAIN_LAYERS of 28 LLM layers (fp32
              state does not fit deeper; the phase frees phase 9's model
              first): (a) B3's gradient (sparse_packed_attention_train: the
@@ -3185,12 +3206,379 @@ def phase_decode_program(engine, card, vqa):
 
 
 # ---------------------------------------------------------------------------
+# phase 9e: the eval runners over the engine
+# ---------------------------------------------------------------------------
+
+EVAL_ROWS = 8  # the VQA rows: all 8 batched, the first EVAL_SOLO alone
+EVAL_SOLO = 3  # timed one by one: the median and the spread
+EVAL_TEXT_ROWS = 3  # text-to-image rows, timed one by one
+EVAL_EDIT_PX = 976  # the edit row's source: kept by the runner's vae transform (stride 16)
+EVAL_JUDGE_REPLY = "Consistency: 2\nRealism: 1\nAesthetic Quality: 2"
+EVAL_WISCORE = (0.7 * 2 + 0.2 * 1 + 0.1 * 2) / 2.0  # the reply's WiScore, normalized
+
+
+def eval_root():
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def write_png(path, gen, px):
+    from PIL import Image
+
+    arr = torch.randint(0, 256, (px, px, 3), generator=gen, dtype=torch.uint8).numpy()
+    Image.fromarray(arr).save(path)
+
+
+def write_jsonl(path, rows):
+    with open(path, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in rows))
+
+
+@contextlib.contextmanager
+def mock_judge():
+    """A judge endpoint on 127.0.0.1 that answers every request with
+    EVAL_JUDGE_REPLY; BAGEL_JUDGE_URL names it while the block runs."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    calls = []
+
+    class Judge(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            calls.append(len(body["images"]))
+            payload = json.dumps({"text": EVAL_JUDGE_REPLY}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def log_message(self, *a):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Judge)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    old = os.environ.get("BAGEL_JUDGE_URL")
+    os.environ["BAGEL_JUDGE_URL"] = f"http://127.0.0.1:{server.server_address[1]}/v1/judge"
+    try:
+        yield calls
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        if old is None:
+            os.environ.pop("BAGEL_JUDGE_URL", None)
+        else:
+            os.environ["BAGEL_JUDGE_URL"] = old
+
+
+def png_diff(path, want):
+    from PIL import Image
+
+    got = np.asarray(Image.open(path), np.int16)
+    if got.shape != want.shape:
+        return None
+    return int(np.abs(got - want.astype(np.int16)).max())
+
+
+def answer_steps(text, max_steps=MAX_THINK):
+    """The steps of a greedy decode loop that gave `text`: one a token, the
+    eos step included, at most max_steps."""
+    n = len(text.split())  # MockTokenizer.decode joins ids with spaces
+    return n + 1 if n < max_steps else max_steps
+
+
+def chat_batch_first_logits(engine, images, prompts):
+    """The first decode step's logits [B, V] of chat_batch's rows: its
+    prefill (one packed SigLIP pass, the image round, the prompts) into the
+    decode program's B-row cache, then bos at each row's rope position,
+    read over the cache without writing it."""
+    from bagel_tpu_torch.models import qwen2
+
+    b, llm = len(prompts), engine.params["llm"]
+    row_images = {i: [im] for i, im in enumerate(images)}
+    with engine.decode.lock:
+        cache = engine.decode.owned_cache(engine.cfg.llm, b, engine.max_kv, engine.kv_dtype,
+                                          engine.device)
+        rope = {i: 0 for i in range(b)}
+        vit_emb, per_img = engine._pack_images(row_images)
+        cache = engine._image_rounds(cache, list(range(b)), row_images, vit_emb, per_img, rope)
+        ids_rows = {i: engine._prompt_ids(p) for i, p in enumerate(prompts)}
+        cache = engine._text_rows(cache, ids_rows, rope)
+        bos = engine._tensor([engine.new_token_ids["bos_token_id"]] * b, torch.long)
+        hidden, _ = qwen2.llm_extend(
+            llm, engine.cfg.llm, qwen2.embed_tokens(llm, bos)[:, None],
+            engine._tensor([[rope[i] + len(ids_rows[i])] for i in range(b)]), cache,
+            engine._tensor([1] * b), und_len=1, causal=True, update_cache=False,
+            attn_impl=engine.attn_impl)
+    return qwen2.lm_logits(llm, hidden[:, 0])
+
+
+def phase_eval(engine, card):
+    """Phase 9e: the eval runners (bagel_tpu_torch.eval) over phase 5's
+    weights at full width:
+    (a) gen_runner.run_gen with the JAX runner's defaults and
+        NUM_TIMESTEPS timesteps: EVAL_TEXT_ROWS text rows over phase 5's
+        engine, one call each (B1 L x (2 + 7) a row; their median time
+        and spread) and an edit row on a seeded 976 px PNG over an engine
+        like phase 6b's (16384 KV slots; B1 L x (4 + 7), B3 LV); each PNG
+        within one level of a direct __call__ with the same arguments and
+        a generator seeded seed + index; a second run_gen over every row
+        writes nothing and launches nothing;
+    (b) vlm_runner.run_eval on EVAL_ROWS seeded 980 px PNGs with yes/no
+        questions: the first EVAL_SOLO alone (batch_size=1), one call and
+        one time a row, each answer
+        equal to a direct __call__, B3 LV and B1 L x (2 + the capture's
+        warm-up steps + the program's decode steps) a row; all of them
+        batched (batch_size=EVAL_ROWS, chat_batch): B3 LV (one packed
+        SigLIP pass), B1 L x (2 + warm-up steps + decode steps); each
+        batched answer against its row's answer alone (reported), and
+        each batched row's first decode step logits within LOGITS_TOL of
+        its row alone (the nearest other row's reported);
+        score_yesno's scores written;
+    (c) judge_scorer wise over (a)'s layout through the HTTP judge against
+        a mock endpoint: the summary the mock's fixed reply implies;
+    (d) gen_runner.main and vlm_runner.main with no --device (so CUDA) on
+        the demo weights, one row each: the layout written, B1 launched."""
+    from PIL import Image
+
+    from bagel_tpu_torch.data.transforms import ImageTransform, pil_img2rgb
+    from bagel_tpu_torch.eval import gen_runner, judge_scorer, vlm_runner
+    from bagel_tpu_torch.inference.engine import BagelEngine
+
+    t_phase = time.perf_counter()
+    cfg = engine.cfg
+    L, LV = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
+    root = eval_root()
+    gen = torch.Generator().manual_seed(SEED + 9)
+    res = {}
+
+    # (a) generation: a text row and an edit row
+    write_png(os.path.join(root, "edit_src.png"), gen, EVAL_EDIT_PX)
+    rows = [dict(prompt=PROMPT, tag="single_object", category="nature", index=0),
+            dict(prompt=EDIT, image="edit_src.png", category="edit", index=1)]
+    # more text rows (the same prompt, x_1 seeded seed + index): one image's
+    # time is one sample, so the text rows' median and spread are reported
+    rows += [dict(rows[0], index=i) for i in range(2, 1 + EVAL_TEXT_ROWS)]
+    outdir = os.path.join(root, "gen")
+    # the JAX runner's defaults but for the step count (phase 5's)
+    args = gen_runner.parse_args(["--metadata", "-", "--outdir", outdir, "--image_root", root,
+                                  "--image_size", str(PX), "--num_timesteps",
+                                  str(NUM_TIMESTEPS)])
+    vae_tf, vit_tf = serve_transforms(cfg)  # build_engine's, with a checkpoint
+    edit_eng = BagelEngine(engine.params, cfg, engine.tokenizer, engine.new_token_ids,
+                           max_kv=EDIT_MAX_KV, vae_transform=ImageTransform(*EDIT_TRANSFORM),
+                           device=DEVICE)
+    wants = dict(text=bf16_counts(b1=L * (2 + NUM_TIMESTEPS - 1)),
+                 edit=bf16_counts(b1=L * (4 + NUM_TIMESTEPS - 1), b3=LV))
+    gen_s, launches, text_s = {}, {}, []
+    for row in rows:
+        label, eng = ("edit", edit_eng) if row.get("image") else ("text", engine)
+        done, secs, counts, peak = counted_call(
+            lambda: gen_runner.run_gen(eng, vae_tf, [row], outdir, args))
+        check(done == [row["index"]], f"eval gen ({label}): run_gen generated {done}")
+        check(counts == wants[label], f"eval gen ({label}) launch counts {counts} != "
+              f"{wants[label]}")
+        gen_s[label], launches[f"eval_gen_{label}"] = secs, counts
+        if label == "text":
+            text_s.append(secs)
+        image = None
+        if row.get("image"):
+            image = vae_tf(pil_img2rgb(Image.open(os.path.join(root, row["image"]))))
+        direct = eng(image=image, text=row["prompt"], think=False,
+                     image_shapes=image.shape[:2] if image is not None else (args.image_size,) * 2,
+                     num_timesteps=args.num_timesteps, cfg_text_scale=args.cfg_text_scale,
+                     cfg_img_scale=args.cfg_img_scale, cfg_renorm_type=args.cfg_renorm_type,
+                     cfg_renorm_min=args.cfg_renorm_min, cfg_interval=(args.cfg_interval_min, 1.0),
+                     timestep_shift=args.timestep_shift, enable_taylorseer=False,
+                     rng=torch.Generator(device=DEVICE).manual_seed(args.seed + row["index"])
+                     )["image"]
+        path = os.path.join(outdir, f"{row['index']:05d}", "samples", "0000.png")
+        diff = png_diff(path, direct)
+        check(diff is not None and diff <= 1, f"eval gen ({label}): the PNG differs from a "
+              f"direct __call__ by {diff} levels (shape {direct.shape})")
+        check(direct.std() > 0, f"eval gen ({label}): constant image")
+        log(f"[eval] run_gen {label} row ({direct.shape[0]} px, {args.num_timesteps} "
+            f"timesteps, cfg {args.cfg_text_scale}/{args.cfg_img_scale}): {secs:.2f} s, peak "
+            f"{peak:.2f} GiB, launches {counts} (expected {wants[label]}); the PNG within "
+            f"{diff} level(s) of a direct __call__ with a generator seeded "
+            f"{args.seed + row['index']}")
+    gen_s.update(text=float(np.median(text_s)), text_rows=text_s)
+    log(f"[eval] run_gen text rows one by one: {', '.join(f'{t:.3f}' for t in text_s)} s; "
+        f"median {gen_s['text']:.3f} s, spread {max(text_s) - min(text_s):.3f} s")
+    again, _, counts, _ = counted_call(
+        lambda: gen_runner.run_gen(engine, vae_tf, rows, outdir, args)
+        + gen_runner.run_gen(edit_eng, vae_tf, rows, outdir, args))
+    check(again == [] and counts == bf16_counts(),
+          f"eval gen: the resumed run generated {again}, launches {counts}")
+    layout = sorted(os.path.relpath(os.path.join(d, f), outdir)
+                    for d, _, fs in os.walk(outdir) for f in fs)
+    check(layout == sorted(f"{r['index']:05d}/{f}" for r in rows
+                           for f in ("metadata.jsonl", "samples/0000.png")),
+          f"eval gen: layout {layout}")
+    log(f"[eval] run_gen again over every row: nothing generated, no launch; layout {layout}")
+    del edit_eng
+    gc_cuda()
+
+    # (b) understanding: alone, then batched
+    vqa_rows = []
+    for i in range(EVAL_ROWS):
+        write_png(os.path.join(root, f"vqa{i}.png"), gen, VQA_PX)
+        colour = ("red", "green", "blue", "white")[i % 4]
+        vqa_rows.append(dict(image=f"vqa{i}.png", question=f"Is the main object {colour}? "
+                             "Answer yes or no.", answer=("yes", "no")[i % 2], index=i))
+    chunk = engine.decode.chunk
+    solo, solo_rows_s, alone_counts, caps, runs = [], [], bf16_counts(), 0, 0
+    for row in vqa_rows[:EVAL_SOLO]:
+        caps0 = engine.decode.captures
+        out, secs, counts, _ = counted_call(lambda: vlm_runner.run_eval(
+            engine, vit_tf, [row], root, MAX_THINK, False, 1))
+        caps_row = engine.decode.captures - caps0
+        runs_row = program_steps(answer_steps(out[0]["prediction"]), chunk)
+        want = bf16_counts(b1=L * (2 + caps_row + runs_row), b3=LV)
+        check(counts == want, f"eval vqa alone (row {row['index']}): launch counts {counts} "
+              f"!= {want}")
+        solo += out
+        solo_rows_s.append(secs)
+        alone_counts = {k: alone_counts[k] + counts[k] for k in counts}
+        caps, runs = caps + caps_row, runs + runs_row
+    solo_s = sum(solo_rows_s)
+    launches["eval_vqa_alone"] = alone_counts
+    images = [vit_tf(pil_img2rgb(Image.open(os.path.join(root, row["image"]))))
+              for row in vqa_rows]
+    direct = [engine(image=img, text=row["question"], understanding_output=True,
+                     max_think_token_n=MAX_THINK)["text"] for img, row in zip(images, vqa_rows)]
+    same = [r["prediction"] == d for r, d in zip(solo, direct)]
+    check(all(same), f"eval vqa alone: run_eval's answers differ from a direct __call__ "
+          f"({[first_difference(r['prediction'], d) for r, d in zip(solo, direct)]})")
+    check(all(r["prediction"] for r in solo), "eval vqa alone: an empty answer")
+    log(f"[eval] run_eval batch_size=1, {EVAL_SOLO} rows of {VQA_PX} px one by one, "
+        f"{MAX_THINK} tokens at most: {', '.join(f'{t:.3f}' for t in solo_rows_s)} s (median "
+        f"{float(np.median(solo_rows_s)):.3f} s, spread "
+        f"{max(solo_rows_s) - min(solo_rows_s):.3f} s), launches {alone_counts} (expected B3 "
+        f"{LV} x {EVAL_SOLO}, B1 {L} x (2 x {EVAL_SOLO} prefills + {caps} capture warm-up "
+        f"steps + {runs} decode steps)); each answer equal to a direct __call__")
+
+    caps0 = engine.decode.captures
+    batched, batch_s, counts, peak = counted_call(lambda: vlm_runner.run_eval(
+        engine, vit_tf, vqa_rows, root, MAX_THINK, False, EVAL_ROWS))
+    caps = engine.decode.captures - caps0
+    steps = max(answer_steps(r["prediction"]) for r in batched)
+    run = program_steps(steps, chunk)
+    want = bf16_counts(b1=L * (2 + caps + run), b3=LV)
+    check(counts == want, f"eval vqa batched: launch counts {counts} != {want}")
+    check([r["index"] for r in batched] == list(range(EVAL_ROWS))
+          and all(r["prediction"] for r in batched), "eval vqa batched: rows or answers missing")
+    launches["eval_vqa_batched"] = counts
+    agree = [first_difference(r["prediction"], d) for r, d in zip(batched, direct)]
+    # the answers may part after a near-tie, but the first decode step's
+    # logits of each batched row must agree with its row alone, as the serve
+    # phase holds its slot rows against their sessions; the nearest other
+    # row's distance is reported beside them
+    questions = [row["question"] for row in vqa_rows]
+    batch_logits = chat_batch_first_logits(engine, images, questions)
+    alone_logits = torch.cat([first_logits(engine, engine.update_context_text(
+        q, engine.update_context_image(img, engine.init_context(), vae=False, vit=True)),
+        "auto") for img, q in zip(images, questions)])
+    row_rel = [relative_error(batch_logits[i], alone_logits[i]) for i in range(EVAL_ROWS)]
+    cross_rel = min(relative_error(batch_logits[i], alone_logits[j])
+                    for i in range(EVAL_ROWS) for j in range(EVAL_ROWS) if i != j)
+    flips = {i: float(batch_logits[i].max() - batch_logits[i, alone_logits[i].argmax()])
+             for i in range(EVAL_ROWS) if batch_logits[i].argmax() != alone_logits[i].argmax()}
+    check(max(row_rel) <= LOGITS_TOL, f"eval vqa batched: a row's first-step logits vs its "
+          f"row alone rel err {max(row_rel):.3e} > {LOGITS_TOL}")
+    log(f"[eval] first decode step's logits, each batched row vs its row alone (both through "
+        f"the kernels): rel err {', '.join(f'{r:.2e}' for r in row_rel)} (tol {LOGITS_TOL}); "
+        f"nearest other row {cross_rel:.3e} (not gated); rows whose first token differs, with the batched "
+        f"logit margin of its token over the alone one's: {flips}")
+    del batch_logits, alone_logits
+    log(f"[eval] run_eval batch_size={EVAL_ROWS} (chat_batch, the decode program): "
+        f"{batch_s:.2f} s, peak {peak:.2f} GiB, launches {counts} (expected B3 {LV}, B1 {L} x "
+        f"(2 prefill rounds + {caps} capture warm-up steps + {run} decode steps: {steps} of "
+        f"the loop)); each answer against its row alone, the first differing token (None: "
+        f"identical): {agree} (not gated)")
+    scores = vlm_runner.SCORERS["yesno"](batched)
+    with open(os.path.join(root, "vqa.jsonl.scores.json"), "w") as f:
+        json.dump(scores, f, indent=2)
+    check(set(scores) >= {"accuracy", "f1", "unknown_rate"}, f"score_yesno gave {scores}")
+    log(f"[eval] score_yesno over the batched answers: {scores}")
+
+    # (c) the judged flow over (a)'s layout
+    with mock_judge() as calls:
+        judge_scorer.main(["wise", "--results_dir", outdir, "--judge",
+                           "bagel_tpu_torch.eval.http_judge:judge", "--out",
+                           os.path.join(root, "wise")])
+    with open(os.path.join(root, "wise.summary.json")) as f:
+        summary = json.load(f)
+    want_summary = {"categories": {"nature": EVAL_WISCORE, "edit": EVAL_WISCORE},
+                    "overall": EVAL_WISCORE}
+    ok = (calls == [1] * len(rows) and abs(summary["overall"] - EVAL_WISCORE) < 1e-9
+          and all(abs(summary["categories"][k] - v) < 1e-9
+                  for k, v in want_summary["categories"].items()))
+    check(ok, f"eval judge: summary {summary}, judge calls {calls}, expected {want_summary}")
+    log(f"[eval] judge_scorer wise over the run_gen layout against a mock judge on 127.0.0.1: "
+        f"{len(calls)} calls, summary {summary}")
+
+    # (d) the command lines, no --device (CUDA), on the demo weights
+    write_png(os.path.join(root, "cli.png"), gen, 28)
+    write_jsonl(os.path.join(root, "cli_gen.jsonl"), [dict(prompt="a red cube")])
+    write_jsonl(os.path.join(root, "cli_vqa.jsonl"), [dict(image="cli.png",
+                                                           question="is it red?",
+                                                           answer="yes")])
+    cli = {}
+    for label, fn, argv in (
+            ("gen_runner", gen_runner.main,
+             ["--metadata", os.path.join(root, "cli_gen.jsonl"), "--outdir",
+              os.path.join(root, "cli_gen"), "--image_size", "32", "--num_timesteps", "3"]),
+            ("vlm_runner", vlm_runner.main,
+             ["--data", os.path.join(root, "cli_vqa.jsonl"), "--image_root", root, "--out",
+              os.path.join(root, "cli_vqa.jsonl.out"), "--max_length", "8", "--score",
+              "yesno"])):
+        _, secs, counts, _ = counted_call(lambda: fn(argv))
+        cli[label] = dict(s=secs, launches=counts)
+        check(counts["b1"] > 0, f"eval {label} on the card: B1 never launched ({counts})")
+        log(f"[eval] {label}.main with no --device on the demo weights: {secs:.2f} s, "
+            f"launches {counts}")
+    check(os.path.exists(os.path.join(root, "cli_gen", "00000", "samples", "0000.png"))
+          and os.path.exists(os.path.join(root, "cli_gen", "00000", "metadata.jsonl")),
+          "eval gen_runner.main wrote no GenEval layout")
+    with open(os.path.join(root, "cli_vqa.jsonl.out")) as f:
+        cli_rows = [json.loads(x) for x in f]
+    check(len(cli_rows) == 1 and cli_rows[0]["prediction"] and
+          os.path.exists(os.path.join(root, "cli_vqa.jsonl.out.scores.json")),
+          f"eval vlm_runner.main wrote {cli_rows}")
+    launches["eval_cli"] = {k: cli["gen_runner"]["launches"][k] + cli["vlm_runner"]["launches"][k]
+                            for k in cli["gen_runner"]["launches"]}
+    gc_cuda()
+
+    wall = time.perf_counter() - t_phase
+    res.update(launches=launches, gen_s=gen_s, vqa_alone_s_per_answer=solo_s / EVAL_SOLO,
+               vqa_alone_s_rows=solo_rows_s, vqa_batched_s_per_answer=batch_s / EVAL_ROWS,
+               judge_summary=summary, yesno=scores, batched_vs_alone=agree,
+               batched_logits_rel=row_rel, batched_logits_cross_rel=cross_rel,
+               cli=cli, wall_s=wall)
+    log(f"[eval] on {card}: {gen_s['text']:.2f} s per text-to-image eval image (median of "
+        f"{EVAL_TEXT_ROWS}) and "
+        f"{gen_s['edit']:.2f} s per edit image ({args.num_timesteps} timesteps); "
+        f"{solo_s / EVAL_SOLO:.2f} s per eval answer alone, {batch_s / EVAL_ROWS:.3f} s per "
+        f"answer batched by {EVAL_ROWS} ({MAX_THINK} tokens at most); phase wall time "
+        f"{wall:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 10: training at full width, depth TRAIN_LAYERS
 # ---------------------------------------------------------------------------
 
 # Full depth does not fit one card: 28 layers' training state (fp32 weights,
 # gradients, two Adam moments, EMA: 20 bytes a parameter) is ~280 GB, and
-# sharding it waits for ROADMAP A8. So the trainer runs every width of
+# sharding it waits for ROADMAP A, parallelism. So the trainer runs every width of
 # BAGEL-7B-MoT + SigLIP so400m at TRAIN_LAYERS LLM layers (SigLIP keeps its
 # 27) and packs TRAIN_TOKENS tokens a step, the reference's 32768 (max
 # 36864): at 16384 the step peaked at 59.5 GiB, at 24576 at 62.8 GiB
@@ -3753,6 +4141,7 @@ def main() -> int:
     with flash_int8(False):
         serve = phase_serve(engine, card)
         program = phase_decode_program(engine, card, vqa)
+        evals = phase_eval(engine, card)
     del engine, params  # phase 10 builds its own fp32 model
     gc_cuda()
     check(torch.cuda.memory_allocated() < 2**30,
@@ -3775,6 +4164,7 @@ def main() -> int:
                     edit=edit["launches"][key], batch=batch["launches"][key],
                     t2i_w8a8=w8a8["launches"][key], vqa_int4=int4["launches"][key],
                     **{f"serve_{k}": counts[key] for k, counts in serve["launches"].items()},
+                    **{k: counts[key] for k, counts in evals["launches"].items()},
                     train=train["timing"]["b3_launches"] if key == "b3" else 0)
 
     kernels = [
@@ -3955,7 +4345,7 @@ def main() -> int:
     ]
     log(json.dumps({"vqa": vqa, "taylorseer": taylorseer, "edit": edit, "batch": batch,
                     "t2i_w8a8": w8a8, "vqa_int4": int4, "serve": serve,
-                    "decode_program": program, "train": train}))
+                    "decode_program": program, "eval": evals, "train": train}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -40,7 +40,12 @@ def test_import_pulls_in_no_jax():
         "       'bagel_tpu_torch.data.datasets', 'bagel_tpu_torch.data.loader',\n"
         "       'bagel_tpu_torch.data.filesystem', 'bagel_tpu_torch.native',\n"
         "       'bagel_tpu_torch.native.imagepool', 'bagel_tpu_torch.utils.metrics',\n"
-        "       'bagel_tpu_torch.inference.decode_program'}\n"
+        "       'bagel_tpu_torch.inference.decode_program', 'bagel_tpu_torch.data.video',\n"
+        "       'bagel_tpu_torch.data.make_parquet_info', 'bagel_tpu_torch.eval.vlm_runner',\n"
+        "       'bagel_tpu_torch.eval.gen_runner', 'bagel_tpu_torch.eval.gen_scorer',\n"
+        "       'bagel_tpu_torch.eval.judge_scorer', 'bagel_tpu_torch.eval.http_judge',\n"
+        "       'bagel_tpu_torch.eval.detectors', 'bagel_tpu_torch.eval.data_prep',\n"
+        "       'bagel_tpu_torch.eval.prompts', 'bagel_tpu_torch.eval.scorers.judge'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "# PIL is imported only where an image is resized, decoded or encoded,\n"
         "# regex only where a BPE tokenizer is built, safetensors only where a\n"
@@ -69,10 +74,36 @@ def test_sources_import_no_jax():
                 "train/checkpoint.py", "train/driver.py", "data/packing.py",
                 "data/datasets.py", "data/loader.py", "data/filesystem.py",
                 "native/__init__.py", "native/imagepool.py", "native/_build.py",
-                "utils/metrics.py", "inference/decode_program.py"):
+                "utils/metrics.py", "inference/decode_program.py", "data/video.py",
+                "data/make_parquet_info.py"):
         assert PACKAGE / new in files, new
+    # every module of the JAX package's eval/, scorers included
+    jax_eval = sorted(p.relative_to(REPO / "bagel_tpu") for p in (REPO / "bagel_tpu" / "eval")
+                      .rglob("*.py"))
+    assert len(jax_eval) >= 22
+    for rel in jax_eval:
+        assert PACKAGE / rel in files, rel
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_prompt_files_match_jax():
+    """The judge prompts are copies: the same files, and every prompt text
+    byte for byte (the README names its own package)."""
+    jdir, tdir = REPO / "bagel_tpu" / "eval" / "prompts", PACKAGE / "eval" / "prompts"
+
+    def listing(d):
+        return sorted(str(p.relative_to(d)) for p in d.rglob("*")
+                      if p.is_file() and "__pycache__" not in p.parts)
+
+    assert listing(tdir) == listing(jdir)
+    texts = [p for p in listing(jdir) if p.endswith(".txt")]
+    assert len(texts) == 32
+    for rel in texts:
+        assert (tdir / rel).read_bytes() == (jdir / rel).read_bytes(), rel
+    from bagel_tpu_torch.eval import prompts
+
+    assert prompts.load("wise", "system") == (jdir / "wise" / "system.txt").read_text()
 
 
 def test_entry_points_without_device_raise(monkeypatch):
@@ -89,3 +120,10 @@ def test_entry_points_without_device_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BagelEngine(params, cfg, tok, tok.new_token_ids)
     assert BagelEngine(params, cfg, tok, tok.new_token_ids, device="cpu").device.type == "cpu"
+    # the eval command lines: no --device and no GPU raise before any work
+    from bagel_tpu_torch.eval import gen_runner, vlm_runner
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gen_runner.main(["--metadata", "absent.jsonl", "--outdir", "absent"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vlm_runner.main(["--data", "absent.jsonl", "--out", "absent.jsonl"])

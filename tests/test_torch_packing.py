@@ -3,7 +3,7 @@
 both packages' datasets, SequenceBuilder / finalize, PackedBatchIterator,
 make_synthetic_batch and stack_batches give identical arrays (exact); the
 native span expansion equals its Python fallback; the VAE encode fills the
-latent rows; a video sample raises."""
+latent rows. Video samples: tests/test_torch_video.py."""
 
 import dataclasses
 import io
@@ -204,13 +204,3 @@ def test_encode_vae_images_fills_the_latent_rows(corpora):
     torch.testing.assert_close(batch.vae_patches[: want.shape[0]], want)
     assert not batch.vae_patches[want.shape[0]:].any()
     assert batch.document_id.device.type == "cpu" and torch.is_tensor(batch.position_ids)
-
-
-def test_video_sample_raises(tmp_path):
-    (tmp_path / "v.jsonl").write_text(json.dumps({"video": "a.mp4", "conversations": [
-        {"from": "human", "value": "<video> what?"}, {"from": "gpt", "value": "x"}]}))
-    tok = MockTokenizer(128)
-    ds = tds.SftJSONLIterableDataset("vlm_sft", ImageTransform(56, 28, 14), tok,
-                                     [str(tmp_path / "v.jsonl")], [str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="video"):
-        next(iter(ds))

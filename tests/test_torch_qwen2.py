@@ -118,14 +118,14 @@ def test_cache_overflow_raises():
 
 
 def test_later_slice_features_raise():
-    """What still raises: weight sharding over a mesh (ROADMAP A8), here
+    """What still raises: weight sharding over a mesh (ROADMAP A, parallelism), here
     through the serving app's --mesh. The int8 KV cache is ported
     (tests/test_torch_kv_quant.py), and so are quantized weight leaves
     (tests/test_torch_quant.py)."""
     from bagel_tpu_torch.serving import app
 
     cfg = tiny_qwen2()
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="parallelism"):
         app.build_engine(app.parse_args(["--device", "cpu", "--mesh", "1,2,1"]))
     cache = tq.kv_cache_init(cfg, 1, 8, torch.int8, device="cpu")
     assert cache.k.dtype == torch.int8 and cache.k_scale.shape == (cfg.num_hidden_layers, 1, 8,
