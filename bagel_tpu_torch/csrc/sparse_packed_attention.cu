@@ -77,6 +77,14 @@
 //   on at once. Scores, P and O live in registers: the producer's
 //   warpgroup gives up registers (setmaxnreg) so the consumers have 232.
 //
+// - For the gradient (sparse_packed_attention_bwd.cu) the epilogue also
+//   writes, where asked, each row's logsumexp ([H, S] f32, in nats,
+//   converted once from the kernel's base 2; +inf for a row with no
+//   visible key) and the output's rounding residual (f32 output minus the
+//   bf16 one, in bf16). Null pointers select the kernel's instance without
+//   that code (kStats false): the inference path (SigLIP) runs the same
+//   epilogue as before, and the output is the same bits either way.
+//
 // What it leaves on the table: QK^T of the next tile is not issued under
 // this tile's softmax (tried with 64-key tiles: slower than without), no
 // ping-pong ordering of the two warpgroups,
@@ -88,20 +96,16 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "sparse_packed.cuh"
 
 namespace {
 
-using namespace hopper;
+using namespace sparse;
 
 constexpr int kConsumers = 2;              // consumer warpgroups, 64 query rows each
 constexpr int kBQ = 64 * kConsumers;       // query rows per block
-constexpr int kBK = 128;                   // keys per tile
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's warpgroup
-constexpr int kFullTile = 1 << 30;         // table entry flag: every pair visible
-constexpr int kRegionCols = 64;            // bf16 columns of a 128-byte swizzled row
-
-constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Shape {
@@ -132,53 +136,15 @@ struct Maps {  // one TMA tensor map per operand and column region
   CUtensorMap q, q_tail, k, k_tail, v, v_tail;
 };
 
-// d (64 x 8, f32) += A (64 x 16, bf16 registers) * B (16 x 8, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // --- the kernel ------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The ids of one query row, and whether key (position j, ids dk/fk/nk) is
-// visible to it.
-struct RowIds {
-  int pos, doc, fan, noise;
-  __device__ __forceinline__ void load(int p, int S, const int* d, const int* f, const int* n) {
-    pos = p;
-    doc = p < S ? d[p] : 0;
-    fan = p < S ? f[p] : -1;
-    noise = p < S ? n[p] : -1;
-  }
-  __device__ __forceinline__ bool sees(int j, int dk, int fk, int nk) const {
-    return doc != 0 && doc == dk && (pos >= j || (fan >= 0 && fan == fk)) &&
-           !(nk >= 0 && noise != nk);
-  }
-};
-
-template <int D>
+// kStats: also write lse and o_lo (the gradient's inputs); the inference
+// path takes the instance without them, whose epilogue has no extra code
+template <int D, bool kStats>
 __global__ void __launch_bounds__(kThreads, 1)
 sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ o,
-                               long long o_st, long long o_sh,
+                               long long o_st, long long o_sh, float* __restrict__ lse,
+                               __nv_bfloat16* __restrict__ o_lo,
                                const int* __restrict__ doc, const int* __restrict__ fan,
                                const int* __restrict__ noise, const int* __restrict__ live_idx,
                                const int* __restrict__ live_cnt, int S, int group, int nk_tab,
@@ -199,13 +165,17 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
   const int n_tiles = live_cnt[qt];
   const int* tab = live_idx + static_cast<long long>(qt) * nk_tab;
   __nv_bfloat16* ob = o + h * o_sh;
+  __nv_bfloat16* olb = kStats ? o_lo + h * o_sh : nullptr;
 
-  if (n_tiles == 0) {  // no live key tile: every row of the tile is 0
+  if (n_tiles == 0) {  // no live key tile: every row of the tile is 0 (lse: no pair)
     const uint4 zero = make_uint4(0, 0, 0, 0);
     for (int c = tid; c < kBQ * (D / 8); c += kThreads) {
       const int t = q0 + c / (D / 8);
       if (t < S) *reinterpret_cast<uint4*>(ob + t * o_st + (c % (D / 8)) * 8) = zero;
+      if (kStats && t < S) *reinterpret_cast<uint4*>(olb + t * o_st + (c % (D / 8)) * 8) = zero;
     }
+    if (kStats && tid < kBQ && q0 + tid < S)
+      lse[static_cast<long long>(h) * S + q0 + tid] = INFINITY;
     return;
   }
 
@@ -444,36 +414,51 @@ sparse_packed_attention_kernel(const __grid_constant__ Maps maps, __nv_bfloat16*
   // a row that saw no key writes 0 whatever its accumulator holds
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (kStats && lane % 4 == 0) {
+    // each row's logsumexp of its scaled scores, in nats: m and log2(l) are
+    // in the kernel's base 2 (scores x scale x log2(e)), converted once; a
+    // row with no visible key writes +inf, which the backward reads as "no
+    // pair" (exp(s - inf) = 0)
+    float* lh = lse + static_cast<long long>(h) * S;
+    if (r0.pos < S) lh[r0.pos] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+    if (r1.pos < S) lh[r1.pos] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+  }
+  // the output in bf16, and with kStats its rounding residual (the f32
+  // output minus the bf16 one, in bf16): the backward's rowsum(dO o O)
+  // reads both, as if the output were f32
+  auto store = [&](int pos, float x0, float x1, int col) {
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+    *reinterpret_cast<__nv_bfloat162*>(ob + pos * o_st + col) = hi;
+    if constexpr (kStats)
+      *reinterpret_cast<__nv_bfloat162*>(olb + pos * o_st + col) =
+          __floats2bfloat162_rn(x0 - __low2float(hi), x1 - __high2float(hi));
+  };
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + (lane % 4) * 2;
     const float* a = dt < Sh::kOMain / 4 ? om + 4 * dt : ot;
-    if (r0.pos < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0.pos * o_st + col) =
-          __floats2bfloat162_rn(a[0] * inv0, a[1] * inv0);
-    if (r1.pos < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1.pos * o_st + col) =
-          __floats2bfloat162_rn(a[2] * inv1, a[3] * inv1);
+    if (r0.pos < S) store(r0.pos, a[0] * inv0, a[1] * inv0, col);
+    if (r1.pos < S) store(r1.pos, a[2] * inv1, a[3] * inv1, col);
   }
 }
 
 // --- host side -------------------------------------------------------------
 
-// A [rows, heads, D] bf16 view with element strides (st, sh, 1), boxes of
-// box_cols x 1 x box_rows; 128-byte swizzle or none. Reads past D or rows
-// give zeros.
-int make_view_map(CUtensorMap* map, const void* base, int D, int heads, int rows, long long st,
-                  long long sh, int box_cols, int box_rows, bool swizzle) {
-  return make_map<3>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, {D, heads, rows},
-                     {sh * 2, st * 2}, {box_cols, 1, box_rows}, swizzle);
-}
-
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, const int* doc,
-           const int* fan, const int* noise, const int* live_idx, const int* live_cnt,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, void* o_lo,
+           const int* doc, const int* fan, const int* noise, const int* live_idx,
+           const int* live_cnt,
            int S, int H, int KH, int nk_tab, long long q_st, long long q_sh, long long k_st,
            long long k_sh, long long v_st, long long v_sh, long long o_st, long long o_sh,
            float scale, cudaStream_t stream) {
+  // a runtime call first: it makes the device's primary context current on
+  // this thread, which cuTensorMapEncodeTiled needs (autograd's device
+  // thread may not have one yet)
+  constexpr int smem = Shape<D>::kSmemBytes;
+  auto kernel = lse != nullptr ? sparse_packed_attention_kernel<D, true>
+                               : sparse_packed_attention_kernel<D, false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   Maps maps;
   int err = 0;
   err = err ? err : make_view_map(&maps.q, q, D, H, S, q_st, q_sh, kRegionCols, kBQ, true);
@@ -487,14 +472,10 @@ int launch(const void* q, const void* k, const void* v, void* o, const int* doc,
     maps.q_tail = maps.q, maps.k_tail = maps.k, maps.v_tail = maps.v;  // unused
   }
   if (err) return err;
-  constexpr int smem = Shape<D>::kSmemBytes;
-  cudaError_t e = cudaFuncSetAttribute(sparse_packed_attention_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((S + kBQ - 1) / kBQ, H);
-  sparse_packed_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
-      maps, static_cast<__nv_bfloat16*>(o), o_st, o_sh, doc, fan, noise, live_idx, live_cnt, S,
-      H / KH, nk_tab, scale * 1.4426950408889634f);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      maps, static_cast<__nv_bfloat16*>(o), o_st, o_sh, lse, static_cast<__nv_bfloat16*>(o_lo),
+      doc, fan, noise, live_idx, live_cnt, S, H / KH, nk_tab, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -504,8 +485,14 @@ extern "C" {
 
 // Launches on `stream` and returns 0 on success, else cudaGetLastError()'s
 // code, or 100000 + the CUresult of a refused tensor map;
-// cudaErrorInvalidValue for a head dim that is not instantiated.
-int sparse_packed_attention_bf16(const void* q, const void* k, const void* v, void* o,
+// cudaErrorInvalidValue for a head dim that is not instantiated, or for
+// one of lse and o_lo null without the other. `lse`: null, or [H, S] f32
+// that receives each row's logsumexp (nats; +inf for a row with no visible
+// key); `o_lo`: null, or a second output with o's strides that receives
+// the rounding residual of o (f32 output - o, in bf16). The output is the
+// same bits either way.
+int sparse_packed_attention_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                                 void* o_lo,
                                  const int* doc, const int* fan, const int* noise,
                                  const int* live_idx, const int* live_cnt,
                                  int S, int H, int KH, int D, int nk_tab,
@@ -514,14 +501,16 @@ int sparse_packed_attention_bf16(const void* q, const void* k, const void* v, vo
                                  long long v_st, long long v_sh,
                                  long long o_st, long long o_sh,
                                  float scale, void* stream) {
+  if ((lse == nullptr) != (o_lo == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (D) {
     case 72:
-      return launch<72>(q, k, v, o, doc, fan, noise, live_idx, live_cnt, S, H, KH, nk_tab, q_st,
-                        q_sh, k_st, k_sh, v_st, v_sh, o_st, o_sh, scale, st);
+      return launch<72>(q, k, v, o, l, o_lo, doc, fan, noise, live_idx, live_cnt, S, H, KH,
+                        nk_tab, q_st, q_sh, k_st, k_sh, v_st, v_sh, o_st, o_sh, scale, st);
     case 128:
-      return launch<128>(q, k, v, o, doc, fan, noise, live_idx, live_cnt, S, H, KH, nk_tab, q_st,
-                         q_sh, k_st, k_sh, v_st, v_sh, o_st, o_sh, scale, st);
+      return launch<128>(q, k, v, o, l, o_lo, doc, fan, noise, live_idx, live_cnt, S, H, KH,
+                         nk_tab, q_st, q_sh, k_st, k_sh, v_st, v_sh, o_st, o_sh, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -81,6 +81,7 @@ def _wrapper_kernels() -> dict:
         int8_matmul.int8_matmul: ("18int8_matmul_kernel",),
         int8_matmul.quantize_rows: ("20quantize_rows_kernel",),
         sparse_flash.sparse_packed_attention: ("30sparse_packed_attention_kernel",),
+        sparse_flash.sparse_packed_attention_bwd: ("22sparse_bwd_dkdv_kernel",),
     }
 
 

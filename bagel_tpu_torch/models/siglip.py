@@ -48,9 +48,10 @@ def segment_flash_attention(
     `same_segment & segment != 0`. Padded rows (segment 0) give 0. The
     kernel takes any N, so nothing is padded around the call. `tables`: the
     kernel's tables of these ids, shared by the tower's layers.
-    Differentiable (`sparse_packed_attention_train`: the backward recomputes
-    through the chunked path), so the packed training forward trains the
-    tower through it."""
+    Differentiable (`sparse_packed_attention_train`: on CUDA its backward is
+    the backward kernels of `csrc/sparse_packed_attention_bwd.cu`, on the
+    CPU their plain twin), so the packed training forward trains the tower
+    through it."""
     return sparse_packed_attention_train(q, k, v, *segment_ids_for_kernel(segment_ids),
                                          tables=tables)
 

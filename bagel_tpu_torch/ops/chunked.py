@@ -12,8 +12,9 @@ from the per-token ids. Each chunk runs under
 `torch.utils.checkpoint`, so its logits are recomputed in the backward
 rather than kept: memory O(chunk * S) both ways (JAX: `jax.checkpoint`
 over a `lax.scan`). Plain PyTorch, as XLA lowers it in JAX; it serves
-`--attn_chunk` and is the backward of the block-sparse kernel
-(`ops.sparse_flash.sparse_packed_attention_train`).
+`--attn_chunk` (the block-sparse kernel's gradient is a kernel of its own:
+`ops.sparse_flash.sparse_packed_attention_bwd`, whose plain twin reuses
+`key_ranges` and `chunk_mask`).
 
 Products are fp32 over the working-dtype inputs (the inputs are upcast, as
 `dot_attention` does), the probabilities are cast to v's dtype before the
@@ -50,7 +51,7 @@ def key_ranges(document_id: torch.Tensor, chunk: int) -> list:
                        dim=1).tolist()
 
 
-def _chunk_mask(doc_q, fan_q, noi_q, q_pos, doc, fan, noi, k_start=0):
+def chunk_mask(doc_q, fan_q, noi_q, q_pos, doc, fan, noi, k_start=0):
     """[bq, n] slice of train_packed_mask: rows q_pos, keys k_start.. of
     the key ids doc, fan, noi."""
     k_pos = torch.arange(k_start, k_start + doc.shape[0], dtype=q_pos.dtype, device=doc.device)
@@ -69,7 +70,7 @@ def chunk_attention(q_blk, kf, vf, doc_q, fan_q, noi_q, q_pos, doc, fan, noi, sc
     to `dtype` before the PV product."""
     c, kh, g, d = q_blk.shape
     with torch.autocast(q_blk.device.type, enabled=False):
-        mask = _chunk_mask(doc_q, fan_q, noi_q, q_pos, doc, fan, noi, k_start)[None, None]
+        mask = chunk_mask(doc_q, fan_q, noi_q, q_pos, doc, fan, noi, k_start)[None, None]
         logits = torch.einsum("qhgd,khd->hgqk", q_blk.float(), kf) * scale
         logits = torch.where(mask, logits, NEG_INF)
         m = logits.amax(dim=-1, keepdim=True)

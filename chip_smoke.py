@@ -9,9 +9,10 @@ Phases (the first failure exits non-zero, and no result line is printed):
   2. build   every kernel in bagel_tpu_torch/csrc with nvcc, for sm_90a, one
              nvcc per source, all started together; ptxas registers/spills;
              from `cuobjdump -sass`, B4's dequantization instructions, the
-             wgmma (HGMMA) of B3 and of B1 at T > 1, the integer wgmma
-             (IGMMA) of B5 and B2, and the TMA loads (UTMALDG) of all four,
-             which must be there.
+             wgmma (HGMMA) of B3, of B3's two backward kernels (dK/dV, dQ)
+             and of B1 at T > 1, the integer wgmma (IGMMA) of B5 and B2,
+             and the TMA loads (UTMALDG) of all of them, which must be
+             there.
   3. kernels each kernel against its plain PyTorch version: edge cases, then
              the shapes the main paths give it, with its device time (calls
              captured in a CUDA graph, the replay timed with events: no host
@@ -169,26 +170,35 @@ Phases (the first failure exits non-zero, and no result line is printed):
  10. train   training at full width and TRAIN_LAYERS of 28 LLM layers (fp32
              state does not fit deeper; the phase frees phase 9's model
              first): (a) B3's gradient (sparse_packed_attention_train: the
-             kernel forward, the chunked recompute backward) at S=2048 on
-             the training predicate (three documents, full and noise
-             splits, padding), H/KH/D 28/4/128 and 16/16/72: the forward
-             bit-identical to the forward-only call, dq/dk/dv within B3's
-             gate of the plain version's autograd, stale NaN in padding
-             rows changes nothing, control: the noise predicate dropped;
+             kernel forward with its logsumexp, then the backward kernels
+             of csrc/sparse_packed_attention_bwd.cu) at S=2048 on the
+             training predicate (three documents, full and noise splits,
+             padding), H/KH/D 28/4/128 and 16/16/72: one launch of each,
+             the forward bit-identical with and without lse stored, lse
+             against the plain one, dq/dk/dv within B3's gate of the plain
+             version's autograd and of the kernels' plain twin fed the
+             kernel's lse, stale NaN in padding rows changes nothing,
+             controls: the noise predicate dropped, lse shifted by 1;
              (b) B3 at the LLM's training shape on a packed batch's ids
              (the packer, TRAIN_TOKENS a step): the forward against the
              chunked plain version, its device time, its operations bound
-             over the visible pairs, SDPA with the boolean mask in turns,
-             the recompute backward's time and peak memory, and SDPA's
-             backward under autograd (at the full length, or its half if
-             that does not fit); (c) a
+             over the visible pairs, SDPA with the boolean mask in turns;
+             then the backward kernels there and at the SigLIP tower's
+             packed length in the same batch (H 16, D 72): against the
+             chunked recompute's VJP (norm-relative gated, the elementwise
+             tail reported), device and call time, each kernel's device
+             µs, the bound (10 D H pairs), the plain twin's and the
+             recompute's time, SDPA's backward under autograd in turns
+             (at the full length, or its half if that does not fit), peak
+             memory; (c) a
              parquet corpus of seeded images (text-to-image rows and edit
              chains, an edit chain in every sequence) through the driver's
              loader (VAE encode on the card): the model gate,
              --sparse_block vs --attn_chunk 512 on one batch and the same
              weights (loss within TRAIN_LOSS_TOL, each top-level group's
              gradient within TRAIN_GRAD_TOL; control: the samples merged
-             into one document), B3 2 x TRAIN_LAYERS + 27 launches a step, a falling
+             into one document), B3 2 x TRAIN_LAYERS + 27 launches a step
+             and its backward TRAIN_LAYERS + 27, a falling
              loss over TRAIN_STEPS steps on that batch, then driver.main
              timed over TRAIN_STEPS steps (s/step, tokens/s, MFU at 989
              TFLOP/s, peak GiB) and a checkpoint run (saves at steps 2 and
@@ -211,6 +221,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import os
 import random
 import re
@@ -252,8 +263,8 @@ SERVE_SPECULATIVE = 4
 SERVE_PROMPT_CHARS = (20, 45, 80, 120, 160, 200)
 SERVE_GATE_PX = 392  # the model gate's images: the plain path's scores fit the card
 SLOT_PASTS = [50, 4975, 1200, 3000, 63, 64, 2047, 700]  # B1-kv8's slot decode shape
-KERNELS = ("flash_cached_attention", "sparse_packed_attention", "int8_matmul", "int4_matmul",
-           "flash_cached_attention_q8")
+KERNELS = ("flash_cached_attention", "sparse_packed_attention", "sparse_packed_attention_bwd",
+           "int8_matmul", "int4_matmul", "flash_cached_attention_q8")
 # kernel vs plain, both bf16 out, over the valid rows of each batch row:
 #   elementwise |kernel - plain| <= KERNEL_RTOL |plain| + KERNEL_ATOL_RMS rms(plain)
 #   and ||kernel - plain|| / ||plain|| <= KERNEL_REL.
@@ -437,31 +448,36 @@ def phase_build() -> None:
     # integer wgmma (IGMMA), and TMA loads (UTMALDG), in each kernel function
     # named here
     required = {
-        "sparse_packed_attention": ("sparse_packed_attention_kernel", ("HGMMA", "UTMALDG"), "B3"),
-        "int8_matmul": ("int8_matmul_kernel", ("IGMMA", "UTMALDG"), "B5"),
-        "flash_cached_attention": ("flash_cached_attention_kernel", ("HGMMA", "UTMALDG"),
+        "sparse_packed_attention": (("sparse_packed_attention_kernel",), ("HGMMA", "UTMALDG"),
+                                    "B3"),
+        "sparse_packed_attention_bwd": (("sparse_bwd_dkdv_kernel", "sparse_bwd_dq_kernel"),
+                                        ("HGMMA", "UTMALDG"), "B3's backward"),
+        "int8_matmul": (("int8_matmul_kernel",), ("IGMMA", "UTMALDG"), "B5"),
+        "flash_cached_attention": (("flash_cached_attention_kernel",), ("HGMMA", "UTMALDG"),
                                    "B1 at T > 1"),
-        "flash_cached_attention_q8": ("flash_q8_kernel", ("IGMMA", "UTMALDG"), "B2"),
+        "flash_cached_attention_q8": (("flash_q8_kernel",), ("IGMMA", "UTMALDG"), "B2"),
     }
     for name, ops in (("int4_matmul", ("I2F", "I2FP", "F2F", "F2FP", "PRMT", "LOP3", "FFMA",
                                        "FMUL", "FADD", "LDG")),
                       ("sparse_packed_attention", ("HGMMA", "UTMALDG", "HMMA", "LDGSTS",
                                                    "MUFU")),
+                      ("sparse_packed_attention_bwd", ("HGMMA", "UTMALDG", "HMMA", "LDGSTS",
+                                                       "MUFU")),
                       ("int8_matmul", ("IGMMA", "HGMMA", "UTMALDG", "IMMA", "LDGSTS")),
                       ("flash_cached_attention", ("HGMMA", "UTMALDG", "HMMA", "LDGSTS", "MUFU")),
                       ("flash_cached_attention_q8", ("IGMMA", "UTMALDG", "IMMA", "MUFU", "I2F",
                                                      "F2I", "IDP", "PRMT"))):
+        pieces, need, label = required.get(name, ((), (), ""))
         found = set()
         for fn, counts in sass_counts(name, ops).items():
             log(f"[build] {name} SASS {fn}: {json.dumps(counts)}")
-            if name in required and required[name][0] in fn:
-                _, need, label = required[name]
-                check(all(counts[op] > 0 for op in need),
-                      f"{label}'s SASS ({fn}) lacks one of {need}: {json.dumps(counts)}")
-                log(f"[build] {label} SASS: {' and '.join(need)} present in {fn}")
-                found.add(name)
-        check(name not in required or name in found,
-              f"no function {required.get(name, ('',))[0]} in {name}'s SASS")
+            for piece in pieces:
+                if piece in fn:
+                    check(all(counts[op] > 0 for op in need),
+                          f"{label}'s SASS ({fn}) lacks one of {need}: {json.dumps(counts)}")
+                    log(f"[build] {label} SASS: {' and '.join(need)} present in {fn}")
+                    found.add(piece)
+        check(found == set(pieces), f"no function {set(pieces) - found} in {name}'s SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -958,7 +974,7 @@ def phase_sparse_kernels(vit_s, n_patches, heads, head_dim):
         args = (q, k, v) + ids
         got, _, err, ratio, rel = sparse_compare(sf, args, label)
         if kind == "gap":
-            _, cnt = sf.kernel_tables(*ids)
+            cnt = sf.kernel_tables(*ids).counts
             check(int(cnt[2]) == 0, f"{label}: q tile 2 has {int(cnt[2])} live key tiles")
         if stale:  # NaN in K/V rows that no query can see changes nothing
             dead = ids[0] == 0
@@ -1008,7 +1024,8 @@ def phase_sparse_kernels(vit_s, n_patches, heads, head_dim):
     call_ms = cuda_ms(launch, 20, 3)
     # A/B of the full-tile flags: the same launch with every flag cleared, so
     # that every tile takes the per-element mask; the output must not change
-    masked = (tables[0] & ~sf.FULL_TILE, tables[1])
+    masked = tables._replace(entries=tables.entries & ~sf.FULL_TILE,
+                             t_entries=tables.t_entries & ~sf.FULL_TILE)
     check(torch.equal(launch(masked), launch()), "main path: the full-tile flags change the output")
     ab = [device_ms(lambda: launch(t), 20) for t in (masked, tables, tables, masked)]
     log(f"[kernels] B3 main path A/B of the full-tile flags, device time: masked {ab[0]:.4f}, "
@@ -2038,7 +2055,7 @@ def counted_call(fn):
 
 def bf16_counts(**kw):
     """The launch counts of a bf16 path: B1 and B3 as given, the rest 0."""
-    return dict(dict(b1=0, b2=0, b3=0, b4=0, b5=0, quant=0, prep=0, kv8=0), **kw)
+    return dict(dict(b1=0, b2=0, b3=0, b3_bwd=0, b4=0, b5=0, quant=0, prep=0, kv8=0), **kw)
 
 
 def phase_taylorseer(engine, t2i):
@@ -2364,7 +2381,8 @@ def counts_reset():
     from bagel_tpu_torch.ops import flash, int4_matmul, int8_matmul, sparse_flash
 
     fns = dict(b1=flash.flash_cached_attention, b2=flash.flash_cached_attention_q8,
-               b3=sparse_flash.sparse_packed_attention, b4=int4_matmul.int4_matmul,
+               b3=sparse_flash.sparse_packed_attention,
+               b3_bwd=sparse_flash.sparse_packed_attention_bwd, b4=int4_matmul.int4_matmul,
                b5=int8_matmul.int8_matmul, quant=int8_matmul.quantize_rows,
                prep=flash.q8_prep, kv8=flash.flash_decode_kv8)
     for fn in fns.values():
@@ -2431,7 +2449,7 @@ def phase_t2i_w8a8(engine, gen):
         # fused leaves: qkv, o, gate_up, down per expert; a prefill runs the
         # und expert, a gen block both (the 2 boundary tokens take the und one)
         b5 = L * (4 * 2 + 8 * forwards)
-        want = dict(b1=0, b2=L * (2 + forwards), b3=0, b4=0, b5=b5, quant=b5,
+        want = dict(b1=0, b2=L * (2 + forwards), b3=0, b3_bwd=0, b4=0, b5=b5, quant=b5,
                     prep=L * (2 + forwards), kv8=0)
         log(f"[t2i w8a8] __call__ {PX} px, {NUM_TIMESTEPS} timesteps, BAGEL_FLASH_INT8=1: "
             f"{total_s:.2f} s, peak memory {peak / 2**30:.2f} GiB (at most {W8A8_PEAK_GIB}); "
@@ -2523,8 +2541,8 @@ def phase_vqa_int4(engine, card):
         n_tok = len(answer.split())
         steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK
         run = program_steps(steps, qeng.decode.chunk)  # the program's whole chunks
-        want = dict(b1=L * (2 + caps + run), b2=0, b3=LV, b4=L * 4 * (caps + run), b5=0,
-                    quant=0, prep=0, kv8=0)
+        want = dict(b1=L * (2 + caps + run), b2=0, b3=LV, b3_bwd=0, b4=L * 4 * (caps + run),
+                    b5=0, quant=0, prep=0, kv8=0)
         log(f"[vqa int4] __call__ {VQA_PX} px + question, {MAX_THINK} tokens at most: "
             f"{total_s:.2f} s, answer of {n_tok} tokens, peak memory {peak / 2**30:.2f} GiB; "
             f"launches {counts} (expected B4 {L} x 4 fused linears x ({caps} capture warm-up "
@@ -3588,12 +3606,16 @@ TRAIN_LAYERS = 2
 TRAIN_TOKENS = (32768, 36864)  # --expected_num_tokens, --max_num_tokens
 TRAIN_STEPS = 4  # steps of the timed driver run (the first warms up) and of the fixed batch
 GRAD_S = 2048  # B3's gradient check: the packed length
-# the model gate, --sparse_block (B3 + its recompute backward) against
+# the model gate, --sparse_block (B3 + its backward kernels) against
 # --attn_chunk 512 (plain) on one batch and the same weights, both under
 # bf16 autocast: the loss within TRAIN_LOSS_TOL relative, each top-level
 # group's gradient within TRAIN_GRAD_TOL (||g_sparse - g_chunk|| / ||g_chunk||)
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 5e-2
+# B3's stored logsumexp against the plain one (fp32 scores of the same bf16
+# inputs): the kernel sums exp2 on the SFU (~2 ulp) in another order; 1e-4
+# is ~100x what that gives on values of a few units
+LSE_ATOL = 1e-4
 # the learning rate of the fixed batch and the driver runs. With warmup 1
 # the first Adam update (eps 1e-15) moves every weight by about lr, along
 # its gradient's sign: at width 3584 a layer's outputs then move by ~width x
@@ -3626,13 +3648,30 @@ def grad_errors(got, want, rows):
     return [sparse_error(g, w, rows) for g, w in zip(got, want)]
 
 
+def grad_gate(got, want, rows):
+    """(grad_errors, whether dq, dk and dv all pass B3's gate)."""
+    errs = grad_errors(got, want, rows)
+    return errs, all(within_tol(r, rel) for _, r, rel in errs)
+
+
+def fmt_errs(errs):
+    return ", ".join(f"{n} max abs {e[0]:.3e} ({e[1]:.2f} x the limit) rel {e[2]:.3e}"
+                     for n, e in zip(("dq", "dk", "dv"), errs))
+
+
 def phase_sparse_grad():
-    """10a: B3's gradient (sparse_packed_attention_train: the kernel forward,
-    the chunked recompute backward) against the plain version's autograd."""
+    """10a: B3's gradient on the card at S = GRAD_S: the Function (the
+    kernel forward with its logsumexp, then the backward kernels) against
+    the plain version's autograd, and the backward kernels against their
+    plain twin fed the kernel's own lse, both under B3's gate; the forward's
+    output bit-identical with and without lse, the lse against the plain
+    one; stale NaN in padding rows changes no gradient; two negative
+    controls (the noise predicate dropped, lse shifted by 1)."""
     from bagel_tpu_torch.ops import sparse_flash as sf
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     ids = grad_ids(GRAD_S)
+    tables = sf.kernel_tables(*ids)
     rows = []
     for h, kh, d in ((28, 4, 128), (16, 16, 72)):
         label = f"B3 gradient S={GRAD_S} H={h} KH={kh} D={d}"
@@ -3644,15 +3683,31 @@ def phase_sparse_grad():
             out = fn(*leaves_, *meta)
             return out.detach(), torch.autograd.grad(out, leaves_, g)
 
-        out, got = grads(sf.sparse_packed_attention_train, (q, k, v))
-        check(torch.equal(out, sf.sparse_packed_attention(q, k, v, *ids)),
-              f"{label}: the Function's forward differs from the forward-only call")
+        counts = counts_reset()
+        _, got = grads(sf.sparse_packed_attention_train, (q, k, v))
+        launched = counts()
+        check(launched["b3"] == 1 and launched["b3_bwd"] == 1,
+              f"{label}: the Function launched B3 {launched['b3']} and its backward "
+              f"{launched['b3_bwd']} times, expected 1 and 1")
+        out = sf.sparse_packed_attention(q, k, v, *ids)
+        out_lse, lse, out_lo = sf.sparse_packed_attention(q, k, v, *ids, for_backward=True)
+        check(torch.equal(out_lse, out), f"{label}: the forward's output changes when it "
+                                         f"stores lse and the residual")
+        _, plain_lse, _ = sf.sparse_packed_attention_plain(q, k, v, *ids, for_backward=True)
+        seen = torch.isfinite(plain_lse)
+        lse_err = (lse[seen] - plain_lse[seen]).abs().max().item()
+        check(lse_err <= LSE_ATOL and bool(torch.isposinf(lse[~seen]).all()),
+              f"{label}: lse vs plain max abs {lse_err:.3e} (limit {LSE_ATOL}), or a row with "
+              f"no visible key lacks the +inf sentinel")
+        check(all(torch.isfinite(t).all() for t in got), f"{label}: non-finite gradient")
         _, want = grads(sf.sparse_packed_attention_plain, (q, k, v))
-        errs = grad_errors(got, want, ids[0])
-        for name, (err, ratio, rel) in zip(("dq", "dk", "dv"), errs):
-            check(all(torch.isfinite(t).all() for t in got), f"{label}: non-finite gradient")
-            check(within_tol(ratio, rel), f"{label}: {name} vs plain max abs {err:.3e} "
-                                          f"({ratio:.2f} x the limit), rel {rel:.3e}")
+        errs, ok = grad_gate(got, want, ids[0])
+        check(ok, f"{label}: kernel vs plain autograd {fmt_errs(errs)}")
+        twin = sf.sparse_packed_attention_bwd_plain(q, k, v, out, lse, g, ids, d**-0.5,
+                                                    out_lo=out_lo)
+        twin_errs, twin_ok = grad_gate(got, twin, ids[0])
+        check(twin_ok, f"{label}: kernel vs its plain twin on the kernel's lse "
+                       f"{fmt_errs(twin_errs)}")
         # NaN in the rows no query sees (padding) changes no gradient
         dead = ids[0] == 0
         stale = [t.clone() for t in (q, k, v)]
@@ -3661,29 +3716,142 @@ def phase_sparse_grad():
         _, again = grads(sf.sparse_packed_attention_train, stale)
         check(all(torch.equal(a, b) for a, b in zip(again, got)),
               f"{label}: stale NaN in dead rows leaked into the gradient")
-        # control: the noise predicate dropped must fail the gate
+        # controls: the noise predicate dropped, and lse shifted by 1 (every
+        # P scaled by 1/e), must each fail the gate
         _, blind = grads(sf.sparse_packed_attention_train, (q, k, v),
                          (ids[0], ids[1], torch.full_like(ids[2], -1)))
-        blind_errs = grad_errors(blind, want, ids[0])
-        check(not all(within_tol(r, rel) for _, r, rel in blind_errs),
-              f"{label}: the gate accepts a gradient without the noise predicate")
-        qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        out = sf.sparse_packed_attention_train(*qkv, *ids)
-        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, g, retain_graph=True), 3)
+        blind_errs, blind_ok = grad_gate(blind, want, ids[0])
+        check(not blind_ok, f"{label}: the gate accepts a gradient without the noise predicate")
+        shifted = sf.sparse_packed_attention_bwd(q, k, v, out, lse + 1, g, ids, out_lo=out_lo)
+        shift_errs, shift_ok = grad_gate(shifted, twin, ids[0])
+        check(not shift_ok, f"{label}: the gate accepts the backward on lse + 1")
+
+        def bwd():
+            return sf.sparse_packed_attention_bwd(q, k, v, out, lse, g, ids, tables=tables,
+                                                  out_lo=out_lo)
+
+        dev_ms, call_ms = device_ms(bwd, 5), cuda_ms(bwd, 5)
+        plain_ms = cuda_ms(lambda: sf.sparse_packed_attention_bwd_plain(
+            q, k, v, out, lse, g, ids, d**-0.5, out_lo=out_lo), 2)
         row = dict(shape=f"S={GRAD_S}, H={h}, KH={kh}, D={d}",
                    **{f"{n}_max_abs_err": e[0] for n, e in zip(("dq", "dk", "dv"), errs)},
+                   **{f"{n}_limit_ratio": e[1] for n, e in zip(("dq", "dk", "dv"), errs)},
                    **{f"{n}_rel_err": e[2] for n, e in zip(("dq", "dk", "dv"), errs)},
-                   control_rel_err=[e[2] for e in blind_errs], backward_call_ms=bwd_ms)
+                   twin_rel_err=[e[2] for e in twin_errs],
+                   twin_limit_ratio=[e[1] for e in twin_errs], lse_max_abs_err=lse_err,
+                   control_rel_err=[e[2] for e in blind_errs],
+                   lse_shift_control_rel_err=[e[2] for e in shift_errs],
+                   backward_device_ms=dev_ms, backward_call_ms=call_ms,
+                   backward_plain_ms=plain_ms)
         rows.append(row)
-        log(f"[train] {label}: forward bit-identical to the forward-only call; "
-            + ", ".join(f"{n} max abs {e[0]:.3e} ({e[1]:.2f} x the limit) rel {e[2]:.3e}"
-                        for n, e in zip(("dq", "dk", "dv"), errs))
-            + f"; stale NaN in dead rows changes nothing; control without the noise "
-              f"predicate rejected (rel {', '.join(f'{e[2]:.3e}' for e in blind_errs)}); "
-              f"backward (chunked recompute) {bwd_ms:.3f} ms")
-        del q, k, v, g, out, qkv
+        log(f"[train] {label}: the Function launched B3 and its backward once each; forward "
+            f"bit-identical with lse stored, lse vs plain max abs {lse_err:.3e}; vs plain "
+            f"autograd {fmt_errs(errs)}; vs the plain twin on the kernel's lse "
+            f"{fmt_errs(twin_errs)}; stale NaN in dead rows changes nothing; controls rejected: "
+            f"without the noise predicate rel {', '.join(f'{e[2]:.3e}' for e in blind_errs)}, "
+            f"lse + 1 rel {', '.join(f'{e[2]:.3e}' for e in shift_errs)}; backward kernels "
+            f"device {dev_ms:.3f} ms, call {call_ms:.3f} ms, plain twin {plain_ms:.2f} ms")
+        del q, k, v, g, out, out_lo, twin, want, got
     torch.cuda.empty_cache()
     return rows
+
+
+def backward_at_shape(label, q, k, v, ids, tables, gen):
+    """B3's backward kernels at a training shape: against the VJP of the
+    chunked recompute (JAX's backward, and the port's before these
+    kernels), gated norm-relative (KERNEL_REL each of dq, dk, dv), with the
+    elementwise tail reported as the forward's is; their device and call
+    time, the bound, the plain twin's and the recompute's time, SDPA's
+    backward in turns with the kernels (call times), peak memory."""
+    from bagel_tpu_torch.ops import sparse_flash as sf
+    from bagel_tpu_torch.ops.attention import train_packed_mask
+    from bagel_tpu_torch.ops.chunked import chunked_packed_attention
+
+    s, h, d = q.shape
+    kh = k.shape[1]
+    g = torch.randn(q.shape, generator=gen, device=DEVICE).bfloat16()
+    out, lse, out_lo = sf.sparse_packed_attention(q, k, v, *ids, tables=tables,
+                                                  for_backward=True)
+    check(torch.equal(out, sf.sparse_packed_attention(q, k, v, *ids, tables=tables)),
+          f"{label}: the forward's output changes when it stores lse and the residual")
+
+    def bwd():
+        return sf.sparse_packed_attention_bwd(q, k, v, out, lse, g, ids, tables=tables,
+                                              out_lo=out_lo)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = bwd()
+    torch.cuda.synchronize()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(all(torch.isfinite(t).all() for t in got), f"{label}: non-finite gradient")
+    # the reference: the chunked recompute's VJP, in fp32 sums over bf16 inputs
+    chunk = math.gcd(s, sf.BWD_CHUNK)
+    leaves_ = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref_out = chunked_packed_attention(*leaves_, *ids, chunk=chunk)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want = torch.autograd.grad(ref_out, leaves_, g, retain_graph=True)
+    torch.cuda.synchronize()
+    recompute_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    recompute_ms = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves_, g, retain_graph=True),
+                           1, 0)
+    del ref_out, leaves_
+    errs = grad_errors(got, want, ids[0])
+    rows = ids[0] != 0
+    over = []
+    for a, b in zip(got, want):
+        a, b = a[rows].float(), b[rows].float()
+        over.append(int(((a - b).abs() > KERNEL_RTOL * b.abs()
+                         + KERNEL_ATOL_RMS * b.pow(2).mean().sqrt()).sum()))
+    check(all(rel <= KERNEL_REL for _, _, rel in errs),
+          f"{label}: backward kernels vs the chunked recompute {fmt_errs(errs)} (gated: rel "
+          f"<= {KERNEL_REL} each)")
+    del got, want
+    dev_ms = device_ms(bwd, 5)
+    kernel_us = kernel_device_us(bwd, 5)  # Delta, dK/dV, dQ apart (reported)
+    plain_ms = cuda_ms(lambda: sf.sparse_packed_attention_bwd_plain(
+        q, k, v, out, lse, g, ids, d**-0.5, out_lo=out_lo), 1, 0)
+    pairs = int(train_packed_mask(*ids).sum())
+    # five products over the visible pairs; q, out, its residual, dout, dq
+    # [S, H, D] and k, v, dk, dv [S, KH, D] once each, lse and the ids
+    flops = 10 * d * h * pairs
+    bytes_ = 2 * s * d * (5 * h + 4 * kh) + 4 * h * s + 3 * 4 * s
+    bms, by = bound_ms(flops, bytes_)
+    # SDPA's backward (boolean mask, autograd) and the kernels' call, in
+    # turns: SDPA, kernels, kernels, SDPA
+    sdpa = [sdpa_backward(q, k, v, ids, g)]
+    turns = [cuda_ms(bwd, 5), cuda_ms(bwd, 5)]
+    sdpa.append(sdpa_backward(q, k, v, ids, g))
+    call_ms = sum(turns) / 2
+    full = [x["ms"] for x in sdpa if x["S"] == s]
+    lib_ms = sum(full) / len(full) if len(full) == 2 else None
+    row = dict(shape=f"{label} S={s}, H={h}, KH={kh}, D={d}, {pairs} visible pairs "
+                     f"({pairs / s / s:.3f} of S^2)",
+               max_abs_err=max(e[0] for e in errs), errors=errs, over_limit=over,
+               outputs=[int(rows.sum()) * n * d for n in (h, kh, kh)],
+               device_ms=dev_ms, kernel_device_us=kernel_us, call_ms=call_ms,
+               turns_call_ms=[sdpa[0]["ms"], *turns, sdpa[1]["ms"]],
+               plain_ms=plain_ms, plain="sparse_packed_attention_bwd_plain (chunk 512)",
+               recompute_ms=recompute_ms, recompute_peak_gib=recompute_peak_gib,
+               library_ms=lib_ms, sdpa_backward=sdpa, bound_ms=bms, bound_by=by,
+               tflops=flops / dev_ms / 1e9, peak_gib=peak_gib, pairs=pairs, S=s)
+    log(f"[train] B3's backward kernels at {row['shape']}: vs the chunked recompute "
+        f"{fmt_errs(errs)}, outputs over the elementwise limit {over} of {row['outputs']} "
+        f"(gated: rel <= {KERNEL_REL}); device {dev_ms:.3f} ms ({flops / dev_ms / 1e9:.1f} "
+        f"TFLOP/s over the visible pairs; by kernel "
+        f"{', '.join(f'{n} {t:.1f} µs' for n, t in kernel_us.items())}), call {call_ms:.3f} ms, "
+        f"bound {bms:.3f} ms ({by}); peak +{peak_gib:.3f} GiB; plain twin {plain_ms:.1f} ms; the chunked recompute "
+        f"{recompute_ms:.1f} ms, +{recompute_peak_gib:.2f} GiB; SDPA's backward (bool mask, "
+        f"autograd) in turns "
+        + ", ".join(f"{x['ms']:.2f} ms at S={x['S']}" if x["ms"] is not None else "did not fit"
+                    for x in sdpa)
+        + f" around the kernels' {turns[0]:.3f}, {turns[1]:.3f} ms")
+    del out, lse, out_lo, g
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_sparse_train_shape(batch, cfg):
@@ -3691,7 +3859,9 @@ def phase_sparse_train_shape(batch, cfg):
     batch from the packer: the forward against the chunked plain version
     (the dense [S, S] plain version needs ~30 GB of logits there), its
     device time, the operations bound over the visible pairs and SDPA with
-    the boolean mask; the recompute backward's time and peak memory."""
+    the boolean mask; then the backward kernels there and at the SigLIP
+    tower's packed length in the same batch (`backward_at_shape`)."""
+    from bagel_tpu_torch.models.siglip import segment_ids_for_kernel
     from bagel_tpu_torch.ops import sparse_flash as sf
     from bagel_tpu_torch.ops.attention import train_packed_mask
     from bagel_tpu_torch.ops.chunked import chunked_packed_attention
@@ -3734,41 +3904,30 @@ def phase_sparse_train_shape(batch, cfg):
     del mask, sdpa
     flops, bytes_ = 4 * d * h * pairs, 2 * 2 * s * d * (h + kh) + 3 * 4 * s
     bms, by = bound_ms(flops, bytes_)
-    # the recompute backward (plain PyTorch, ops.chunked): time and peak memory
-    g = torch.randn(q.shape, generator=gen, device=DEVICE).bfloat16()
-    qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = sf.sparse_packed_attention_train(*qkv, *ids, tables=tables)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, g, retain_graph=True), 2)
-    bwd_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-    del out
-    sdpa_bwd = sdpa_backward(q, k, v, ids, g)
-    # the backward's work: the recompute's two products plus the four of the
-    # gradient, over all S x S pairs (the chunked path skips no tile)
-    bwd_flops = 6 * 2 * d * h * s * s
     row = dict(shape=f"LLM training S={s}, H={h}, KH={kh}, D={d}, {pairs} visible pairs "
                      f"({pairs / s / s:.3f} of S^2)",
                max_abs_err=err, limit_ratio=ratio, over_limit=over, outputs=int(rows.sum()) * h * d,
                rel_err=rel, device_ms=ms, call_ms=call_ms,
                plain_ms=plain_ms, plain="ops.chunked (chunk 512, no grad)", library_ms=lib_ms,
                turns_ms=turns, bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9,
-               tables_ms=tables_ms, backward_ms=bwd_ms, backward_peak_gib=bwd_peak_gib,
-               sdpa_backward=sdpa_bwd,
-               backward_tflops=bwd_flops / bwd_ms / 1e9, pairs=pairs, S=s)
+               tables_ms=tables_ms, pairs=pairs, S=s)
     log(f"[train] B3 at the training shape {row['shape']}: vs chunked rel {rel:.3e} (limit "
         f"{KERNEL_REL}), max abs {err:.3e}, {ratio:.2f} x the elementwise limit at worst, "
         f"{over} of {row['outputs']} outputs over it; device time in turns SDPA {turns[0]:.3f}, "
         f"kernel {turns[1]:.3f}, kernel {turns[2]:.3f}, SDPA {turns[3]:.3f} ms; kernel "
         f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s over the visible pairs), call "
         f"{call_ms:.3f} ms (tables included), tables {tables_ms:.3f} ms, plain (chunked) "
-        f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}); recompute backward {bwd_ms:.2f} ms "
-        f"({bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s over S^2), peak +{bwd_peak_gib:.2f} GiB; "
-        + (f"SDPA's backward (bool mask, autograd) {sdpa_bwd['ms']:.2f} ms at S={sdpa_bwd['S']}"
-           if sdpa_bwd["ms"] is not None else "SDPA's backward not measured")
-        + ("" if sdpa_bwd["S"] == s else f" (S={s} did not fit: {sdpa_bwd['oom']})"))
-    del q, k, v, g, qkv, tables
+        f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+    row["backward"] = backward_at_shape("LLM training", q, k, v, ids, tables, gen)
+    del q, k, v, tables
+    torch.cuda.empty_cache()
+    # the SigLIP tower's packed length in this batch: its 16 heads of 72
+    vh, vd = cfg.vit.num_attention_heads, cfg.vit.head_dim
+    vit_ids = segment_ids_for_kernel(batch.vit_seg_ids.reshape(-1))
+    q, k, v = sparse_inputs(gen, vit_ids[0].shape[0], vh, vh, vd)
+    row["vit_backward"] = backward_at_shape("SigLIP training", q, k, v, vit_ids,
+                                            sf.kernel_tables(*vit_ids), gen)
+    del q, k, v
     torch.cuda.empty_cache()
     return row
 
@@ -3945,14 +4104,20 @@ def phase_train(card):
     kw = dict(ce_weight=args.ce_weight, mse_weight=args.mse_weight, remat="full")
     counts = counts_reset()
     g_sparse, m_sparse = grad_step(params, cfg, bb, noise, sparse_block=128, **kw)
-    launches = counts()["b3"]
+    launches, bwd_launches = counts()["b3"], counts()["b3_bwd"]
+    # B3: each LLM layer's forward and its remat recompute, each SigLIP
+    # layer's forward; its backward kernels once a layer of each
     per_step = 2 * TRAIN_LAYERS + cfg.vit.num_hidden_layers
-    check(launches == per_step, f"B3 launched {launches} times in one training forward and "
-                                f"backward, expected 2 x {TRAIN_LAYERS} + "
-                                f"{cfg.vit.num_hidden_layers} = {per_step}")
+    bwd_per_step = TRAIN_LAYERS + cfg.vit.num_hidden_layers
+    check(launches == per_step and bwd_launches == bwd_per_step,
+          f"B3 launched {launches} times and its backward {bwd_launches} times in one "
+          f"training forward and backward, expected 2 x {TRAIN_LAYERS} + "
+          f"{cfg.vit.num_hidden_layers} = {per_step} and {TRAIN_LAYERS} + "
+          f"{cfg.vit.num_hidden_layers} = {bwd_per_step}")
     g_chunk, m_chunk = grad_step(params, cfg, bb, noise, attn_chunk=512, **kw)
-    check(counts()["b3"] == launches + cfg.vit.num_hidden_layers,
-          "the --attn_chunk path launched B3 in the LLM")
+    check(counts()["b3"] == launches + cfg.vit.num_hidden_layers
+          and counts()["b3_bwd"] == bwd_launches + cfg.vit.num_hidden_layers,
+          "the --attn_chunk path launched B3 or its backward in the LLM")
     loss_gap = abs(float(m_sparse["loss"]) - float(m_chunk["loss"])) / abs(float(m_chunk["loss"]))
     gaps = group_grad_gaps(g_sparse, g_chunk)
     del g_sparse
@@ -3976,11 +4141,13 @@ def phase_train(card):
         f"vs {float(m_chunk['loss']):.5f} (gap {loss_gap:.2e}, limit {TRAIN_LOSS_TOL}); gradient "
         f"gaps {json.dumps({k: round(v, 5) for k, v in gaps.items()})} (limit {TRAIN_GRAD_TOL}); "
         f"B3 {launches} launches a step (2 x {TRAIN_LAYERS} LLM + {cfg.vit.num_hidden_layers} "
-        f"SigLIP); control with the samples merged into one document rejected: loss gap "
+        f"SigLIP), its backward {bwd_launches} ({TRAIN_LAYERS} + "
+        f"{cfg.vit.num_hidden_layers}); control with the samples merged into one document rejected: loss gap "
         f"{blind_loss:.2e}, "
         f"gradient gaps {json.dumps({k: round(v, 5) for k, v in blind_gaps.items()})}")
     out["gate"] = dict(loss_gap=loss_gap, grad_gaps=gaps, control_loss_gap=blind_loss,
-                       control_grad_gaps=blind_gaps, b3_per_step=launches)
+                       control_grad_gaps=blind_gaps, b3_per_step=launches,
+                       b3_bwd_per_step=bwd_launches)
     torch.cuda.empty_cache()
 
     # a falling loss on one fixed batch (the same noise every step)
@@ -3995,8 +4162,11 @@ def phase_train(card):
         losses.append(float(m["loss"]))
         check(np.isfinite(losses[-1]) and float(m["grad_norm"]) > 0,
               f"fixed batch: loss {losses[-1]}, grad norm {float(m['grad_norm'])}")
-    check(counts()["b3"] == TRAIN_STEPS * per_step, f"fixed batch: B3 {counts()['b3']} launches "
-                                                    f"in {TRAIN_STEPS} steps")
+    check(counts()["b3"] == TRAIN_STEPS * per_step
+          and counts()["b3_bwd"] == TRAIN_STEPS * bwd_per_step,
+          f"fixed batch: B3 {counts()['b3']} launches and its backward {counts()['b3_bwd']} in "
+          f"{TRAIN_STEPS} steps, expected {TRAIN_STEPS} x {per_step} and {TRAIN_STEPS} x "
+          f"{bwd_per_step}")
     check(losses[-1] < losses[0], f"fixed batch: the loss does not fall: {losses}")
     log(f"[train] fixed batch, {TRAIN_STEPS} steps (lr {TRAIN_LR}, warmup 1: the first "
         f"update has lr 0): losses {[round(x, 5) for x in losses]}")
@@ -4012,9 +4182,10 @@ def phase_train(card):
     state, history = driver.main(argv + ["--total_steps", str(TRAIN_STEPS), "--save_every",
                                          str(10 * TRAIN_STEPS)])
     wall = time.perf_counter() - t0
-    b3 = counts()["b3"]
-    check(b3 == TRAIN_STEPS * per_step, f"driver: B3 {b3} launches in {TRAIN_STEPS} steps, "
-                                        f"expected {TRAIN_STEPS} x {per_step}")
+    b3, b3_bwd = counts()["b3"], counts()["b3_bwd"]
+    check(b3 == TRAIN_STEPS * per_step and b3_bwd == TRAIN_STEPS * bwd_per_step,
+          f"driver: B3 {b3} launches and its backward {b3_bwd} in {TRAIN_STEPS} steps, expected "
+          f"{TRAIN_STEPS} x {per_step} and {TRAIN_STEPS} x {bwd_per_step}")
     check(all(np.isfinite(h["loss"]) for h in history), f"driver: losses {history}")
     timed = history[1:]
     secs = sum(h["seconds"] for h in timed)
@@ -4022,7 +4193,8 @@ def phase_train(card):
     mfu = sum(h["model_tflop"] for h in timed) * 1e12 / secs / PEAK_FLOPS
     peak = max(h.get("peak_gib", 0.0) for h in history)
     timing = dict(s_per_step=secs / len(timed), tokens_per_s=tokens / secs, mfu=mfu,
-                  peak_gib=peak, steps=history, wall_s=wall, b3_launches=b3)
+                  peak_gib=peak, steps=history, wall_s=wall, b3_launches=b3,
+                  b3_bwd_launches=b3_bwd)
     log(f"[train] driver --sparse_block 128 --remat full, {TRAIN_STEPS} steps ({card}): "
         f"{timing['s_per_step']:.3f} s/step, {timing['tokens_per_s']:.0f} tokens/s, MFU "
         f"{mfu * 100:.2f}% of {PEAK_FLOPS / 1e12:.0f} TFLOP/s (analytic model FLOPs, each token "
@@ -4154,6 +4326,7 @@ def main() -> int:
     library = "torch.nn.functional.scaled_dot_product_attention (bool mask, enable_gqa)"
     gate = next(r for r in b5_rows if r["shape"] == "gen gate")
     b2_main, prep_main = b2_rows[0], prep_rows[0]
+    bwd_main = train["shape"]["backward"]
     from bagel_tpu_torch.ops.flash import Q8_BLOCK_K
 
     def by_path(key):
@@ -4234,7 +4407,37 @@ def main() -> int:
             library=library,
             shape=main3["shape"],
             tflops=main3["tflops"],
-            train_shape=train["shape"],
+            train_shape={key: val for key, val in train["shape"].items()
+                         if key not in ("backward", "vit_backward")},
+        ),
+        dict(
+            name="sparse_packed_attention_bwd",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/sparse_packed_attention_bwd.cu",
+            replaces="bagel_tpu/ops/sparse_flash.py:264 (_bwd, sparse_packed_attention's "
+                     "custom_vjp backward: XLA's recompute through chunked_packed_attention; "
+                     "no Pallas kernel)",
+            launches=train["timing"]["b3_bwd_launches"],
+            launches_by_path=dict(train=train["timing"]["b3_bwd_launches"]),
+            kernels_a_launch="3 (Delta, dK/dV, dQ)",
+            max_abs_err=max(max(r[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
+                            for r in train["grad"]),
+            tol=KERNEL_TOL + " for dq, dk, dv over the rows that see a key, against the plain "
+                             f"autograd and the plain twin at S={GRAD_S}; at the training "
+                             f"shapes ||err|| / ||ref|| <= {KERNEL_REL} against the chunked "
+                             "recompute",
+            ms=bwd_main["device_ms"],  # the kernels' time: their device time
+            device_ms=bwd_main["device_ms"],
+            call_ms=bwd_main["call_ms"],
+            plain_ms=bwd_main["plain_ms"],
+            bound_ms=bwd_main["bound_ms"],
+            bound_by=bwd_main["bound_by"],
+            library_ms=bwd_main["library_ms"],
+            library="SDPA's backward under autograd (bool mask, enable_gqa), call time",
+            shape=bwd_main["shape"],
+            tflops=bwd_main["tflops"],
+            peak_gib=bwd_main["peak_gib"],
+            siglip_shape=train["shape"]["vit_backward"],
             gradient=train["grad"],
         ),
         dict(

@@ -722,10 +722,11 @@ def _train_ids(s):
 @pytest.mark.parametrize("s,h,kh,d", [(1024, 28, 4, 128), (700, 16, 16, 72)])
 def test_sparse_gradient_matches_plain_on_card(s, h, kh, d):
     """B3's autograd Function on the card: the forward launches the kernel
-    and equals the forward-only call bit for bit; dq, dk, dv within the
-    kernel gate of the plain version's autograd; stale NaN in padding rows
-    changes no gradient; the noise predicate dropped fails the gate. S=700
-    is no multiple of the backward's 512-row chunk (a 188-row last chunk)."""
+    and equals the forward-only call bit for bit, the backward launches the
+    backward kernels; dq, dk, dv within the kernel gate of the plain
+    version's autograd; stale NaN in padding rows changes no gradient; the
+    noise predicate dropped fails the gate. S=700 is ragged (no multiple of
+    the kernels' 128-row tile)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -751,8 +752,10 @@ def test_sparse_gradient_matches_plain_on_card(s, h, kh, d):
         return ok
 
     before = sparse_flash.sparse_packed_attention.launches
+    before_bwd = sparse_flash.sparse_packed_attention_bwd.launches
     out, got = grads(sparse_flash.sparse_packed_attention_train, (q, k, v))
     assert sparse_flash.sparse_packed_attention.launches == before + 1
+    assert sparse_flash.sparse_packed_attention_bwd.launches == before_bwd + 1
     assert torch.equal(out, sparse_flash.sparse_packed_attention(q, k, v, *ids))
     _, want = grads(sparse_flash.sparse_packed_attention_plain, (q, k, v))
     assert within(got, want)
@@ -766,6 +769,83 @@ def test_sparse_gradient_matches_plain_on_card(s, h, kh, d):
     assert not within(blind, want)
 
 
+def _within(got, want, rows):
+    """B3's gate for each of dq, dk, dv over the rows that see a key."""
+    ok = True
+    for a, b in zip(got, want):
+        a, b = a[rows].float(), b[rows].float()
+        err = (a - b).abs()
+        ok &= bool((err <= 2.0 ** -6 * b.abs() + 0.1 * b.pow(2).mean().sqrt()).all())
+        ok &= bool(err.norm() <= 1e-2 * b.norm())
+    return ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,kh,d,kind,strided", [(1001, 28, 4, 128, "train", False),
+                                                   (333, 4, 4, 72, "segments", True),
+                                                   (1000, 16, 16, 72, "segments", False),
+                                                   (768, 4, 4, 72, "gap", False)])
+def test_sparse_backward_kernels_match_their_twin_on_card(s, h, kh, d, kind, strided):
+    """The backward kernels against their plain twin fed the kernel
+    forward's own lse and residual, under B3's gate: the training predicate
+    at GQA 28/4, q/k/v views of one fused projection at a ragged S, packed
+    images with padding, and a query tile with no live key tile. The
+    forward's output is the same bits with lse and the residual stored; the
+    kernels are deterministic; stale NaN in padding rows (q, k, v, dO)
+    changes nothing; an expanded dO (one contiguous copy) gives the same
+    bits; lse + 1 fails the gate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    if kind == "train":
+        ids = _train_ids(s)
+    elif kind == "gap":  # q tile 2 (rows 256..383) is all padding
+        seg = _segments([256], s)
+        seg[384:] = 2
+        ids = (seg, seg, torch.full_like(seg, -1))
+    else:
+        seg = _segments([200, 100] if s < 500 else [300, 250, 400], s)
+        ids = (seg, seg, torch.full_like(seg, -1))
+    if strided:
+        qkv = torch.randn((s, (h + 2 * kh) * d), generator=gen, device="cuda").bfloat16()
+        q, k, v = (t.view(s, -1, d) for t in qkv.split([h * d, kh * d, kh * d], dim=1))
+    else:
+        q, k, v = (torch.randn((s, n, d), generator=gen, device="cuda").bfloat16()
+                   for n in (h, kh, kh))
+    g = torch.randn((s, h, d), generator=gen, device="cuda").bfloat16()
+    out, lse, out_lo = sparse_flash.sparse_packed_attention(q, k, v, *ids, for_backward=True)
+    assert torch.equal(out, sparse_flash.sparse_packed_attention(q, k, v, *ids))
+    _, plain_lse, _ = sparse_flash.sparse_packed_attention_plain(q, k, v, *ids,
+                                                                 for_backward=True)
+    seen = torch.isfinite(plain_lse)
+    assert (lse[seen] - plain_lse[seen]).abs().max().item() <= 1e-4
+    assert torch.isposinf(lse[~seen]).all()
+
+    def bwd(q=q, k=k, v=v, out=out, lse=lse, g=g, out_lo=out_lo):
+        return sparse_flash.sparse_packed_attention_bwd(q, k, v, out, lse, g, ids,
+                                                        out_lo=out_lo)
+
+    before = sparse_flash.sparse_packed_attention_bwd.launches
+    got = bwd()
+    torch.cuda.synchronize()
+    assert sparse_flash.sparse_packed_attention_bwd.launches == before + 1
+    twin = sparse_flash.sparse_packed_attention_bwd_plain(q, k, v, out, lse, g, ids, d**-0.5,
+                                                          out_lo=out_lo)
+    rows = ids[0] != 0
+    assert _within(got, twin, rows)
+    assert all(t[~rows].abs().max().item() == 0.0 for t in got if (~rows).any())
+    assert all(torch.equal(a, b) for a, b in zip(bwd(), got))
+    stale = [t.clone() for t in (q, k, v, g)]
+    for t in stale:
+        t[~rows] = float("nan")
+    nq, nk, nv, ng = stale
+    o2, l2, r2 = sparse_flash.sparse_packed_attention(nq, nk, nv, *ids, for_backward=True)
+    assert all(torch.equal(a, b) for a, b in zip(bwd(nq, nk, nv, o2, l2, ng, r2), got))
+    ones = torch.ones((), device="cuda", dtype=torch.bfloat16).expand(s, h, d)
+    assert all(torch.equal(a, b) for a, b in zip(bwd(g=ones), bwd(g=ones.contiguous())))
+    assert not _within(bwd(lse=lse + 1), twin, rows)
+
+
 @pytest.mark.cuda
 def test_sparse_gradient_refuses_what_the_kernel_cannot_take_on_card():
     if not torch.cuda.is_available():
@@ -777,6 +857,14 @@ def test_sparse_gradient_refuses_what_the_kernel_cannot_take_on_card():
     q32 = torch.zeros((256, 4, 128), device="cuda", requires_grad=True)
     with pytest.raises(TypeError, match="bf16"):
         sparse_flash.sparse_packed_attention_train(q32, q32, q32, *ids)
+    qb = torch.zeros((256, 4, 128), device="cuda", dtype=torch.bfloat16)
+    out, lse, lo = sparse_flash.sparse_packed_attention(qb, qb, qb, *ids, for_backward=True)
+    with pytest.raises(TypeError, match="bf16"):
+        sparse_flash.sparse_packed_attention_bwd(qb, qb, qb, out, lse, out.float(), tuple(ids),
+                                                 out_lo=lo)
+    with pytest.raises(ValueError, match="lse"):
+        sparse_flash.sparse_packed_attention_bwd(qb, qb, qb, out, lse.T, out, tuple(ids),
+                                                 out_lo=lo)
 
 
 @pytest.mark.cuda
@@ -827,11 +915,14 @@ def test_train_step_on_card():
         step = make_train_step(cfg, tx, ema_decay=0.9, frozen=("vae",), sparse_block=128)
         losses = []
         before = sparse_flash.sparse_packed_attention.launches
+        before_bwd = sparse_flash.sparse_packed_attention_bwd.launches
         for _ in range(3):
             state, m = step(state, batch, noise=noise)
             losses.append(float(m["loss"]))
         per_step = 2 * cfg.llm.num_hidden_layers + cfg.vit.num_hidden_layers
         assert sparse_flash.sparse_packed_attention.launches - before == 3 * per_step
+        bwd_per_step = cfg.llm.num_hidden_layers + cfg.vit.num_hidden_layers
+        assert sparse_flash.sparse_packed_attention_bwd.launches - before_bwd == 3 * bwd_per_step
         assert all(np.isfinite(losses)) and losses[-1] < losses[0]
         finals.append([t.detach().cpu() for t in tree_leaves(state.params)]
                       + [t.cpu() for t in tree_leaves(state.ema_params)])

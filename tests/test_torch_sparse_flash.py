@@ -103,7 +103,7 @@ def test_kernel_tables_pad_a_ragged_sequence():
     seg[:70] = 1
     seg[70:150] = 2
     noise = np.full(s, -1, np.int32)
-    entries, cnt = tsf.kernel_tables(*(torch.tensor(x) for x in (seg, seg, noise)))
+    entries, cnt, _, _ = tsf.kernel_tables(*(torch.tensor(x) for x in (seg, seg, noise)))
     padded = np.zeros(3 * tsf.BLOCK_Q, np.int32)
     padded[:s] = seg
     want_idx, want_cnt = jsf.block_liveness(jnp.asarray(padded), jnp.asarray(padded),
@@ -128,7 +128,7 @@ def test_full_tile_flags_are_exact_where_set(kind):
         seg = torch.zeros(s, dtype=torch.int32)
         seg[: 5 * bq - 40] = 1
         ids = [seg, seg, torch.full_like(seg, -1)]
-    entries, cnt = tsf.kernel_tables(*ids)
+    entries, cnt, _, _ = tsf.kernel_tables(*ids)
     nq = -(-s // bq)
     mask = torch.zeros(nq * bq, nq * bq, dtype=torch.bool)
     mask[:s, :s] = tattn.train_packed_mask(*ids)
