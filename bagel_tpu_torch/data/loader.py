@@ -74,7 +74,17 @@ class PrefetchLoader:
         return _to_device(item, self.vae_params, self.cfg, self.generator, self.device)
 
     def stop(self):
+        """End the prefetch thread: the queue is drained until it returns
+        (a put blocked on a full queue would keep it, and through it the
+        model's VAE weights on the device, alive past the run)."""
         self._stop.set()
+        self.vae_params = None
+        while self.thread.is_alive():
+            try:
+                self.queue.get_nowait()
+            except queue.Empty:
+                pass
+            self.thread.join(timeout=0.05)
 
 
 class _WorkerDone:

@@ -4,9 +4,10 @@ Adapters and helpers of the inference paths: the ViT -> LLM connector and
 `encode_vit_tokens` (understanding), the timestep embedder, the latent <->
 LLM projections, latent patchify, the shifted denoise schedule and
 classifier-free-guidance combination (generation). Training:
-`PackedTrainBatch` (one packed multi-sample sequence) and
+`PackedTrainBatch` (one packed multi-sample sequence),
 `bagel_forward_train`, which assembles the sequence, runs the packed MoT
-forward and returns per-element losses.
+forward and returns per-element losses, and `bagel_forward_train_pp`, its
+GPipe form over the rows of a stacked batch.
 """
 
 from __future__ import annotations
@@ -48,17 +49,21 @@ def _linear(x, p):
 
 def init_bagel_params(
     generator: torch.Generator, cfg: BagelConfig, dtype=torch.bfloat16,
-    device=None,
+    device=None, place=None,
 ) -> dict:
     """Parameter tree: llm / vit / vae / adapters, in the JAX layout.
 
     llm2vae starts at zero (upstream _init_weights). `generator` must live
-    on `device`.
+    on `device`. `place(path, leaf)` ('/'-joined path) returns what the tree
+    keeps of each leaf (`parallel.mesh.Layout.shard`: this process's
+    shard): the LLM's leaves go to it as they are drawn, so the full LLM
+    is never held at once; the smaller groups as each is built.
     """
     device = resolve_device(device)
     d = cfg.llm.hidden_size
     g, dev = generator, device
-    params = {"llm": qwen2.init_qwen2_params(g, cfg.llm, dtype, dev)}
+    params = {"llm": qwen2.init_qwen2_params(
+        g, cfg.llm, dtype, dev, place=place and (lambda path, t: place(f"llm/{path}", t)))}
     if cfg.visual_und:
         params["vit"] = init_siglip_params(g, cfg.vit, dtype, dev)
         params["connector"] = {
@@ -80,7 +85,17 @@ def init_bagel_params(
         params["latent_pos_embed"] = sincos_2d_grid(
             d, cfg.max_latent_size, device=dev
         ).to(dtype)
+    if place is not None:
+        params.update({k: _place_tree(place, k, v) for k, v in params.items() if k != "llm"})
     return params
+
+
+def _place_tree(place, prefix: str, tree):
+    if isinstance(tree, dict):
+        return {k: _place_tree(place, f"{prefix}/{k}", v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place_tree(place, f"{prefix}/{i}", v) for i, v in enumerate(tree))
+    return place(prefix, tree)
 
 
 def time_embed(params, t):
@@ -260,6 +275,7 @@ def bagel_forward_train(
     sparse_block=None,
     expert_parallel=None,
     remat="full",
+    layout=None,
 ) -> Dict[str, torch.Tensor]:
     """Packed training forward -> per-element losses (upstream
     Bagel.forward, bagel.py:101-229): text embeds, ViT embeds and noised
@@ -270,12 +286,14 @@ def bagel_forward_train(
     Returns 'ce' [n_ce], 'ce_weight', and with VAE tokens 'mse' [n_vae, pd]
     and 'mse_weight'; the weights zero out padding and no-loss entries, and
     the reduction happens in the train step (global token counts).
-    `expert_parallel` raises (ROADMAP A, parallelism)."""
-    if expert_parallel is not None:
-        raise NotImplementedError(
-            "expert_parallel (the MoT experts sharded over two devices) waits "
-            "for the parallel slice of the port (ROADMAP A, parallelism)"
-        )
+
+    context_parallel / expert_parallel = (mesh, axis): ring attention over
+    the axis (`ops.ring`), the MoT experts split over it
+    (`parallel.expert`). `layout` (`parallel.mesh.Layout`): `params` hold
+    this process's shards; every leaf outside the LLM layers is gathered
+    here, the layers' at use."""
+    if layout is not None:
+        params = layout.gather_tree(params, skip=("llm/layers",))
     seq, timesteps = _assemble_train_seq(params, cfg, batch, noise)
     if attn_chunk is None and context_parallel is None and sparse_block is None:
         mask = train_packed_mask(batch.document_id, batch.fan_id, batch.noise_id)
@@ -283,12 +301,56 @@ def bagel_forward_train(
     else:  # long sequences: no dense [S, S] mask
         mask = None
         meta = (batch.document_id, batch.fan_id, batch.noise_id)
-    hidden = qwen2.llm_forward_train(
-        params["llm"], cfg.llm, seq, batch.position_ids, mask, batch.gen_mask,
-        remat=remat, mask_meta=meta, attn_chunk=attn_chunk,
-        context_parallel=context_parallel, sparse_block=sparse_block,
-    )
+    if expert_parallel is not None:
+        from bagel_tpu_torch.parallel.expert import ep_llm_forward_train
+
+        if sparse_block is not None:
+            raise ValueError("expert_parallel composes with the dense-mask or attn_chunk "
+                             "attention paths, not sparse_block")
+        ep_mesh, ep_axis = expert_parallel
+        hidden = ep_llm_forward_train(
+            params["llm"], cfg.llm, seq, batch.position_ids, mask, batch.gen_mask, ep_mesh,
+            ep_axis, remat=remat, mask_meta=meta, attn_chunk=attn_chunk, layout=layout)
+    else:
+        hidden = qwen2.llm_forward_train(
+            params["llm"], cfg.llm, seq, batch.position_ids, mask, batch.gen_mask,
+            remat=remat, mask_meta=meta, attn_chunk=attn_chunk,
+            context_parallel=context_parallel, sparse_block=sparse_block, layout=layout,
+        )
     return _train_heads(params, cfg, batch, noise, hidden, timesteps)
+
+
+def bagel_forward_train_pp(
+    params: dict,
+    cfg: BagelConfig,
+    batch: PackedTrainBatch,  # leading microbatch axis on every field
+    noise: torch.Tensor,  # [B, n_vae, patch_latent_dim]
+    mesh,
+    axis: str = "pp",
+    attn_chunk=None,
+    remat="full",
+) -> Dict[str, torch.Tensor]:
+    """Pipeline-parallel packed training forward over a stacked batch: the
+    math of `bagel_forward_train` on each row, with the MoT layer stack
+    staged over the `axis` mesh dim and the rows flowing through as GPipe
+    microbatches (`parallel.pipeline`). Assembly and loss heads run
+    replicated. Returns the per-row losses stacked on a leading axis."""
+    from bagel_tpu_torch.parallel.pipeline import pipeline_llm_forward_train
+
+    rows = [batch.row(b) for b in range(batch.position_ids.shape[0])]
+    assembled = [_assemble_train_seq(params, cfg, r, n) for r, n in zip(rows, noise)]
+    if attn_chunk is None:
+        masks = torch.stack([train_packed_mask(r.document_id, r.fan_id, r.noise_id)
+                             for r in rows])
+        meta = None
+    else:
+        masks, meta = None, (batch.document_id, batch.fan_id, batch.noise_id)
+    hidden = pipeline_llm_forward_train(
+        params["llm"], cfg.llm, torch.stack([a[0] for a in assembled]), batch.position_ids,
+        batch.gen_mask, masks, mesh, axis, remat=remat, mask_meta=meta, attn_chunk=attn_chunk)
+    outs = [_train_heads(params, cfg, r, n, h, a[1])
+            for r, n, h, a in zip(rows, noise, hidden, assembled)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def _assemble_train_seq(params, cfg: BagelConfig, batch: PackedTrainBatch, noise):

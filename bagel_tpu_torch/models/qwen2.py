@@ -44,7 +44,8 @@
 Training (`llm_forward_train`): the packed multi-sample forward of the MoT
 stack over one sequence, with its four attention choices (a dense [S, S]
 mask, `attn_chunk`, `sparse_block` through the block-sparse kernel with its
-gradient, `context_parallel`, which waits for ROADMAP A, parallelism), per-layer
+gradient, `context_parallel`: ring attention over a process group), the
+sharded layouts of `parallel.mesh` (`layout=`), per-layer
 activation checkpointing (`remat`) and `freeze_und`. Each expert runs over
 its own tokens only (gathered by index and merged back, the reference's
 formulation, qwen2_navit.py:713-755), where JAX runs both experts over every
@@ -83,7 +84,9 @@ from bagel_tpu_torch.ops.int4_matmul import int4_gemv_eligible, int4_matmul
 from bagel_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
 from bagel_tpu_torch.ops.norms import rms_norm
 from bagel_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from bagel_tpu_torch.ops.ring import ring_packed_attention
 from bagel_tpu_torch.ops.sparse_flash import kernel_tables, sparse_packed_attention_train
+from bagel_tpu_torch.parallel.mesh import gather_seq, split_seq
 from bagel_tpu_torch.utils.device import resolve_device
 from bagel_tpu_torch.utils.quant import dequantize_weight4, is_kmajor
 
@@ -157,31 +160,20 @@ def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _normal(generator, shape, std, dtype, device):
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return (w * std).to(dtype)
-
-
-def _stacked_dense(generator, L, d_in, d_out, dtype, device, bias, std=0.02):
-    p = {"w": _normal(generator, (L, d_in, d_out), std, dtype, device)}
-    if bias:
-        p["b"] = torch.zeros((L, d_out), dtype=dtype, device=device)
-    return p
-
-
-def _clone_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _clone_tree(v) for k, v in tree.items()}
-    return tree.clone()
+    return w.mul_(std).to(dtype)
 
 
 def init_qwen2_params(
     generator: torch.Generator, cfg: Qwen2Config, dtype=torch.bfloat16,
-    device=None,
+    device=None, place=None,
 ) -> dict:
     """Random-init parameter tree with per-layer weights stacked on axis 0.
 
     Gen-expert weights start as copies of the und weights and every norm
     weight as 1, mirroring upstream init_moe. `generator` must live on
-    `device`.
+    `device`. `place(path, leaf)` ('/'-joined path in this tree) takes each
+    leaf as soon as it is drawn and returns what the tree keeps (a
+    process's shard under a mesh): the whole tree is never held at once.
     """
     device = resolve_device(device)
     L = cfg.num_hidden_layers
@@ -191,39 +183,50 @@ def init_qwen2_params(
     kvd = cfg.num_key_value_heads * hd
     f = cfg.intermediate_size
     g, dt, dev = generator, dtype, device
+    mot = cfg.layer_module == "mot"
+    put = place or (lambda path, t: t)
+    twins = {"attn": mot, "mlp": cfg.use_moe, "input_ln": mot, "post_ln": mot}
+    gen_copies = {}
 
-    attn = {
-        "q": _stacked_dense(g, L, d, qd, dt, dev, True),
-        "k": _stacked_dense(g, L, d, kvd, dt, dev, True),
-        "v": _stacked_dense(g, L, d, kvd, dt, dev, True),
-        "o": _stacked_dense(g, L, qd, d, dt, dev, False),
-    }
+    def layer_leaf(path, t):
+        """The stacked leaf layers/<path>, and its gen expert's copy."""
+        top, _, rest = path.partition("/")
+        if twins[top]:
+            twin = f"{top}_gen/{rest}" if rest else f"{top}_gen"
+            gen_copies[twin] = put(f"layers/{twin}", t.clone())
+        return put(f"layers/{path}", t)
+
+    def dense(path, d_in, d_out, bias=True):
+        p = {"w": layer_leaf(f"{path}/w", _normal(g, (L, d_in, d_out), 0.02, dt, dev))}
+        if bias:
+            p["b"] = layer_leaf(f"{path}/b", torch.zeros((L, d_out), dtype=dt, device=dev))
+        return p
+
     ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    attn = {"q": dense("attn/q", d, qd), "k": dense("attn/k", d, kvd),
+            "v": dense("attn/v", d, kvd), "o": dense("attn/o", qd, d, bias=False)}
     if cfg.qk_norm:
-        attn["q_norm"] = ones(L, hd)
-        attn["k_norm"] = ones(L, hd)
-    mlp = {
-        "gate": _normal(g, (L, d, f), 0.02, dt, dev),
-        "up": _normal(g, (L, d, f), 0.02, dt, dev),
-        "down": _normal(g, (L, f, d), 0.02, dt, dev),
-    }
-    layers = {"attn": attn, "mlp": mlp, "input_ln": ones(L, d), "post_ln": ones(L, d)}
-    if cfg.layer_module == "mot":
-        layers["attn_gen"] = _clone_tree(attn)
-    if cfg.use_moe:
-        layers["mlp_gen"] = _clone_tree(mlp)
-    if cfg.layer_module == "mot":
-        layers["input_ln_gen"] = ones(L, d)
-        layers["post_ln_gen"] = ones(L, d)
+        attn["q_norm"] = layer_leaf("attn/q_norm", ones(L, hd))
+        attn["k_norm"] = layer_leaf("attn/k_norm", ones(L, hd))
+    mlp = {name: layer_leaf(f"mlp/{name}", _normal(g, shape, 0.02, dt, dev))
+           for name, shape in (("gate", (L, d, f)), ("up", (L, d, f)), ("down", (L, f, d)))}
+    layers = {"attn": attn, "mlp": mlp, "input_ln": layer_leaf("input_ln", ones(L, d)),
+              "post_ln": layer_leaf("post_ln", ones(L, d))}
+    for path, t in gen_copies.items():
+        *parents, leaf = path.split("/")
+        node = layers
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = t
 
     params = {
-        "embed": _normal(g, (cfg.vocab_size, d), 0.02, dt, dev),
+        "embed": put("embed", _normal(g, (cfg.vocab_size, d), 0.02, dt, dev)),
         "layers": layers,
-        "final_norm": ones(d),
-        "lm_head": {"w": _normal(g, (d, cfg.vocab_size), 0.02, dt, dev)},
+        "final_norm": put("final_norm", ones(d)),
+        "lm_head": {"w": put("lm_head/w", _normal(g, (d, cfg.vocab_size), 0.02, dt, dev))},
     }
     if cfg.use_moe:
-        params["final_norm_gen"] = ones(d)
+        params["final_norm_gen"] = put("final_norm_gen", ones(d))
     return params
 
 
@@ -677,12 +680,26 @@ def remat_wrap(body, remat):
 
 def _train_attend(mask, mask_meta, attn_chunk, sparse_block, context_parallel, device):
     """The attention of the packed forward: q [S, H, D], k, v [S, KH, D] ->
-    [S, H, D]."""
+    [S, H, D].
+
+    context_parallel = (mesh, axis): ring attention over the axis's ranks
+    (JAX's `shard_map` of `ring_packed_attention`): q, k, v and the ids are
+    split over the ring on entry, the output gathered on exit, so only the
+    attention is sequence-sharded; `attn_chunk` then chunks the ring
+    block's query rows."""
     if context_parallel is not None:
-        raise NotImplementedError(
-            "context_parallel (ring attention over a sequence-sharded mesh) "
-            "waits for the parallel slice of the port (ROADMAP A, parallelism)"
-        )
+        if mask_meta is None:
+            raise ValueError("context_parallel needs mask_meta = (document_id, fan_id, noise_id)")
+        cp_mesh, cp_axis = context_parallel
+        group = cp_mesh.group(cp_axis)
+        n, i = cp_mesh.size(cp_axis), cp_mesh.index(cp_axis)
+        ids = tuple(t.chunk(n)[i] for t in mask_meta) if n > 1 else tuple(mask_meta)
+
+        def ring(q, k, v):
+            q, k, v = (split_seq(t, 0, group)[None] for t in (q, k, v))
+            out = ring_packed_attention(q, k, v, *ids, group, q_chunk=attn_chunk)[0]
+            return gather_seq(out, 0, group)
+        return ring
     if sparse_block is not None:
         if mask_meta is None:
             raise ValueError("sparse_block needs mask_meta = (document_id, fan_id, noise_id)")
@@ -712,21 +729,30 @@ def llm_forward_train(
     attn_chunk: Optional[int] = None,
     context_parallel=None,
     sparse_block: Optional[int] = None,
+    layout=None,
+    experts=None,
 ) -> torch.Tensor:
     """Training forward over one packed multi-sample sequence -> final
     hidden states [S, d] (post final norm, per expert).
 
     Attention: `mask` (dense [S, S]) for moderate S; for long packed
     sequences mask_meta = (document_id, fan_id, noise_id) with `attn_chunk`
-    (chunked, plain PyTorch) or `sparse_block` (the block-sparse kernel
+    (chunked, plain PyTorch), `sparse_block` (the block-sparse kernel
     B3 on CUDA, whose tiles are fixed at 128: the value only selects the
-    path). `context_parallel` raises (ROADMAP A, parallelism)."""
+    path) or `context_parallel` = (mesh, axis) (ring attention).
+
+    `layout` (`parallel.mesh.Layout`): `params` hold this process's shards;
+    each layer gathers its leaves at use (inside the recomputed body), and
+    under Megatron tp runs its local heads and FFN columns. `experts`
+    (`parallel.expert.ExpertParallel`): the MoT expert pair split over two
+    processes (`train_layer_block`)."""
     hd = cfg.head_dim
     gen_mask = gen_mask.bool()
     rows = (torch.nonzero(~gen_mask)[:, 0], torch.nonzero(gen_mask)[:, 0])
     cos, sin = rope_cos_sin(position_ids, hd, cfg.rope_theta)
     attend = _train_attend(mask, mask_meta, attn_chunk, sparse_block, context_parallel,
                            packed.device)
+    tp = layout.tensor_parallel() if layout is not None else None
 
     def freeze_und(z):
         return _select(gen_mask, z, z.detach()) if cfg.freeze_und else z
@@ -737,7 +763,9 @@ def llm_forward_train(
     _unbind_into(layers, per_layer)  # one autograd node per stacked leaf
 
     def body(x, lp):
-        return train_layer_block(cfg, lp, x, attend, rows, cos, sin)
+        if layout is not None:
+            lp = layout.gather_tree(lp, "llm/layers", layer=True)
+        return train_layer_block(cfg, lp, x, attend, rows, cos, sin, tp, experts)
 
     body = remat_wrap(body, remat)
     for lp in per_layer:
@@ -751,13 +779,15 @@ def llm_forward_train(
 
 
 def _unbind_into(tree: dict, out: list) -> None:
-    """Split every stacked [L, ...] leaf of `tree` into per-layer dicts."""
+    """Split every stacked [L, ...] leaf of `tree` into per-layer dicts (an
+    empty leaf, another process's expert under expert parallelism, stays
+    empty in every layer)."""
     def walk(node, dst_path):
         for k, v in node.items():
             if isinstance(v, dict):
                 walk(v, dst_path + (k,))
                 continue
-            for i, t in enumerate(v.unbind(0)):
+            for i, t in enumerate(v.unbind(0) if v.numel() else [v] * len(out)):
                 d = out[i]
                 for key in dst_path:
                     d = d.setdefault(key, {})
@@ -765,17 +795,34 @@ def _unbind_into(tree: dict, out: list) -> None:
     walk(tree, ())
 
 
-def train_layer_block(cfg: Qwen2Config, lp: dict, x, attend, rows, cos, sin):
+def train_layer_block(cfg: Qwen2Config, lp: dict, x, attend, rows, cos, sin, tp=None,
+                      experts=None):
     """One decoder layer of the packed training forward: pre-norm attention
     and FFN, each expert over its own rows (`rows` = (und, gen) indexes).
     With cfg.freeze_und the und rows' contributions are detached at JAX's
     points: v, the normed q and k (qk_norm), the output projection and the
-    FFN."""
+    FFN.
+
+    tp (`parallel.mesh.TensorParallel`): Megatron over the layer's local
+    heads and FFN columns: the normed input enters the column-parallel
+    projections through f (identity, all-reduced gradient), the o and down
+    products' partial sums leave through g (all-reduce).
+
+    experts (`parallel.expert.ExpertParallel`): `experts.by_expert` takes
+    `_by_expert`'s place (this process's expert over its rows, the pair
+    combined across the processes) and `experts.freeze` the detach of the
+    und rows' contributions."""
     s = x.shape[0]
     h, kh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    enter = leave = (lambda t: t)
+    if tp is not None:
+        h, kh, enter, leave = h // tp.n, kh // tp.n, tp.enter, tp.leave
     mot = cfg.layer_module == "mot"
     eps = cfg.rms_norm_eps
-    fz = (lambda t: t.detach()) if cfg.freeze_und else (lambda t: t)
+    by_expert = experts.by_expert if experts is not None else _by_expert
+    fz = lambda t: t  # noqa: E731
+    if cfg.freeze_und:
+        fz = experts.freeze if experts is not None else (lambda t: t.detach())
     attn_u = lp["attn"]
     attn_g = lp["attn_gen"] if mot else lp["attn"]
 
@@ -784,7 +831,7 @@ def train_layer_block(cfg: Qwen2Config, lp: dict, x, attend, rows, cos, sin):
 
     def expert_qkv(ln, attn, freeze):
         def fn(xr):
-            q, k, v = _proj_qkv(rms_norm(xr, ln, eps), attn, h, kh, hd)
+            q, k, v = _proj_qkv(enter(rms_norm(xr, ln, eps)), attn, h, kh, hd)
             if cfg.qk_norm:
                 q, k = freeze(qknorm(q, attn["q_norm"])), freeze(qknorm(k, attn["k_norm"]))
             return q, k, freeze(v)
@@ -792,36 +839,39 @@ def train_layer_block(cfg: Qwen2Config, lp: dict, x, attend, rows, cos, sin):
 
     res = x
     if mot:
-        q, k, v = _by_expert(rows, x, expert_qkv(lp["input_ln"], attn_u, fz),
-                             expert_qkv(lp["input_ln_gen"], attn_g, lambda t: t))
+        q, k, v = by_expert(rows, x, expert_qkv(lp["input_ln"], attn_u, fz),
+                            expert_qkv(lp["input_ln_gen"], attn_g, lambda t: t))
     else:
-        q, k, v = _proj_qkv(rms_norm(x, lp["input_ln"], eps), attn_u, h, kh, hd)
+        q, k, v = _proj_qkv(enter(rms_norm(x, lp["input_ln"], eps)), attn_u, h, kh, hd)
         if cfg.qk_norm:
             q, k = qknorm(q, attn_u["q_norm"]), qknorm(k, attn_u["k_norm"])
 
     q, k = apply_rope(q, k, cos, sin)
     att = attend(q.to(v.dtype), k.to(v.dtype), v).reshape(s, h * hd)
     if mot:
-        o = _by_expert(rows, att, lambda a: fz(_linear(a, attn_u["o"])),
-                       lambda a: _linear(a, attn_g["o"]))
+        o = by_expert(rows, att, lambda a: fz(_linear(a, attn_u["o"])),
+                      lambda a: _linear(a, attn_g["o"]))
     else:
         o = _linear(att, attn_u["o"])
-    x = res + o.to(res.dtype)
+    x = res + leave(o).to(res.dtype)
 
     res = x
 
     def ffn(mlp, pln, freeze=lambda t: t):
         def fn(xr):
-            z = rms_norm(xr, pln, eps)
+            z = enter(xr if pln is None else rms_norm(xr, pln, eps))
             return freeze(_linear(_ffn_mix(z, mlp), mlp["down"]))
         return fn
 
-    if cfg.use_moe:
-        pln_g = lp["post_ln_gen"] if mot else lp["post_ln"]
-        m = _by_expert(rows, x, ffn(lp["mlp"], lp["post_ln"], fz), ffn(lp["mlp_gen"], pln_g))
+    if cfg.use_moe and mot:
+        m = by_expert(rows, x, ffn(lp["mlp"], lp["post_ln"], fz),
+                      ffn(lp["mlp_gen"], lp["post_ln_gen"]))
+    elif cfg.use_moe:  # the shared norm over every row, then each expert's FFN
+        m = by_expert(rows, rms_norm(x, lp["post_ln"], eps), ffn(lp["mlp"], None, fz),
+                      ffn(lp["mlp_gen"], None))
     else:
         m = ffn(lp["mlp"], lp["post_ln"])(x)
-    return res + m.to(res.dtype)
+    return res + leave(m).to(res.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ serves the same engine over HTTP.
       [--mode t2i] [--prompt "..."] [--output out.png] [--device cpu]
 
 The engine runs on CUDA unless `--device` names another device. A mesh
-(`--mesh`) is not ported yet and raises.
+(`--mesh`) waits for sharded inference, the next slice of the port, and
+raises.
 """
 
 from __future__ import annotations
@@ -94,7 +95,8 @@ def build_engine(args):
 
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: weight sharding over a mesh is not ported yet (ROADMAP A, parallelism)"
+            "--mesh: weight sharding over a mesh waits for sharded inference, the next slice "
+            "of the port (ROADMAP A4, parallelism)"
         )
     device = resolve_device(args.device)
     if args.checkpoint:

@@ -137,7 +137,9 @@ class ServingRuntime:
         the same steps eagerly (to compare against)."""
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh-sharded slot cache is not ported yet (ROADMAP A, parallelism)"
+                "a mesh-sharded slot cache waits for sharded inference, the next slice of "
+                "the port (ROADMAP A4, parallelism); replicated engines serve across "
+                "processes through serving.multihost"
             )
         self.engine = engine
         self.slots = slots

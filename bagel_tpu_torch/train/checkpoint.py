@@ -8,10 +8,16 @@ moments mu and nu, each leaf under its '/'-joined path) and `state.json`
 Orbax checkpoint is not read (ROADMAP A, reading a JAX Orbax training
 state).
 
+Under a mesh (`layout`, `parallel.mesh.Layout`) the files hold the full
+leaves, as one process's: a save gathers one leaf at a time from its
+shards (every process takes part) and rank 0 streams it into the file, so
+host memory holds one leaf; a restore reads each leaf and keeps this
+process's shard.
+
 A save writes the files into `state.tmp-*`, renamed to `state` when
-complete: with block=False it first copies the whole state to host memory
-and writes on a background thread; with block=True it copies and writes
-one tree at a time. `get_latest_ckpt` ignores a step directory without
+complete: with block=False (one process) it first copies the whole state
+to host memory and writes on a background thread; with block=True it
+copies and writes one tree at a time; under a mesh it blocks. `get_latest_ckpt` ignores a step directory without
 `state`, so an unfinished save is never resumed from. The per-dataset and
 per-worker stream positions (`data_status`) ride along as JSON; restoring
 them reproduces the reference's exact resume (every sample carries
@@ -23,9 +29,11 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import re
 import shutil
+import struct
 import threading
 from typing import Any, Optional, Tuple
 
@@ -66,7 +74,51 @@ def _flatten(tree, prefix="") -> dict:
 
 
 def _host_copy(tree) -> dict:
+    """{path: CPU tensor} of a tree."""
     return {k: v.detach().to("cpu", copy=True).contiguous() for k, v in _flatten(tree).items()}
+
+
+_ST_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16",
+              torch.float64: "F64", torch.int64: "I64", torch.int32: "I32", torch.int16: "I16",
+              torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
+
+
+def _stream_tree(file: Optional[str], tree, layout, device) -> None:
+    """A sharded tree's full leaves into the safetensors file `file`, one
+    leaf at a time: each gathered from its shards (collective: every
+    process calls it, `file` None but on rank 0; each shard visits
+    `device` for the gather) and written before the next, so host memory
+    holds one leaf. A write error is raised after the last gather, so the
+    other processes never wait on a writer that stopped."""
+    flat = _flatten(tree)
+    header, end = {}, 0
+    for k, v in flat.items():
+        shape = layout.shapes[k]
+        n = math.prod(shape) * v.element_size()
+        header[k] = {"dtype": _ST_DTYPES[v.dtype], "shape": list(shape),
+                     "data_offsets": [end, end + n]}
+        end += n
+    f, err = None, None
+    try:
+        if file is not None:
+            f = open(file, "wb")
+            head = json.dumps(header).encode()
+            head += b" " * (-len(head) % 8)
+            f.write(struct.pack("<Q", len(head)) + head)
+    except OSError as e:
+        err = e
+    for k, v in flat.items():
+        full = layout.unshard(k, v.detach().to(device))
+        if f is not None and err is None:
+            try:
+                f.write(full.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().data)
+            except OSError as e:
+                err = e
+        del full
+    if f is not None:
+        f.close()
+    if err is not None:
+        raise err
 
 
 def _trees(state: TrainState) -> dict:
@@ -81,10 +133,13 @@ def save_checkpoint(
     data_status: Optional[dict] = None,
     cfg: Optional[BagelConfig] = None,
     block: bool = True,
+    layout=None,
 ) -> str:
     """Save one checkpoint. block=False returns once the state is copied to
     host memory and writes the files on a background thread; call
-    `wait_for_saves()` (or save with block=True) before depending on them."""
+    `wait_for_saves()` (or save with block=True) before depending on them.
+    Under `layout` every process calls it, the leaves are gathered one at
+    a time, rank 0 writes, and the save blocks whatever `block` says."""
     from safetensors.torch import save_file
 
     path = os.path.join(os.path.abspath(ckpt_dir), f"{step:07d}")
@@ -98,31 +153,40 @@ def save_checkpoint(
             "(the existing state is kept)", step, ckpt_dir)
         return path
     trees = {name: tree for name, tree in _trees(state).items() if tree is not None}
+    device = next(iter(_flatten(state.params).values())).device
     # async: the whole state is copied to host memory before the loop goes
-    # on; blocking: one tree at a time, so host memory holds one tree
-    host = {name: _host_copy(tree) for name, tree in trees.items()} if not block else None
+    # on; blocking: one tree at a time; sharded: one leaf at a time
+    block = block or layout is not None
+    host = None if block else {name: _host_copy(tree) for name, tree in trees.items()}
     meta = {"step": state.step, "count": state.opt_state["count"], "trees": sorted(trees)}
     rank0 = _rank() == 0
 
     def write():
         try:
-            os.makedirs(path, exist_ok=True)
-            tmp = os.path.join(path, f"state.tmp-{os.getpid()}")
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-            for name in trees:
-                tensors = host.pop(name) if host is not None else _host_copy(trees[name])
+            tmp = None
+            if rank0:
+                os.makedirs(path, exist_ok=True)
+                tmp = os.path.join(path, f"state.tmp-{os.getpid()}")
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp)
+            for name, tree in trees.items():
+                if layout is not None:  # every process gathers, rank 0 writes
+                    _stream_tree(tmp and os.path.join(tmp, f"{name}.safetensors"), tree,
+                                 layout, device)
+                    continue
+                tensors = host.pop(name) if host is not None else _host_copy(tree)
                 save_file(tensors, os.path.join(tmp, f"{name}.safetensors"))
                 del tensors
+            if not rank0:
+                return
             with open(os.path.join(tmp, "state.json"), "w") as f:
                 json.dump(meta, f)
-            if rank0:
-                if data_status is not None:
-                    with open(os.path.join(path, "data_status.json"), "w") as f:
-                        json.dump(_jsonify(data_status), f)
-                if cfg is not None:
-                    with open(os.path.join(path, "config.json"), "w") as f:
-                        f.write(config_to_json(cfg))
+            if data_status is not None:
+                with open(os.path.join(path, "data_status.json"), "w") as f:
+                    json.dump(_jsonify(data_status), f)
+            if cfg is not None:
+                with open(os.path.join(path, "config.json"), "w") as f:
+                    f.write(config_to_json(cfg))
             os.replace(tmp, os.path.join(path, "state"))  # commit
         except BaseException as e:  # surfaced by wait_for_saves
             _save_error.append(e)
@@ -149,25 +213,37 @@ def _load(state_dir: str, name: str) -> dict:
     return load_file(os.path.join(state_dir, f"{name}.safetensors"))
 
 
-def _fill(tree, loaded: dict, prefix="", skip=()):
+def _open(state_dir: str, name: str):
+    """A saved tree's file, read one leaf at a time."""
+    from safetensors import safe_open
+
+    return safe_open(os.path.join(state_dir, f"{name}.safetensors"), framework="pt")
+
+
+def _fill(tree, loaded, prefix="", skip=(), layout=None):
     """Copy loaded tensors into tree's leaves in place (device and pinning
-    kept); top-level groups in `skip` are left as they are."""
+    kept; under `layout` this process's shard of each); top-level groups in
+    `skip` are left as they are."""
+    keys = set(loaded.keys())
     for path, t in _flatten(tree, prefix).items():
         if path.split("/")[0] in skip:
             continue
-        if path not in loaded:
+        if path not in keys:
             raise KeyError(f"checkpoint has no leaf {path}")
-        src = loaded[path]
+        src = loaded.get_tensor(path)
+        if layout is not None:
+            src = layout.shard(path, src)
         if src.shape != t.shape:
             raise ValueError(f"{path}: checkpoint shape {tuple(src.shape)}, model {tuple(t.shape)}")
         with torch.no_grad():
             t.copy_(src)
 
 
-def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Optional[dict]]:
+def restore_checkpoint(path: str, state: TrainState,
+                       layout=None) -> Tuple[TrainState, Optional[dict]]:
     """Restore a full training state into `state` in place (each leaf keeps
-    its device): parameters, EMA, moments, update count and step. Returns
-    (state, data_status)."""
+    its device; under `layout` each takes its shard): parameters, EMA,
+    moments, update count and step. Returns (state, data_status)."""
     state_dir = os.path.join(path, "state")
     meta = checkpoint_meta(path)
     for name, tree in _trees(state).items():
@@ -175,7 +251,8 @@ def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Option
             continue
         if name not in meta["trees"]:
             raise ValueError(f"checkpoint {path} has no {name} tree")
-        _fill(tree, _load(state_dir, name))
+        with _open(state_dir, name) as f:
+            _fill(tree, f, layout=layout)
     state.step = meta["step"]
     state.opt_state["count"] = meta["count"]
     ds_path = os.path.join(path, "data_status.json")
@@ -193,7 +270,7 @@ _POS_BUFFERS = ("vit_pos_embed", "latent_pos_embed")
 
 
 def restore_params_only(
-    path: str, current_params: dict, from_ema: bool = False
+    path: str, current_params: dict, from_ema: bool = False, layout=None,
 ) -> Tuple[dict, Optional[dict]]:
     """Model weights only (the reference's resume_model_only /
     finetune_from_ema, pretrain_unified_navit.py:449-466): moments, step
@@ -203,17 +280,19 @@ def restore_params_only(
     `params` holds the checkpoint's EMA weights when from_ema, else its raw
     weights; `ema_params` is the checkpoint's EMA tree when it has one,
     else None. The sin-cos tables, and groups the checkpoint lacks, keep
-    current_params' values (the reference loads with strict=False)."""
+    current_params' values (the reference loads with strict=False). Under
+    `layout` the trees hold this process's shards."""
     state_dir = os.path.join(path, "state")
     has_ema = "ema" in checkpoint_meta(path)["trees"]
     if from_ema and not has_ema:
         raise ValueError(f"--finetune_from_ema: checkpoint {path} was saved without EMA")
 
     def build(name):
-        loaded = _load(state_dir, name)
-        groups = {p.split("/")[0] for p in loaded}
-        tree = tree_map(lambda t: t.detach().clone(), current_params)
-        _fill(tree, loaded, skip=set(_POS_BUFFERS) | (set(current_params) - groups))
+        with _open(state_dir, name) as loaded:
+            groups = {p.split("/")[0] for p in loaded.keys()}
+            tree = tree_map(lambda t: t.detach().clone(), current_params)
+            _fill(tree, loaded, skip=set(_POS_BUFFERS) | (set(current_params) - groups),
+                  layout=layout)
         return tree
 
     params = build("ema" if from_ema else "params")

@@ -5,15 +5,30 @@ Usage:
   python -m bagel_tpu_torch.train.driver --dataset_config data.yaml \
       --ckpt_dir ckpts --total_steps 1000 [--auto_resume] ...
 
-One process on one CUDA card (`--device cpu` runs on the CPU, as the tests
-do; with no device and no card it raises). The flags are the JAX driver's:
-gradient accumulation, EMA, CE/MSE weighting, warmup schedules, MFU
-logging, periodic checkpointing with exact data resume, optimizer and EMA
-offload (pinned host memory between steps), `--profile_dir`,
-`--auto_resume`, `--resume_from`, `--resume_model_only`,
-`--finetune_from_ema`, and a device-OOM log before the re-raise. The
-parallel layouts (`--mesh`, `--context_parallel`, `--pipeline_parallel`,
-`--expert_parallel`) and multi-process runs raise: they wait for ROADMAP A, parallelism.
+  torchrun --nproc_per_node 4 -m bagel_tpu_torch.train.driver --mesh 2,2,1 ...
+
+One process a card (`--device cpu` runs on the CPU, as the tests do; with
+no device and no card it raises). The flags are the JAX driver's: gradient
+accumulation, EMA, CE/MSE weighting, warmup schedules, MFU logging,
+periodic checkpointing with exact data resume, optimizer and EMA offload
+(pinned host memory between steps), `--profile_dir`, `--auto_resume`,
+`--resume_from`, `--resume_model_only`, `--finetune_from_ema`, and a
+device-OOM log before the re-raise.
+
+Parallel runs start under torchrun (RANK, WORLD_SIZE, LOCAL_RANK): the
+process group is nccl on CUDA (rank r on card LOCAL_RANK) and gloo on the
+CPU, and `--mesh dp,fsdp,tp` (default 1,WORLD_SIZE,1, as JAX's) must have
+WORLD_SIZE processes. The state is sharded by `parallel.mesh`'s table
+(each leaf drawn whole and sharded at once: no process holds the tree);
+`--context_parallel AXIS` (ring attention), `--pipeline_parallel AXIS`
+(GPipe over `--pp_microbatches` rows, dp = 1) and `--expert_parallel AXIS`
+(the MoT experts, an axis of 2; not with --sparse_block) are exclusive,
+as JAX asserts. Every process packs the same stream (JAX's one process);
+a micro-step stacks dp sequences (JAX's one sequence a dp slice; under
+the pipeline its microbatches) and each dp coordinate takes its rows. Rank
+0 alone logs and writes checkpoints, streamed one gathered leaf at a time
+(a save under a mesh blocks); the data status of every rank is gathered
+into them.
 
 `main` returns the final TrainState and the per-step records (loss,
 seconds, tokens, the analytic model TFLOP of the step, peak device memory
@@ -34,6 +49,7 @@ from bagel_tpu_torch.configs import BagelConfig, Qwen2Config, SiglipConfig, VAEC
 from bagel_tpu_torch.data.datasets import build_grouped_datasets
 from bagel_tpu_torch.data.packing import PackedBatchIterator, PackerConfig, stack_batches
 from bagel_tpu_torch.models.bagel import init_bagel_params
+from bagel_tpu_torch.parallel.mesh import Layout, Mesh, shard_batch, shard_params
 from bagel_tpu_torch.train.checkpoint import (
     data_status_for_process,
     gather_data_status,
@@ -57,9 +73,6 @@ from bagel_tpu_torch.train.step import (
 from bagel_tpu_torch.utils.device import resolve_device
 from bagel_tpu_torch.utils.metrics import ThroughputMeter, make_logger, profile_trace
 
-PARALLEL = "waits for the parallel slice of the port (ROADMAP A, parallelism)"
-
-
 def seqlen_sq(document_id: torch.Tensor) -> float:
     """Sum over packed samples of len(sample)^2, the attention term of the
     analytic FLOPs model (pretrain_unified_navit.py:675-681). document_id:
@@ -81,7 +94,8 @@ def parse_args(argv=None):
     p.add_argument("--mock_tokenizer", action="store_true",
                    help="use the deterministic test tokenizer (no files)")
     p.add_argument("--llm_config", type=str, default=None,
-                   help="json file for Qwen2Config; default = 7B MoT")
+                   help="json file for Qwen2Config (default 7B MoT); with --preset micro, "
+                        "overrides of its fields")
     p.add_argument("--layer_module", type=str, default="mot", choices=["dense", "moe", "mot"])
     p.add_argument("--num_hidden_layers", type=int, default=None)
     p.add_argument("--visual_gen", action="store_true", default=True)
@@ -132,7 +146,8 @@ def parse_args(argv=None):
     p.add_argument("--optimizer_offload", action="store_true",
                    help="keep the Adam moments in pinned host memory between "
                         "steps; each leaf visits the card for its update")
-    p.add_argument("--mesh", type=str, default=None, help=f"dp,fsdp,tp: {PARALLEL}")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="dp,fsdp,tp process mesh (product = WORLD_SIZE; default 1,WORLD_SIZE,1)")
     p.add_argument("--remat", type=str, default="full", choices=["full", "dots", "none"],
                    help="per-layer activation checkpointing: full = save the "
                         "layer input only (reference NO_REENTRANT); dots = keep "
@@ -142,10 +157,14 @@ def parse_args(argv=None):
     p.add_argument("--sparse_block", type=int, default=None,
                    help="block-sparse packed attention through the CUDA kernel "
                         "(its tiles are 128; the value selects the path)")
-    p.add_argument("--context_parallel", type=str, default=None, help=PARALLEL)
-    p.add_argument("--pipeline_parallel", type=str, default=None, help=PARALLEL)
+    p.add_argument("--context_parallel", type=str, default=None,
+                   help="mesh axis of ring attention over the packed sequence (B=1 a rank; "
+                        "--attn_chunk then chunks the ring block's query rows)")
+    p.add_argument("--pipeline_parallel", type=str, default=None,
+                   help="mesh axis of the GPipe stages over the LLM layer stack (dp = 1)")
     p.add_argument("--pp_microbatches", type=int, default=4)
-    p.add_argument("--expert_parallel", type=str, default=None, help=PARALLEL)
+    p.add_argument("--expert_parallel", type=str, default=None,
+                   help="mesh axis (size 2) holding the MoT und/gen experts")
     # logging / ckpt
     p.add_argument("--ckpt_dir", type=str, default="results/ckpt")
     p.add_argument("--save_every", type=int, default=2000)
@@ -167,10 +186,15 @@ def parse_args(argv=None):
 
 def build_config(args) -> BagelConfig:
     if args.preset == "micro":
+        import json
+
         from bagel_tpu_torch.configs import micro_bagel
 
         cfg = micro_bagel()
         llm = dataclasses.replace(cfg.llm, freeze_und=args.freeze_und)
+        if args.llm_config:  # overrides of the micro config's fields
+            with open(args.llm_config) as f:
+                llm = dataclasses.replace(llm, **json.load(f))
         if args.num_hidden_layers:
             llm = dataclasses.replace(llm, num_hidden_layers=args.num_hidden_layers)
         return dataclasses.replace(cfg, llm=llm)
@@ -194,12 +218,51 @@ def build_config(args) -> BagelConfig:
     )
 
 
-def _refuse_parallel(args) -> None:
-    for flag in ("mesh", "context_parallel", "pipeline_parallel", "expert_parallel"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} {PARALLEL}")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"multi-process training {PARALLEL}")
+def start_processes(args, device: torch.device):
+    """(rank, world, device, started): under torchrun (RANK and WORLD_SIZE in
+    the environment) the process group from the environment, nccl on CUDA
+    with this process on card LOCAL_RANK, gloo on the CPU; one process
+    otherwise."""
+    import torch.distributed as dist
+
+    started = False
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        if device.type == "cuda":  # nccl's communicator on this card, made now
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(device)
+            dist.init_process_group("nccl", init_method="env://", device_id=device)
+        else:
+            dist.init_process_group("gloo", init_method="env://")
+        started = True
+    on = dist.is_initialized()
+    return (dist.get_rank() if on else 0, dist.get_world_size() if on else 1, device, started)
+
+
+def make_layout(args, cfg: BagelConfig, world: int, device: torch.device):
+    """The mesh layout of the run, or None for one process with no parallel
+    flag (the plain path). Refuses JAX's refused combinations."""
+    axes = [a for a in (args.context_parallel, args.pipeline_parallel, args.expert_parallel) if a]
+    if len(axes) > 1:
+        raise ValueError("--context_parallel / --pipeline_parallel / --expert_parallel "
+                         "are exclusive")
+    if args.expert_parallel and args.sparse_block:
+        raise ValueError("--expert_parallel does not support --sparse_block (the ep forward "
+                         "routes attention through the dense/chunked paths only; use "
+                         "--attn_chunk for long sequences)")
+    if args.pipeline_parallel and args.sparse_block:
+        raise ValueError("--pipeline_parallel takes the dense-mask or --attn_chunk attention, "
+                         "not --sparse_block")
+    if world == 1 and not args.mesh and not axes:
+        return None
+    shape = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else (1, world, 1)
+    if len(shape) != 3:
+        raise ValueError(f"--mesh takes dp,fsdp,tp, got {args.mesh}")
+    mesh = Mesh(shape, device_type=device.type)
+    for a in axes:
+        if a not in mesh.shape:
+            raise ValueError(f"{a} is not a mesh axis (dp, fsdp, tp)")
+    return Layout(mesh, cfg, pipeline_axis=args.pipeline_parallel,
+                  expert_axis=args.expert_parallel, context_axis=args.context_parallel)
 
 
 def frozen_groups(args, params: dict) -> tuple:
@@ -283,12 +346,21 @@ def make_loader(args, cfg: BagelConfig, vae_params, data_status: dict, device):
 
 
 def main(argv=None):
+    import torch.distributed as dist
+
     args = parse_args(argv)
-    _refuse_parallel(args)
-    device = resolve_device(args.device)
-    logger = make_logger()
+    rank, world, device, started = start_processes(args, resolve_device(args.device))
+    logger = make_logger(rank=rank)
     cfg = build_config(args)
     cuda = device.type == "cuda"
+    layout = make_layout(args, cfg, world, device)
+    mesh = layout.mesh if layout is not None else None
+    par = dict(context_parallel=(mesh, args.context_parallel) if args.context_parallel else None,
+               pipeline_parallel=(mesh, args.pipeline_parallel) if args.pipeline_parallel
+               else None,
+               expert_parallel=(mesh, args.expert_parallel) if args.expert_parallel else None)
+    if mesh is not None:
+        logger.info(f"mesh {mesh.shape}, {world} processes")
 
     # --- model ---
     if args.init_checkpoint:
@@ -296,9 +368,12 @@ def main(argv=None):
         from bagel_tpu_torch.utils.convert import load_checkpoint_dir
 
         params = params_to(load_checkpoint_dir(args.init_checkpoint, cfg), device, torch.float32)
-    else:
+        if layout is not None:
+            params = shard_params(layout, params)
+    else:  # under a mesh every process draws each leaf whole and keeps its shard
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = init_bagel_params(gen, cfg, dtype=torch.float32, device=device)
+        params = init_bagel_params(gen, cfg, dtype=torch.float32, device=device,
+                                   place=layout.shard if layout is not None else None)
     frozen = frozen_groups(args, params)
     tx = make_optimizer(
         make_lr_schedule(args.lr, args.warmup_steps, args.total_steps, args.lr_scheduler,
@@ -328,7 +403,7 @@ def main(argv=None):
                 f"{args.ckpt_dir} already contains checkpoints; point --ckpt_dir at "
                 f"a fresh directory")
         new_params, new_ema = restore_params_only(resume_src, state.params,
-                                                  from_ema=args.finetune_from_ema)
+                                                  from_ema=args.finetune_from_ema, layout=layout)
         with torch.no_grad():
             for dst, src in zip(tree_leaves(state.params), tree_leaves(new_params)):
                 dst.copy_(src)
@@ -341,20 +416,24 @@ def main(argv=None):
         logger.info(f"loaded {'EMA ' if args.finetune_from_ema else ''}weights from "
                     f"{resume_src} (model only; fresh optimizer/step/data stream)")
     elif resume_src:
-        state, saved_status = restore_checkpoint(resume_src, state)
-        data_status = data_status_for_process(saved_status, 0)
+        state, saved_status = restore_checkpoint(resume_src, state, layout=layout)
+        data_status = data_status_for_process(saved_status, rank)
         start_step = step_from_path(resume_src)
         logger.info(f"resumed from {resume_src} at step {start_step}")
 
-    # --- data ---
+    # --- data: every process packs the same stream, JAX's one process's ---
     vae_params = state.params["vae"] if cfg.visual_gen else None
     loader = make_loader(args, cfg, vae_params, data_status, device)
     data_iter = iter(loader)
+    # JAX's rows a micro-step: one packed sequence a dp slice; under the
+    # pipeline, the microbatches (replicated over the mesh)
+    rows = max(args.pp_microbatches, 2) if args.pipeline_parallel else \
+        (mesh.shape["dp"] if mesh is not None else 1)
 
-    meter = ThroughputMeter(cfg.llm, mot=False)  # each token runs one expert
+    meter = ThroughputMeter(cfg.llm, n_chips=world, mot=False)  # each token runs one expert
     noise_gen = torch.Generator(device=device).manual_seed(args.seed + 1000)
     wandb_run = None
-    if args.wandb_project:
+    if args.wandb_project and rank == 0:
         try:
             import wandb
 
@@ -364,7 +443,8 @@ def main(argv=None):
             logger.info("wandb not installed; skipping")
 
     loss_kw = dict(ce_weight=args.ce_weight, mse_weight=args.mse_weight,
-                   attn_chunk=args.attn_chunk, sparse_block=args.sparse_block, remat=args.remat)
+                   attn_chunk=args.attn_chunk, sparse_block=args.sparse_block, remat=args.remat,
+                   **par)
     # --profile_dir traces a 2-step window after the first (warm-up) step
     prof_start = start_step + 1
     prof_stop = min(prof_start + 2, args.total_steps)
@@ -384,11 +464,15 @@ def main(argv=None):
             t0 = time.perf_counter()
             grads_acc, metrics, tokens, step_seqsq = None, None, 0, 0.0
             for _ in range(args.gradient_accumulation_steps):
-                batch, data_indexes = next(data_iter)
-                bb = stack_batches([batch])
+                group = [next(data_iter) for _ in range(rows)]
+                bb = stack_batches([b for b, _ in group])
                 noise = torch.randn(bb.vae_patches.shape, generator=noise_gen, device=device)
+                tokens += bb.position_ids.numel()
+                step_seqsq += seqlen_sq(bb.document_id)
+                if layout is not None:  # this dp coordinate's rows
+                    bb, noise = shard_batch(mesh, bb), shard_batch(mesh, noise)
                 try:
-                    g, metrics = grad_step(state.params, cfg, bb, noise, **loss_kw)
+                    g, metrics = grad_step(state.params, cfg, bb, noise, layout, **loss_kw)
                 except torch.cuda.OutOfMemoryError:
                     # the reference's CUDA-OOM handler (pretrain_unified_navit.py:
                     # 688-693): log the shapes, then re-raise (--auto_resume
@@ -399,12 +483,11 @@ def main(argv=None):
                     raise
                 grads_acc = g if grads_acc is None else tree_map(torch.add, grads_acc, g)
                 del g
-                data_status = update_data_status(data_status, data_indexes)
-                tokens += bb.position_ids.numel()
-                step_seqsq += seqlen_sq(bb.document_id)
+                for _, data_indexes in group:
+                    data_status = update_data_status(data_status, data_indexes)
             if args.gradient_accumulation_steps > 1:
                 grads_acc = tree_map(lambda x: x / args.gradient_accumulation_steps, grads_acc)
-            metrics["grad_norm"] = tx.update_(state.params, grads_acc, state.opt_state)
+            metrics["grad_norm"] = tx.update_(state.params, grads_acc, state.opt_state, layout)
             del grads_acc
             if state.ema_params is not None:
                 ema_update_(state.ema_params, state.params, args.ema)
@@ -438,20 +521,25 @@ def main(argv=None):
                 seqsq = 0.0
 
             if step > start_step and step % args.save_every == 0:
-                # the write runs on a background thread once the state is in
-                # host memory
+                # one process: the write runs on a background thread once the
+                # state is in host memory; under a mesh the save blocks
                 save_checkpoint(args.ckpt_dir, step, state, gather_data_status(data_status),
-                                cfg, block=False)
-                logger.info(f"checkpoint at step {step} (async write)")
+                                cfg, block=False, layout=layout)
+                logger.info(f"checkpoint at step {step}"
+                            + (" (async write)" if layout is None else ""))
         if prof is not None:  # total_steps ended inside the trace window
             prof.__exit__(None, None, None)
         save_checkpoint(args.ckpt_dir, args.total_steps, state,
-                        gather_data_status(data_status), cfg)
+                        gather_data_status(data_status), cfg, layout=layout)
         logger.info("saved final checkpoint")
     finally:
         wait_for_saves()
         if hasattr(loader, "stop"):
             loader.stop()
+        if started:
+            if world > 1:  # every process leaves after rank 0's final write
+                dist.barrier()
+            dist.destroy_process_group()
     return state, history
 
 

@@ -14,6 +14,13 @@ warmup the first update has lr 0), as `optax.scale_by_learning_rate` does.
 Frozen groups (and the sin-cos position tables, always) take no gradient
 and hold no moments. EMA over every leaf.
 
+Under a mesh (`layout`, `parallel.mesh.Layout`) every tree holds this
+process's shards: the token counts are summed over dp before the division
+(the loss of the global batch, as JAX's sum over its dp-sharded batch),
+the gradients are reduced per leaf (`Layout.reduce_grads_`), the global
+norm sums each shard once over the world, and Adam and EMA act on the
+local shards.
+
 Precision: parameters, gradients, Adam moments and EMA are fp32. On CUDA
 the forward runs under `torch.autocast(bfloat16)`: the products multiply in
 bf16 with fp32 accumulation (the TPU's default precision for the JAX
@@ -31,7 +38,12 @@ import numpy as np
 import torch
 
 from bagel_tpu_torch.configs import BagelConfig
-from bagel_tpu_torch.models.bagel import PackedTrainBatch, bagel_forward_train
+from bagel_tpu_torch.models.bagel import (
+    PackedTrainBatch,
+    bagel_forward_train,
+    bagel_forward_train_pp,
+)
+from bagel_tpu_torch.parallel.mesh import leaf_paths
 
 # Frozen sin-cos position tables: persistent buffers in the reference
 # (modeling_utils.py:127-144), regenerated from the config here; they never
@@ -157,14 +169,13 @@ class AdamClip:
                 "mu": {k: zeros(k) for k in params},
                 "nu": {k: zeros(k) for k in params}}
 
-    def update_(self, params: dict, grads: dict, opt_state: dict) -> torch.Tensor:
+    def update_(self, params: dict, grads: dict, opt_state: dict, layout=None) -> torch.Tensor:
         """One step in place. `grads` has params' structure with None where a
         leaf has no gradient (frozen, or not reached: counted as 0). Returns
-        the global norm of the raw gradients."""
+        the global norm of the raw gradients (over every shard of the mesh
+        under `layout`, each replicated shard once)."""
         f32 = np.float32
-        gs = [g for g in tree_leaves(grads) if g is not None]
-        norm = torch.sqrt(sum(g.float().square().sum() for g in gs)) if gs \
-            else torch.zeros(())
+        norm = global_norm(params, grads, layout)
         clip = not bool(norm < self.max_grad_norm)
         count = opt_state["count"]
         lr = -f32(self.schedule(count))
@@ -191,6 +202,21 @@ class AdamClip:
                     nu.copy_(v)
         opt_state["count"] = count + 1
         return norm
+
+
+def global_norm(params: dict, grads: dict, layout=None) -> torch.Tensor:
+    """The 2-norm of every gradient leaf; under `layout` of the whole
+    sharded tree: each process sums the shards it counts once
+    (`Layout.counts_once`), then the sum runs over the world."""
+    paths = [p for p, _ in leaf_paths(params)]
+    gs = [(p, g) for p, g in zip(paths, tree_leaves(grads)) if g is not None]
+    if layout is not None:
+        gs = [(p, g) for p, g in gs if layout.counts_once(p)]
+    sq = sum(g.float().square().sum() for _, g in gs) if gs else torch.zeros(())
+    if layout is not None:
+        dev = next((t.device for t in tree_leaves(params) if t is not None), None)
+        sq = layout.sum_over_world(torch.as_tensor(sq, dtype=torch.float32, device=dev).clone())
+    return torch.sqrt(sq)
 
 
 def _pin(device) -> bool:
@@ -245,48 +271,63 @@ def compute_losses(
     pipeline_parallel=None,
     expert_parallel=None,
     remat="full",
+    layout=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) over the rows of a stacked batch: a loop over rows in
-    place of JAX's vmap, then CE and MSE normalized by the token counts of
-    all rows. On CUDA the forward runs under bf16 autocast.
-    `pipeline_parallel` raises (ROADMAP A, parallelism)."""
-    if pipeline_parallel is not None:
-        raise NotImplementedError(
-            "pipeline_parallel (GPipe over the layer stack) waits for the "
-            "parallel slice of the port (ROADMAP A, parallelism)"
-        )
+    place of JAX's vmap (or, with `pipeline_parallel` = (mesh, axis), the
+    rows as GPipe microbatches), then CE and MSE normalized by the token
+    counts of all rows; under `layout`, of all rows of the dp ranks (the
+    returned loss is this rank's part of the global loss; the metrics are
+    global). On CUDA the forward runs under bf16 autocast."""
+    if sum(x is not None for x in (context_parallel, pipeline_parallel, expert_parallel)) > 1:
+        raise ValueError("context_parallel / pipeline_parallel / expert_parallel are exclusive")
     if context_parallel is not None and batch.position_ids.shape[0] != 1:
         raise ValueError("context_parallel needs B=1")
     dev = batch.position_ids.device
-    outs = []
     with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=dev.type == "cuda"):
-        for b in range(batch.position_ids.shape[0]):
-            outs.append(bagel_forward_train(
+        if pipeline_parallel is not None:
+            if sparse_block is not None:
+                raise ValueError("pipeline_parallel takes the dense-mask or attn_chunk "
+                                 "attention, not sparse_block")
+            cat = bagel_forward_train_pp(params, cfg, batch, noise, *pipeline_parallel,
+                                         attn_chunk=attn_chunk, remat=remat)
+        else:
+            outs = [bagel_forward_train(
                 params, cfg, batch.row(b), noise[b], attn_chunk=attn_chunk,
                 context_parallel=context_parallel, sparse_block=sparse_block,
-                expert_parallel=expert_parallel, remat=remat))
-    cat = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+                expert_parallel=expert_parallel, remat=remat, layout=layout)
+                for b in range(batch.position_ids.shape[0])]
+            cat = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def global_sum(x):  # over the dp ranks' rows (no gradient)
+        x = x.detach().clone()
+        return layout.sum_over_dp(x) if layout is not None else x
 
     ce_w = cat["ce_weight"]
-    ce = (cat["ce"] * ce_w).sum() / ce_w.sum().clamp_min(1e-8)
+    ce = (cat["ce"] * ce_w).sum() / global_sum(ce_w.sum()).clamp_min(1e-8)
     loss = ce_weight * ce
-    metrics = {"ce": ce.detach(), "ce_tokens": (ce_w > 0).sum()}
+    metrics = {"ce": global_sum(ce), "ce_tokens": global_sum((ce_w > 0).sum())}
     if "mse" in cat:
         mse_w = cat["mse_weight"]
-        mse = (cat["mse"].mean(dim=-1) * mse_w).sum() / mse_w.sum().clamp_min(1e-8)
+        mse = (cat["mse"].mean(dim=-1) * mse_w).sum() / global_sum(mse_w.sum()).clamp_min(1e-8)
         loss = loss + mse_weight * mse
-        metrics["mse"] = mse.detach()
-        metrics["mse_tokens"] = (mse_w > 0).sum()
-    metrics["loss"] = loss.detach()
+        metrics["mse"] = global_sum(mse)
+        metrics["mse_tokens"] = global_sum((mse_w > 0).sum())
+    metrics["loss"] = global_sum(loss)
     return loss, metrics
 
 
-def grad_step(params: dict, cfg: BagelConfig, batch: PackedTrainBatch, noise, **kw):
+def grad_step(params: dict, cfg: BagelConfig, batch: PackedTrainBatch, noise, layout=None,
+              **kw):
     """(grads, metrics): compute_losses' gradient over the leaves that
-    require one; grads has params' structure, None elsewhere."""
-    loss, metrics = compute_losses(params, cfg, batch, noise, **kw)
-    leaves = [t for t in tree_leaves(params) if t.requires_grad]
-    got = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+    require one; grads has params' structure, None elsewhere. Under
+    `layout` each gradient is reduced over the mesh (`Layout.reduce_grads_`)."""
+    loss, metrics = compute_losses(params, cfg, batch, noise, layout=layout, **kw)
+    leaves = [(p, t) for p, t in leaf_paths(params) if t.requires_grad]
+    got = list(torch.autograd.grad(loss, [t for _, t in leaves], allow_unused=True))
+    if layout is not None:
+        layout.reduce_grads_(leaves, got)
+    got = iter(got)
     grads = tree_map(lambda t: next(got) if t.requires_grad else None, params)
     return grads, metrics
 
@@ -301,12 +342,16 @@ def make_train_step(
     remat="full",
     attn_chunk=None,
     sparse_block=None,
+    layout=None,
+    **parallel,
 ):
     """The train step: (state, batch, generator) -> (state, metrics), the
     state updated in place. The flow noise is drawn from `generator` (a
     torch.Generator on the batch's device), or passed as `noise` [B, n_vae,
     pd] (JAX draws it from a PRNGKey: the tests hand the port JAX's draw).
-    `frozen` must be the tuple given to make_optimizer."""
+    `frozen` must be the tuple given to make_optimizer. Under `layout` the
+    state holds this process's shards and `batch` / `noise` its dp rows;
+    `parallel`: context_parallel / pipeline_parallel / expert_parallel."""
     if tuple(frozen) != tx.frozen:
         raise ValueError(f"frozen {frozen} differs from the optimizer's {tx.frozen}")
 
@@ -316,10 +361,10 @@ def make_train_step(
         if noise is None:
             noise = torch.randn(batch.vae_patches.shape, generator=generator,
                                 device=batch.vae_patches.device)
-        grads, metrics = grad_step(state.params, cfg, batch, noise, ce_weight=ce_weight,
+        grads, metrics = grad_step(state.params, cfg, batch, noise, layout, ce_weight=ce_weight,
                                    mse_weight=mse_weight, attn_chunk=attn_chunk,
-                                   sparse_block=sparse_block, remat=remat)
-        metrics["grad_norm"] = tx.update_(state.params, grads, state.opt_state)
+                                   sparse_block=sparse_block, remat=remat, **parallel)
+        metrics["grad_norm"] = tx.update_(state.params, grads, state.opt_state, layout)
         if state.ema_params is not None:
             ema_update_(state.ema_params, state.params, ema_decay)
         state.step += 1

@@ -205,6 +205,25 @@ Phases (the first failure exits non-zero, and no result line is printed):
              3, the LLM and SigLIP frozen, no EMA: two full saves would not
              fit this machine's disk) whose --auto_resume restores every
              parameter bit for bit.
+ 11. parallel  the trainer in child processes (`chip_smoke.py --child
+             SPEC`) under torchrun's environment, from live weights (the
+             driver's init with `live_place`), saving no checkpoint: (a)
+             through nccl at world 1: --mesh 1,1,1 --sparse_block 128 at
+             phase 10's packing (B3 and its backward counted),
+             --pipeline_parallel fsdp (two TRAIN11_TOKENS rows a step) and
+             --context_parallel fsdp (the ring's block in 512-row query
+             chunks), each gated at its first micro-step against the plain
+             path on the same weights and batch (the loss and each group's
+             gradient; a control with no attention on a quarter of the
+             rows must fail the gate), s/step, tokens/s, peak; (b) two
+             serving processes on the card over a gloo bus
+             (serving.multihost), 8 greedy chats twice: the leader's
+             answers equal a runtime alone's, the follower's the leader's,
+             equal ticks; the bus's ms a tick, tokens/s in the chunks, peak
+             a process; (c) on two cards or more (a line says when there
+             are fewer): ep = 2 and fsdp over every card, each gated
+             against one process's plain path on the whole tree, and fsdp
+             at 28 layers with offload.
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 int4_split_sweep() times B4 at every split of K it takes,
@@ -1678,35 +1697,88 @@ def leaves(tree):
         yield tree
 
 
-def live_weights(params, cfg, gen):
+def live_weights(params, cfg, gen, by_layer=False):
     """Seeded random weights that hide no bug: the gen expert differs from
     the und expert, norms differ from 1, and llm2vae is non-zero (a zero
     velocity head would leave the latent on the noise); the SigLIP tower's
-    LayerNorms differ from 1 / 0 and its and the connector's biases from 0."""
+    LayerNorms differ from 1 / 0 and its and the connector's biases from 0.
+    In place, `live_rule`'s leaves in this order; by_layer: the gen
+    expert's stacked leaves drawn a layer at a time (other weights, a
+    layer's slice the only temporary)."""
+    rule = live_rule(gen, cfg, by_layer)
+    vit, llm = params["vit"], params["llm"]
+    order = [(f"vit/{ln}/{k}", t) for ln, tree in (("layers/ln1", vit["layers"]["ln1"]),
+                                                     ("layers/ln2", vit["layers"]["ln2"]),
+                                                     ("post_ln", vit["post_ln"]))
+             for k, t in tree.items()]
+    linears = [("vit/patch_embed", vit["patch_embed"]), ("connector/fc1", params["connector"]["fc1"]),
+               ("connector/fc2", params["connector"]["fc2"])]
+    linears += [(f"vit/layers/{g}/{k}", lin) for g in ("attn", "mlp")
+                for k, lin in vit["layers"][g].items()]
+    order += [(f"{path}/b", lin["b"]) for path, lin in linears]
+    order += [(p, t) for p, t in tree_paths(llm["layers"], "llm/layers")]
+    order += [(f"llm/{name}", llm[name]) for name in ("final_norm", "final_norm_gen")]
+    order.append(("llm2vae/w", params["llm2vae"]["w"]))
+    for path, t in order:
+        rule(path, t, inplace=True)
+
+
+def tree_paths(tree, prefix):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_paths(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def live_rule(gen, cfg, by_layer=False):
+    """live_weights' perturbation of one leaf: (path, leaf, inplace) -> the
+    leaf to keep (the leaf itself where none applies; with inplace, the leaf
+    itself, changed: a full-width leaf's draw is the only temporary)."""
+    vit_lns, vit_biased = ("ln1", "ln2", "post_ln"), ("patch_embed", "attn", "mlp")
 
     def noise(t, std):
-        return torch.randn(t.shape, generator=gen, device=t.device) * std
+        return torch.randn(t.shape, generator=gen, device=t.device).mul_(std)
 
-    vit = params["vit"]
-    for ln in (vit["layers"]["ln1"], vit["layers"]["ln2"], vit["post_ln"]):
-        ln["w"].copy_(1 + noise(ln["w"], 0.05))
-        ln["b"].copy_(noise(ln["b"], 0.05))
-    linears = [vit["patch_embed"], params["connector"]["fc1"], params["connector"]["fc2"]]
-    linears += list(vit["layers"]["attn"].values()) + list(vit["layers"]["mlp"].values())
-    for lin in linears:
-        lin["b"].copy_(noise(lin["b"], 0.02).to(lin["b"].dtype))
+    def rule(path, t, inplace=False):
+        def put(v):
+            return t.copy_(v) if inplace else v.to(t.dtype)
 
-    llm = params["llm"]
-    for name, tree in llm["layers"].items():
-        for t in leaves(tree):
+        p = path.split("/")
+        if path == "llm2vae/w":
+            return put(noise(t, cfg.llm.hidden_size ** -0.5))
+        if p[0] == "llm" and p[1] in ("layers", "final_norm", "final_norm_gen"):
             if bool((t == 1).all()):  # a norm weight
-                t.copy_(1 + noise(t, 0.05))
-            elif name.endswith("_gen"):
-                t.add_(noise(t, 0.02).to(t.dtype))
-    for name in ("final_norm", "final_norm_gen"):
-        llm[name].copy_(1 + noise(llm[name], 0.05))
-    w = params["llm2vae"]["w"]
-    w.copy_(noise(w, cfg.llm.hidden_size ** -0.5).to(w.dtype))
+                return put(noise(t, 0.05).add_(1))
+            if p[2:] and p[2].endswith("_gen"):
+                if inplace and by_layer:
+                    for z in t:
+                        z.add_(noise(z, 0.02).to(z.dtype))
+                    return t
+                d = noise(t, 0.02).to(t.dtype)
+                return t.add_(d) if inplace else t + d
+            return t
+        if p[0] == "vit" and any(n in p for n in vit_lns):
+            return put(noise(t, 0.05).add_(1) if p[-1] == "w" else noise(t, 0.05))
+        if p[-1] == "b" and (p[0] == "connector" or
+                             p[0] == "vit" and any(n in p for n in vit_biased)):
+            return put(noise(t, 0.02))
+        return t
+
+    return rule
+
+
+def live_place(gen, cfg, then=None):
+    """`init_bagel_params`' place with `live_rule`, each leaf perturbed
+    whole as the init draws it, then kept as `then(path, leaf)` gives it (a
+    process's shard): the same weights under every layout and world size."""
+    rule = live_rule(gen, cfg)
+
+    def place(path, t):
+        t = rule(path, t)
+        return then(path, t) if then is not None else t
+
+    return place
 
 
 def stacked_cache(ctxs):
@@ -4027,7 +4099,7 @@ def group_grad_gaps(a, b):
                  if y is not None]
         if not pairs:
             continue
-        num = sum(float((x.float() - y.float()).square().sum()) for x, y in pairs)
+        num = sum(float((x.to(y.device).float() - y.float()).square().sum()) for x, y in pairs)
         den = sum(float(y.float().square().sum()) for _, y in pairs)
         out[name] = (num / max(den, 1e-30)) ** 0.5
     return out
@@ -4235,6 +4307,565 @@ def phase_train(card):
     return out
 
 
+# Phase 11: the trainer under torchrun's environment (child processes, nccl)
+# and multi-process serving. Each trainer child starts from live weights
+# (`live_place`: with llm2vae at zero the first loss would not depend on the
+# model) and, at its first micro-step, holds the path's gradient against the
+# plain path's on the same weights and batch (`child_gate`): each top-level
+# group's ||g - g_plain|| / ||g_plain|| and the loss, relative; a control,
+# the same path with no attention on the first quarter of each layer's query
+# rows, must exceed the gradient limit. (a) runs at world 1 on one card: the
+# mesh run at phase 10's packing against the plain B3 path, the pipeline
+# against the plain chunked path on its two rows (the same attention, only
+# the schedule differs: PAR_LOSS_TOL / PAR_GRAD_TOL), the ring against the
+# chunked path (another attention under bf16 autocast, which rounds the
+# ring's unnormalized probabilities where the chunked path rounds normalized
+# ones: phase 10's TRAIN_LOSS_TOL / TRAIN_GRAD_TOL). The children save no
+# checkpoint (the driver's save is replaced by a recorder): phase 10 and the
+# CPU tests hold the save and --auto_resume bit for bit.
+TRAIN11_TOKENS = (16384, 18432)  # --expected_num_tokens, --max_num_tokens of pp and cp
+TRAIN11_STEPS = 2  # the pipeline and ring runs' steps (the first warms up)
+PAR_LOSS_TOL = 1e-5  # the first loss against the plain path's (same attention), relative
+PAR_GRAD_TOL = 1e-3  # each group's gradient against the plain path's (same attention)
+CHILD_TIMEOUT = 600  # seconds a child may take
+SERVE11_PROMPTS = serve_prompts() + [QUESTION, "Name three things that are often red."]
+PAR_SERVE_CFG = "BagelConfig"  # the serving children's config (configs.<name>())
+# the module constants a child process takes from its parent
+CHILD_CONSTS = ("DEVICE", "SEED", "MAX_KV", "SERVE_SLOTS", "SERVE_CHUNK", "SERVE_TOKENS",
+                "PAR_SERVE_CFG", "CHILD_TIMEOUT")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(label, specs, timeout=CHILD_TIMEOUT):
+    """One `python3 chip_smoke.py --child SPEC` per spec with torchrun's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT on
+    127.0.0.1), all started together; every one is joined or killed within
+    `timeout`. Returns their JSON outputs; any exit code but 0 fails."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_children")
+    os.makedirs(root, exist_ok=True)
+    port, world = free_port(), len(specs)
+    procs, logs = [], []
+    for r, spec in enumerate(specs):
+        spec = dict(spec, out=os.path.join(root, f"{label}.{r}.json"),
+                    consts={k: globals()[k] for k in CHILD_CONSTS})
+        path = os.path.join(root, f"{label}.{r}.spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(spec.get("local_rank", r)), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        log_f = open(os.path.join(root, f"{label}.{r}.log"), "w+")
+        logs.append(log_f)
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", path],
+                                      cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                      stdout=log_f, stderr=subprocess.STDOUT))
+    end = time.monotonic() + timeout
+    try:  # until all are done, one fails (the rest would wait on it) or time is up
+        while time.monotonic() < end and any(p.poll() is None for p in procs) \
+                and not any(p.poll() for p in procs):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tails = []
+    for r, f in enumerate(logs):
+        f.seek(0)
+        tails.append(f"--- {label} process {r} ---\n" + f.read()[-2500:])
+        f.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        log("\n".join(tails))
+    check(not any(codes), f"{label}: child exit codes {codes} (-9: killed, past {timeout} s "
+                          f"or after another failed)")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(root, f"{label}.{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def child_main(spec_path) -> int:
+    """A child process of phase 11: one trainer run or one serving process."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    globals().update(spec["consts"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = child_train(spec) if spec["kind"] == "train" else child_serve(spec)
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def child_train(spec):
+    """driver.main under torchrun's environment: the driver starts the
+    process group (nccl on CUDA); live weights from its seed; the gate at
+    the first micro-step where the spec asks for it; the saves recorded,
+    not written; B3's launches counted over the run, the gate's excepted."""
+    import torch.distributed as dist
+
+    from bagel_tpu_torch.data.datasets import register_dataset_info
+    from bagel_tpu_torch.train import driver
+
+    for group, name, data_dir in spec["datasets"]:
+        register_dataset_info(group, name, data_dir=data_dir)
+    seen, saves = {}, []
+    make, init = driver.make_layout, driver.init_bagel_params
+
+    def spy(*a):  # the group as the driver started it
+        seen.update(backend=dist.get_backend(), world=dist.get_world_size())
+        layout = make(*a)
+        seen["mesh"] = layout.mesh.shape if layout is not None else None
+        return layout
+
+    def live_init(gen, cfg, *a, place=None, **k):
+        return init(gen, cfg, *a, place=live_place(gen, cfg, place), **k)
+
+    driver.make_layout, driver.init_bagel_params = spy, live_init
+    driver.save_checkpoint = lambda ckpt_dir, step, *a, **k: saves.append(step)
+    random.seed(SEED)
+    read = counts_reset()
+    gate = child_gate(spec["gate"], driver, read) if spec.get("gate") else None
+    _, history = driver.main(spec["argv"])
+    counts = read()
+    if gate is not None:
+        counts = {k: n - gate["launches"].get(k, 0) for k, n in counts.items()}
+    return dict(history=history, counts=counts, saves=saves, gate=gate, **seen)
+
+
+def child_gate(plain, driver, read):
+    """Wraps driver.grad_step: at the first micro-step, (a) the path's
+    gradient against the plain path's (`plain`: its attn_chunk /
+    sparse_block) on the same weights and batch, every tree unsharded (rank
+    0 runs the plain path on the whole tree and compares), and (b) the
+    control, the path again with no attention on the first quarter of each
+    layer's query rows (padding lies at the end), against the path's own. Returns the dict it fills:
+    loss gap, group gaps, control gaps, the gate's launches."""
+    import torch.distributed as dist
+
+    from bagel_tpu_torch.models import qwen2
+
+    real, out = driver.grad_step, {}
+
+    def whole(layout, tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: whole(layout, v, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(whole(layout, v, f"{prefix}/{i}") for i, v in enumerate(tree))
+        if tree is None or layout is None:
+            return tree
+        return layout.unshard(prefix, tree).requires_grad_(tree.requires_grad)
+
+    def moved(tree, dev):  # a gradient tree's copy on `dev`
+        if isinstance(tree, dict):
+            return {k: moved(v, dev) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(moved(v, dev) for v in tree)
+        return tree if tree is None else tree.detach().to(dev)
+
+    def faulty(make_attend):
+        def make(*a, **k):
+            attend = make_attend(*a, **k)
+
+            def f(q, k_, v):
+                o = attend(q, k_, v)
+                keep = torch.arange(o.shape[0], device=o.device) >= o.shape[0] // 4
+                return o * keep.view(-1, *[1] * (o.ndim - 1)).to(o.dtype)
+            return f
+        return make
+
+    def gated(params, cfg, bb, noise, layout, **kw):
+        g, m = real(params, cfg, bb, noise, layout, **kw)
+        if out:
+            return g, m
+        before = read()
+        rank0 = not dist.is_initialized() or dist.get_rank() == 0
+        # the card holds one gradient tree at a time, as in a step: the
+        # driver's and the path's whole wait in host memory
+        g_path, ref_params = moved(whole(layout, g), "cpu"), whole(layout, params)  # collective
+        g_local = moved(g, "cpu")
+        del g
+        if rank0:
+            plain_kw = dict(kw, context_parallel=None, pipeline_parallel=None,
+                            expert_parallel=None, **plain)
+            g_plain, m_plain = real(ref_params, cfg, bb, noise, None, **plain_kw)
+            loss, ref = float(m["loss"]), float(m_plain["loss"])
+            out.update(loss=loss, plain_loss=ref, loss_gap=abs(loss - ref) / abs(ref),
+                       gaps=group_grad_gaps(g_path, g_plain))
+            del g_plain
+        del ref_params
+        make_attend = qwen2._train_attend
+        qwen2._train_attend = faulty(make_attend)
+        try:
+            g_ctl = whole(layout, real(params, cfg, bb, noise, layout, **kw)[0])
+        finally:
+            qwen2._train_attend = make_attend
+        if rank0:
+            out["control_gaps"] = group_grad_gaps(g_ctl, g_path)
+        del g_ctl, g_path
+        out["launches"] = {k: n - before[k] for k, n in read().items()}
+        return moved(g_local, noise.device), m
+
+    driver.grad_step = gated
+    return out
+
+
+def child_serve(spec):
+    """One process of the lockstep server over a gloo bus: full-width bf16
+    weights from SEED (live_weights), 8 slots; the leader sends the chats,
+    then answers them once more on a ServingRuntime alone."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from bagel_tpu_torch import configs
+    from bagel_tpu_torch.data.tokenizer import MockTokenizer
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models.bagel import init_bagel_params
+    from bagel_tpu_torch.serving import multihost
+    from bagel_tpu_torch.serving.runtime import ServingRuntime
+
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)  # every process on the one card
+    cfg = getattr(configs, PAR_SERVE_CFG)()
+    tok = MockTokenizer(cfg.llm.vocab_size)
+    # one process builds its weights at a time: the seeded init's fp32
+    # transients (~11 GB) of two processes at once do not fit beside the
+    # other's 29 GB; the gen expert's perturbation is drawn a layer at a time
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            params = init_bagel_params(gen, cfg, torch.bfloat16 if cuda else torch.float32,
+                                       device=DEVICE)
+            live_weights(params, cfg, gen, by_layer=True)
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    engine = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE)
+
+    class TimedBus(multihost.TorchDistBus):
+        seconds: list = []
+
+        def _bcast(self, payload):
+            t0 = time.perf_counter()
+            out = super()._bcast(payload)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+    replayed = []
+    unpack = multihost._unpack
+
+    def recording(rec):  # the follower's requests, to read their answers
+        req = unpack(rec)
+        replayed.append(req)
+        return req
+
+    multihost._unpack = recording
+    bus = TimedBus()
+    fe = multihost.serve_multihost(engine, bus=bus, slots=SERVE_SLOTS, decode_chunk=SERVE_CHUNK,
+                                   max_new_default=SERVE_TOKENS)
+    rt = fe.runtime
+    chunk_s, decode_step = [], rt._decode_step
+
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def timed_step():
+        sync()
+        t0 = time.perf_counter()
+        decode_step()
+        sync()
+        chunk_s.append(time.perf_counter() - t0)
+
+    rt._decode_step = timed_step
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    read = counts_reset()
+    fe.start()
+    answers = alone = None
+    wall = 0.0
+    if fe.leader:  # two rounds of the chats: the first captures the decode graphs
+        answers = []
+        for timed in (False, True):
+            if timed:
+                del chunk_s[:], bus.seconds[:]
+                tokens0 = rt.stats["tokens_out"]
+            t0 = time.perf_counter()
+            answers += [f.result(timeout=CHILD_TIMEOUT) for f in
+                        [fe.submit_chat(p, max_new_tokens=SERVE_TOKENS) for p in SERVE11_PROMPTS]]
+            wall = time.perf_counter() - t0
+        round_tokens = rt.stats["tokens_out"] - tokens0
+        fe.stop()
+    else:
+        fe.join(timeout=CHILD_TIMEOUT)
+        round_tokens = 0
+    counts = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    if fe.error is not None:
+        raise fe.error
+    mine = [r.future.result(timeout=1) for r in replayed if hasattr(r, "prompt")]
+    lockstep_s = list(bus.seconds)
+    # the bus alone: an empty ingress batch broadcast back to back, both idle
+    probe = pickle.dumps(([], False))
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        bus._bcast(probe if fe.leader else None)
+    probe_ms = (time.perf_counter() - t0) / 50 * 1e3
+    leader, ticks, stats = fe.leader, fe.ticks, dict(rt.stats)
+    # the lockstep runtime's cache goes before the runtime alone takes its own
+    del fe, rt, decode_step, timed_step
+    if cuda:
+        gc_cuda()
+    if leader:  # the same chats on one runtime alone, twice
+        single = ServingRuntime(engine, slots=SERVE_SLOTS, decode_chunk=SERVE_CHUNK,
+                                max_new_default=SERVE_TOKENS)
+        single.start()
+        try:
+            alone = [f.result(timeout=CHILD_TIMEOUT) for f in
+                     [single.submit_chat(p, max_new_tokens=SERVE_TOKENS)
+                      for p in SERVE11_PROMPTS * 2]]
+        finally:
+            single.stop()
+    dist.barrier()
+    dist.destroy_process_group()
+    return dict(rank=rank, leader=leader, answers=answers if leader else mine,
+                alone=alone, ticks=ticks, stats=stats, bus_s=lockstep_s,
+                probe_ms=probe_ms, chunk_s=chunk_s, wall_s=wall, round_tokens=round_tokens,
+                peak_gib=peak, counts=counts)
+
+
+def par11_argv(data_yaml, ckpt_dir, *extra):
+    """train_argv without --sparse_block, at TRAIN11_TOKENS a row."""
+    argv = train_argv(data_yaml, ckpt_dir, *extra)
+    i = argv.index("--sparse_block")
+    del argv[i:i + 2]
+    for flag, val in (("--expected_num_tokens", TRAIN11_TOKENS[0]),
+                      ("--max_num_tokens", TRAIN11_TOKENS[1]),
+                      ("--max_num_tokens_per_sample", TRAIN11_TOKENS[0])):
+        argv[argv.index(flag) + 1] = str(val)
+    return argv
+
+
+def phase_parallel(card, train):
+    """11: (a) the trainer in a child process under torchrun's environment
+    (the process group nccl, world 1) from live weights: --mesh 1,1,1
+    --sparse_block 128 (B3 and its backward launched and counted),
+    --pipeline_parallel fsdp --attn_chunk 512 (two rows a step) and
+    --context_parallel fsdp --attn_chunk 512 (the ring's block in 512-row
+    query chunks), each with the gate of `child_gate` against the plain
+    path and its control; (b) two serving processes on the one card over a
+    gloo bus, 8 greedy chats: the leader's answers against a runtime alone,
+    the follower's against the leader's, equal tick counts; (c) ep = 2,
+    fsdp over every card, and fsdp at 28 layers with offload where the
+    machine has two cards or more."""
+    import shutil
+
+    from bagel_tpu_torch.train import driver
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_par")
+    shutil.rmtree(root, ignore_errors=True)
+    ck = os.path.join(root, "ck")
+    cfg = driver.build_config(driver.parse_args(train_argv("x", ck)))
+    data_yaml = write_train_corpus(root, cfg)
+    datasets = [("t2i_pretrain", "smoke_t2i", os.path.join(root, "t2i")),
+                ("unified_edit", "smoke_edit", os.path.join(root, "edit"))]
+    base = train_argv(data_yaml, ck, "--ema", "0", "--save_every", str(10 * TRAIN_STEPS))
+    pp_extra = ("--attn_chunk", "512", "--pp_microbatches", "2")
+    b3, chunked = dict(sparse_block=128, attn_chunk=None), dict(sparse_block=None, attn_chunk=512)
+    runs = {  # name: (the child's argv, the plain path's attention, the loss and gradient limits)
+        "mesh": (base + ["--mesh", "1,1,1", "--total_steps", str(TRAIN_STEPS)], b3,
+                 PAR_LOSS_TOL, PAR_GRAD_TOL),
+        "pp": (par11_argv(data_yaml, ck, "--ema", "0", "--total_steps", str(TRAIN11_STEPS),
+                          "--mesh", "1,1,1", "--pipeline_parallel", "fsdp", *pp_extra),
+               chunked, PAR_LOSS_TOL, PAR_GRAD_TOL),
+        "cp": (par11_argv(data_yaml, ck, "--ema", "0", "--total_steps", str(TRAIN11_STEPS),
+                          "--mesh", "1,1,1", "--context_parallel", "fsdp", "--attn_chunk", "512"),
+               chunked, TRAIN_LOSS_TOL, TRAIN_GRAD_TOL),
+    }
+    per_step = 2 * TRAIN_LAYERS + cfg.vit.num_hidden_layers
+    bwd_per_step = TRAIN_LAYERS + cfg.vit.num_hidden_layers
+    out = dict(train={}, launches={})
+    for name, (argv, plain, loss_tol, grad_tol) in runs.items():
+        gc_cuda()
+        check(torch.cuda.memory_allocated() < 2**30,
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated before the "
+              f"{name} run")
+        log(f"[parallel] before the {name} run this process holds "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        t0 = time.perf_counter()
+        res = run_children(f"train_{name}", [dict(kind="train", argv=argv, datasets=datasets,
+                                                  gate=plain)])[0]
+        row = train_row(name, res, time.perf_counter() - t0, loss_tol, grad_tol)
+        out["train"][name] = row
+        out["launches"][f"train_{name}"] = res["counts"]
+        check(res["backend"] == "nccl" and res["world"] == 1,
+              f"train {name}: the driver's process group is {res['backend']} at world "
+              f"{res['world']}, expected nccl at 1")
+        if name == "mesh":
+            check(row["b3"] == TRAIN_STEPS * per_step and row["b3_bwd"] == TRAIN_STEPS * bwd_per_step,
+                  f"train mesh: B3 {row['b3']} launches and its backward {row['b3_bwd']} in "
+                  f"{TRAIN_STEPS} steps, expected {TRAIN_STEPS} x {per_step} and "
+                  f"{TRAIN_STEPS} x {bwd_per_step}")
+        else:  # the LLM takes the plain attention: B3 runs in the SigLIP tower alone
+            check(row["b3"] > 0 and row["b3"] == row["b3_bwd"]
+                  and row["b3"] % cfg.vit.num_hidden_layers == 0,
+                  f"train {name}: B3 {row['b3']} launches, its backward {row['b3_bwd']}: "
+                  f"expected {cfg.vit.num_hidden_layers} of each per row with images")
+        log(f"[parallel] train {name} ({card}; {res['backend']}, world {res['world']}, mesh "
+            f"{res['mesh']}): {gate_text(row)}; {row['s_per_step']:.3f} s/step, "
+            f"{row['tokens_per_s']:.0f} tokens/s, peak {row['peak_gib']:.2f} GiB; B3 "
+            f"{row['b3']}, its backward {row['b3_bwd']} (the gate's excepted); losses "
+            f"{[round(x, 5) for x in row['losses']]}; {row['wall_s']:.1f} s in the child")
+    t10 = train["timing"]
+    log(f"[parallel] phase 10's plain driver at its packing: {t10['s_per_step']:.3f} s/step, "
+        f"{t10['tokens_per_s']:.0f} tokens/s, peak {t10['peak_gib']:.2f} GiB (with EMA)")
+    shutil.rmtree(root, ignore_errors=True)
+    gc_cuda()
+    par_serve(card, out)
+    par_multicard(cfg, out)
+    return out
+
+
+def train_row(name, res, wall, loss_tol=None, grad_tol=None):
+    """A trainer child's numbers (the first step warms up; the peak is the
+    timed steps'), its losses finite and its final save reached; with
+    limits, its gate held (loss gap, every group's gradient gap) and its
+    control rejected (a group's gap past the gradient limit)."""
+    hist = res["history"]
+    timed = hist[1:]
+    secs = sum(h["seconds"] for h in timed)
+    row = dict(mesh=res["mesh"], world=res["world"], s_per_step=secs / len(timed),
+               tokens_per_s=sum(h["tokens"] for h in timed) / secs,
+               peak_gib=max(h.get("peak_gib", 0.0) for h in timed),
+               losses=[h["loss"] for h in hist], wall_s=wall, b3=res["counts"]["b3"],
+               b3_bwd=res["counts"]["b3_bwd"], saves=res["saves"])
+    check(all(np.isfinite(h["loss"]) for h in hist), f"train {name}: losses {row['losses']}")
+    check(res["saves"] == [hist[-1]["step"] + 1],
+          f"train {name}: saves at {res['saves']}, expected the final one alone")
+    if loss_tol is None:
+        return row
+    gate = res["gate"]
+    row.update(gate=gate, loss_tol=loss_tol, grad_tol=grad_tol)
+    check(gate.get("gaps") and gate.get("control_gaps"), f"train {name}: no gate ran: {gate}")
+    check(gate["loss"] == hist[0]["loss"],
+          f"train {name}: the gate's loss {gate['loss']!r} is not step 0's {hist[0]['loss']!r}")
+    check(gate["loss_gap"] <= loss_tol and max(gate["gaps"].values()) <= grad_tol,
+          f"train {name}: {gate_text(row)}")
+    check(max(gate["control_gaps"].values()) > grad_tol,
+          f"train {name}: the control passed the gate: {gate_text(row)}")
+    return row
+
+
+def gate_text(row):
+    g = row["gate"]
+    return (f"first loss {g['loss']:.6f} vs the plain path's {g['plain_loss']:.6f} (rel gap "
+            f"{g['loss_gap']:.2e}, limit {row['loss_tol']}), gradient gaps "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in g['gaps'].items()})} (limit "
+            f"{row['grad_tol']}); control (no attention on the first quarter of the rows) "
+            f"rejected: {json.dumps({k: float(f'{v:.3g}') for k, v in g['control_gaps'].items()})}")
+
+
+def par_serve(card, out):
+    """11b: two serving processes on this card over a gloo bus."""
+    check(torch.cuda.memory_allocated() < 2**30,
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated before serving")
+    log(f"[parallel] before serving this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    t0 = time.perf_counter()
+    procs = run_children("serve", [dict(kind="serve", local_rank=0)] * 2)
+    wall = time.perf_counter() - t0
+    lead = next(p for p in procs if p["leader"])
+    follow = next(p for p in procs if not p["leader"])
+    check(lead["answers"] == lead["alone"],
+          f"serve 2 processes: the leader's answers differ from a runtime alone: "
+          f"{first_difference(json.dumps(lead['answers']), json.dumps(lead['alone']))}")
+    check(follow["answers"] == lead["answers"],
+          "serve 2 processes: the follower's answers differ from the leader's")
+    check(follow["ticks"] == lead["ticks"] and follow["stats"] == lead["stats"],
+          f"serve 2 processes: ticks {lead['ticks']} / {follow['ticks']}, stats {lead['stats']} / "
+          f"{follow['stats']}")
+    check(lead["stats"]["chat_done"] == 2 * len(SERVE11_PROMPTS) and lead["counts"]["b1"] > 0,
+          f"serve 2 processes: {lead['stats']}, B1 {lead['counts']['b1']}")
+    tokens = lead["round_tokens"]  # the timed second round's
+    bus_ms = 1e3 * sum(lead["bus_s"]) / max(len(lead["bus_s"]), 1)
+    chunk_tok = tokens / max(sum(lead["chunk_s"]), 1e-9)
+    serve = dict(ticks=lead["ticks"], bus_ms_per_tick=bus_ms,
+                 bus_probe_ms=[p["probe_ms"] for p in procs], tokens=tokens,
+                 tokens_per_s_in_chunks=chunk_tok, tokens_per_s_wall=tokens / lead["wall_s"],
+                 chunks=len(lead["chunk_s"]), chunk_ms=[1e3 * x for x in lead["chunk_s"]],
+                 peak_gib=[p["peak_gib"] for p in procs], leader_wall_s=lead["wall_s"],
+                 phase_wall_s=wall, answers_equal_alone=True, follower_equal=True)
+    out["serve"] = serve
+    out["launches"]["serve_multiprocess"] = lead["counts"]
+    log(f"[parallel] serve: 2 processes on one card ({card}), a gloo bus, "
+        f"{len(SERVE11_PROMPTS)} greedy chats of {SERVE_TOKENS} tokens at most, {SERVE_SLOTS} "
+        f"slots: the leader's answers equal a runtime alone's, the follower's the leader's, "
+        f"{lead['ticks']} ticks on both (two rounds); the second round: the broadcast "
+        f"{bus_ms:.3f} ms a tick on the leader (lockstep: the follower's tick on the shared "
+        f"card included), an idle broadcast {serve['bus_probe_ms'][0]:.3f} ms; {chunk_tok:.0f} "
+        f"tokens/s in decode chunks of {[round(x, 1) for x in serve['chunk_ms']]} ms "
+        f"({serve['tokens_per_s_wall']:.0f} over the round's {lead['wall_s']:.2f} s); "
+        f"peak {serve['peak_gib'][0]:.2f} / {serve['peak_gib'][1]:.2f} "
+        f"GiB a process; B1 {lead['counts']['b1']} launches in the leader; {wall:.1f} s with "
+        f"both processes' set-up")
+
+
+def par_multicard(cfg, out):
+    """11c, where the machine has two cards or more: ep = 2 (--expert_parallel
+    tp on a 1,n/2,2 mesh) and fsdp over every card at TRAIN_LAYERS, each
+    with the gate of `child_gate` against one process's plain path on the
+    whole tree; then fsdp at 28 layers with offload (finite losses, peak)."""
+    import shutil
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[parallel] (c) needs two cards or more ({n} on the machine): ep = 2, fsdp over "
+            f"every card, and fsdp at 28 layers with offload not run")
+        return
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_par")
+    ck = os.path.join(root, "ck")
+    data_yaml = write_train_corpus(root, cfg)
+    datasets = [("t2i_pretrain", "smoke_t2i", os.path.join(root, "t2i")),
+                ("unified_edit", "smoke_edit", os.path.join(root, "edit"))]
+    steps = ("--ema", "0", "--total_steps", str(TRAIN11_STEPS))
+    multi = {  # name: (argv, processes, the plain path's attention or None: no gate)
+        "ep2": (par11_argv(data_yaml, ck, *steps, "--mesh", f"1,{n // 2},2",
+                           "--expert_parallel", "tp", "--attn_chunk", "512"),
+                n // 2 * 2, dict(sparse_block=None, attn_chunk=512)),
+        "fsdp": (train_argv(data_yaml, ck, *steps, "--mesh", f"1,{n},1"), n,
+                 dict(sparse_block=128, attn_chunk=None)),
+        "fsdp28": (train_argv(data_yaml, ck, *steps, "--mesh", f"1,{n},1",
+                              "--num_hidden_layers", "28", "--optimizer_offload"), n, None),
+    }
+    for name, (argv, procs, plain) in multi.items():
+        t0 = time.perf_counter()
+        res = run_children(f"train_{name}", [dict(kind="train", argv=argv, datasets=datasets,
+                                                  gate=plain) for _ in range(procs)])
+        tols = (PAR_LOSS_TOL, PAR_GRAD_TOL) if plain is not None else ()
+        row = train_row(name, res[0], time.perf_counter() - t0, *tols)
+        row["peak_gib"] = max(h.get("peak_gib", 0.0) for r in res for h in r["history"][1:])
+        out["train"][name] = row
+        log(f"[parallel] (c) train {name} on {procs} cards, mesh {row['mesh']}: "
+            f"{gate_text(row) if plain is not None else 'no gate'}; {row['s_per_step']:.3f} "
+            f"s/step, {row['tokens_per_s']:.0f} tokens/s, peak {row['peak_gib']:.2f} GiB a "
+            f"card; losses {[round(x, 5) for x in row['losses']]}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def gc_cuda():
     import gc
 
@@ -4273,6 +4904,8 @@ def phase_all_kernels():
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--child":
+        return child_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -4294,6 +4927,7 @@ def main() -> int:
     params = init_bagel_params(gen, cfg, torch.bfloat16, device=DEVICE)
     live_weights(params, cfg, gen)
     torch.cuda.synchronize()
+    gc_cuda()  # the draws' segments go before the engine's buffers can land in them
     n_params = sum(t.numel() for t in leaves(params["llm"]))
     n_vit = sum(t.numel() for t in leaves(params["vit"]))
     log(f"[model] full-width BAGEL-7B-MoT, {cfg.llm.num_hidden_layers} layers, "
@@ -4319,6 +4953,7 @@ def main() -> int:
     check(torch.cuda.memory_allocated() < 2**30,
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated before phase 10")
     train = phase_train(card)
+    par = phase_parallel(card, train)
 
     main_shape = shapes[0]
     decode = next(r for r in shapes if r["T"] == 1)
@@ -4338,7 +4973,8 @@ def main() -> int:
                     t2i_w8a8=w8a8["launches"][key], vqa_int4=int4["launches"][key],
                     **{f"serve_{k}": counts[key] for k, counts in serve["launches"].items()},
                     **{k: counts[key] for k, counts in evals["launches"].items()},
-                    train=train["timing"]["b3_launches"] if key == "b3" else 0)
+                    train=train["timing"]["b3_launches"] if key == "b3" else 0,
+                    **{k: counts[key] for k, counts in par["launches"].items()})
 
     kernels = [
         dict(
@@ -4417,8 +5053,8 @@ def main() -> int:
             replaces="bagel_tpu/ops/sparse_flash.py:264 (_bwd, sparse_packed_attention's "
                      "custom_vjp backward: XLA's recompute through chunked_packed_attention; "
                      "no Pallas kernel)",
-            launches=train["timing"]["b3_bwd_launches"],
-            launches_by_path=dict(train=train["timing"]["b3_bwd_launches"]),
+            launches=sum(by_path("b3_bwd").values()),
+            launches_by_path=dict(by_path("b3_bwd"), train=train["timing"]["b3_bwd_launches"]),
             kernels_a_launch="3 (Delta, dK/dV, dQ)",
             max_abs_err=max(max(r[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
                             for r in train["grad"]),
@@ -4548,7 +5184,8 @@ def main() -> int:
     ]
     log(json.dumps({"vqa": vqa, "taylorseer": taylorseer, "edit": edit, "batch": batch,
                     "t2i_w8a8": w8a8, "vqa_int4": int4, "serve": serve,
-                    "decode_program": program, "eval": evals, "train": train}))
+                    "decode_program": program, "eval": evals, "train": train,
+                    "parallel": {k: v for k, v in par.items() if k != "launches"}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

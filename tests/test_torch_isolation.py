@@ -45,7 +45,10 @@ def test_import_pulls_in_no_jax():
         "       'bagel_tpu_torch.eval.gen_runner', 'bagel_tpu_torch.eval.gen_scorer',\n"
         "       'bagel_tpu_torch.eval.judge_scorer', 'bagel_tpu_torch.eval.http_judge',\n"
         "       'bagel_tpu_torch.eval.detectors', 'bagel_tpu_torch.eval.data_prep',\n"
-        "       'bagel_tpu_torch.eval.prompts', 'bagel_tpu_torch.eval.scorers.judge'}\n"
+        "       'bagel_tpu_torch.eval.prompts', 'bagel_tpu_torch.eval.scorers.judge',\n"
+        "       'bagel_tpu_torch.parallel', 'bagel_tpu_torch.parallel.mesh',\n"
+        "       'bagel_tpu_torch.parallel.pipeline', 'bagel_tpu_torch.parallel.expert',\n"
+        "       'bagel_tpu_torch.ops.ring', 'bagel_tpu_torch.serving.multihost'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "# PIL is imported only where an image is resized, decoded or encoded,\n"
         "# regex only where a BPE tokenizer is built, safetensors only where a\n"

@@ -125,7 +125,7 @@ def test_later_slice_features_raise():
     from bagel_tpu_torch.serving import app
 
     cfg = tiny_qwen2()
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(NotImplementedError, match="sharded inference, the next slice"):
         app.build_engine(app.parse_args(["--device", "cpu", "--mesh", "1,2,1"]))
     cache = tq.kv_cache_init(cfg, 1, 8, torch.int8, device="cpu")
     assert cache.k.dtype == torch.int8 and cache.k_scale.shape == (cfg.num_hidden_layers, 1, 8,

@@ -222,7 +222,7 @@ def test_runtime_stop_fails_pending(engine):
 
 
 def test_runtime_mesh_raises(engine):
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(NotImplementedError, match="sharded inference, the next slice"):
         ServingRuntime(engine, slots=2, mesh=object())
 
 
@@ -492,5 +492,5 @@ def test_app_build_engine_and_run_once(tmp_path, capsys):
 
 
 def test_app_mesh_raises():
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(NotImplementedError, match="sharded inference, the next slice"):
         app.build_engine(app.parse_args(["--device", "cpu", "--mesh", "1,8,1"]))

@@ -3,8 +3,10 @@ preset, mock tokenizer) over a parquet corpus written here, as
 tests/test_driver.py drives bagel_tpu's: steps, periodic and final
 checkpoints with data_status, --auto_resume with parameters bit-equal,
 model-only resume, an unfinished async save skipped, gradient
-accumulation, optimizer/EMA offload, packing workers, and the parallel
-flags raising."""
+accumulation, optimizer/EMA offload, packing workers; and under 4 gloo
+processes (tests/torch_dist_util.py) the mesh layouts, pipeline, expert and
+context parallelism, each run's losses equal to a one-process run's on the
+same global batch within 1e-5, and a bit-equal --auto_resume under a mesh."""
 
 import io
 import json
@@ -140,15 +142,76 @@ def test_packing_workers(corpus, tmp_path):
     assert len(history) == 2 and all(np.isfinite(h["loss"]) for h in history)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "1,2,1"], ["--context_parallel", "fsdp"],
-                                  ["--pipeline_parallel", "fsdp"], ["--expert_parallel", "tp"]])
-def test_parallel_flags_raise(corpus, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        driver.main(_args(corpus, tmp_path / "p", "--total_steps", "1", *flag))
-
-
 def test_no_device_raises(corpus, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = _args(corpus, tmp_path / "d", "--total_steps", "1")[2:]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         driver.main(args)
+
+
+# -- parallel runs: 4 gloo processes against one process on the same rows --
+
+MICRO_TP = {"num_attention_heads": 4, "num_key_value_heads": 2}  # tp = 2 splits whole heads
+# one process on two rows a step: the pipeline at one stage (its math at
+# one stage is the plain path's: tests/test_torch_pipeline.py, chip_smoke.py
+# phase 11a)
+TWO_ROWS = ["--mesh", "1,1,1", "--pipeline_parallel", "fsdp", "--pp_microbatches", "2"]
+PARALLEL = {  # flags under the mesh, the one-process run's flags
+    "mesh 2,2,1": (["--mesh", "2,2,1"], TWO_ROWS),
+    "mesh 1,2,2": (["--mesh", "1,2,2"], []),
+    "pp fsdp": (["--mesh", "1,4,1", "--pipeline_parallel", "fsdp", "--pp_microbatches", "2",
+                 "--num_hidden_layers", "4"], TWO_ROWS),
+    "ep tp": (["--mesh", "1,2,2", "--expert_parallel", "tp"], []),
+    "cp fsdp": (["--mesh", "1,4,1", "--context_parallel", "fsdp"], []),
+}
+
+
+def _tp_config(tmp_path):
+    path = tmp_path / "llm.json"
+    path.write_text(json.dumps(MICRO_TP))
+    return ["--llm_config", str(path)]
+
+
+@pytest.mark.parametrize("name", list(PARALLEL))
+def test_parallel_runs_match_one_process(corpus, tmp_path, name):
+    from torch_dist_util import run
+
+    flags, one = PARALLEL[name]
+    extra = _tp_config(tmp_path) + ["--total_steps", "3"]
+    if "--num_hidden_layers" in flags:
+        extra += flags[flags.index("--num_hidden_layers"):][:2]
+    _, want = driver.main(_args(corpus, tmp_path / "one", *extra, *one))
+    got = run("driver_run", 4, tmp_path,
+              argv=_args(corpus, tmp_path / "mesh", *extra, *flags),
+              dataset=("t2i_pretrain", "toy_t2i", str(corpus / "t2i")))
+    for r in got:  # every process reports the global loss
+        assert [h["loss"] for h in r["history"]] == [h["loss"] for h in got[0]["history"]]
+    losses = [h["loss"] for h in got[0]["history"]]
+    assert all(np.isfinite(losses)) and len(losses) == 3
+    for a, b in zip(losses, [h["loss"] for h in want]):
+        assert abs(a - b) <= 1e-5 * abs(b), (name, losses, [h["loss"] for h in want])
+
+
+def test_auto_resume_under_a_mesh_is_bit_equal(corpus, tmp_path):
+    from torch_dist_util import run
+
+    got = run("driver_resume", 4, tmp_path,
+              argv=_args(corpus, tmp_path / "ck", *_tp_config(tmp_path), "--mesh", "2,1,2"),
+              dataset=("t2i_pretrain", "toy_t2i", str(corpus / "t2i")))
+    for r in got:
+        assert r["resumed_history"] == [] and r["bit_equal"] and r["step"] == 2
+        assert r["continued"] == [2]
+    assert sorted(os.listdir(tmp_path / "ck")) == ["0000002", "0000003"]
+    with open(tmp_path / "ck" / "0000003" / "data_status.json") as f:
+        assert sorted(json.load(f)) == ["0", "1", "2", "3"]  # every rank's stream
+
+
+def test_mesh_needs_its_processes(corpus, tmp_path):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
+        driver.main(_args(corpus, tmp_path / "m", "--total_steps", "1", "--mesh", "2,2,1"))
+    with pytest.raises(ValueError, match="exclusive"):
+        driver.main(_args(corpus, tmp_path / "m", "--total_steps", "1", "--context_parallel",
+                          "fsdp", "--expert_parallel", "fsdp"))
+    with pytest.raises(ValueError, match="sparse_block"):
+        driver.main(_args(corpus, tmp_path / "m", "--total_steps", "1", "--expert_parallel",
+                          "fsdp", "--sparse_block", "64"))

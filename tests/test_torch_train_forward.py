@@ -8,7 +8,8 @@ documents, the sink slot), over the dense-mask, `attn_chunk` and
 `sparse_block` attention paths with `freeze_und` off and on (the gradient,
 not only the loss, is compared: a missed detach changes the und gradients
 while the loss still matches). The port's three remat modes give equal
-gradients; `context_parallel` and `expert_parallel` raise.
+gradients. The parallel paths are held in tests/test_torch_ring.py,
+test_torch_expert.py and test_torch_pipeline.py.
 """
 
 import dataclasses
@@ -148,14 +149,3 @@ def test_remat_modes_give_equal_gradients(batches):
                 torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="remat"):
         bagel_forward_train(params, cfg, jb, noise, remat="some")
-
-
-def test_parallel_paths_raise(batches):
-    jcfg, cfg = configs()
-    jb = to_torch_batch(batches["synthetic"])
-    params = torch_params(jax_params(jcfg))
-    noise = torch.zeros(jb.vae_patches.shape)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        bagel_forward_train(params, cfg, jb, noise, context_parallel=("mesh", "fsdp"))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        bagel_forward_train(params, cfg, jb, noise, expert_parallel=("mesh", "fsdp"))
