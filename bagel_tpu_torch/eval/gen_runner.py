@@ -17,7 +17,8 @@ i's x_1 is drawn from a torch.Generator seeded seed + i on the engine's
 device, so the same seed gives another image than the JAX package's
 PRNGKey(seed + i). Rows are sharded over the processes of the
 torch.distributed group, which `main` starts under torchrun
-(WORLD_SIZE > 1).
+(WORLD_SIZE > 1); with `--mesh dp,fsdp,tp` (a sharded engine,
+`serving.app`) over the dp coordinates (`row_shard`).
 """
 
 from __future__ import annotations
@@ -28,11 +29,25 @@ import os
 from typing import List
 
 
+def row_shard(engine, rank: int, world: int):
+    """(shard, shards, writes): the rows' shard this process takes, their
+    number, and whether it writes its shard's results. Without a mesh each
+    process is a shard. Over a sharded engine's mesh the shards are the dp
+    coordinates: the fsdp and tp ranks of one coordinate run the same rows
+    (their collectives run together) and the first of them writes."""
+    mesh = engine.mesh
+    if mesh is None:
+        return rank, world, True
+    return mesh.coord["dp"], mesh.shape["dp"], mesh.coord["fsdp"] == mesh.coord["tp"] == 0
+
+
 def run_gen(engine, vae_transform, rows: List[dict], outdir: str, args,
-            rank: int = 0, world: int = 1) -> List[int]:
+            rank: int = 0, world: int = 1, write: bool = True) -> List[int]:
     """Generate rows[rank::world] into the GenEval layout under `outdir`,
     skipping a row whose image exists. `args` carries the generation
-    settings of `main`'s flags. Returns the indexes generated."""
+    settings of `main`'s flags; write=False runs the rows and writes
+    nothing (a sharded engine's other ranks, `row_shard`). Returns the
+    indexes generated."""
     import torch
     from PIL import Image
 
@@ -44,9 +59,10 @@ def run_gen(engine, vae_transform, rows: List[dict], outdir: str, args,
         out_path = os.path.join(sample_dir, "samples", "0000.png")
         if os.path.exists(out_path):  # resumable (gen_images_mp.py:203-210)
             continue
-        os.makedirs(os.path.join(sample_dir, "samples"), exist_ok=True)
-        with open(os.path.join(sample_dir, "metadata.jsonl"), "w") as f:
-            f.write(json.dumps(row) + "\n")
+        if write:
+            os.makedirs(os.path.join(sample_dir, "samples"), exist_ok=True)
+            with open(os.path.join(sample_dir, "metadata.jsonl"), "w") as f:
+                f.write(json.dumps(row) + "\n")
 
         image = None
         shapes = (args.image_size, args.image_size)
@@ -72,12 +88,14 @@ def run_gen(engine, vae_transform, rows: List[dict], outdir: str, args,
             enable_taylorseer=args.enable_taylorseer,
             rng=torch.Generator(device=engine.device).manual_seed(args.seed + row["index"]),
         )
+        done.append(row["index"])
+        if not write:
+            continue
         Image.fromarray(out["image"]).save(out_path)
         if out.get("text"):
             with open(os.path.join(sample_dir, "thinking.txt"), "w") as f:
                 f.write(out["text"])
         print(f"[{rank}] generated {row['index']:05d}")
-        done.append(row["index"])
     return done
 
 
@@ -85,7 +103,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("bagel_tpu_torch gen eval")
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--mesh", type=str, default=None,
-                   help="dp,fsdp,tp: not ported yet (raises)")
+                   help="dp,fsdp,tp: a sharded engine over this mesh of processes; the rows "
+                        "shard over dp")
     p.add_argument("--device", type=str, default=None,
                    help="the engine's device (default: CUDA)")
     p.add_argument("--metadata", type=str, required=True,
@@ -124,6 +143,7 @@ def main(argv=None):
 
     # the group first: under torchrun it picks each process's card
     rank, world, started = process_rank_world(resolve_device(args.device))
+    engine = None
     try:
         engine, vae_tf, _ = build_engine(args)
 
@@ -134,11 +154,17 @@ def main(argv=None):
                     row = json.loads(line)
                     row.setdefault("index", i)
                     rows.append(row)
-        run_gen(engine, vae_tf, rows, args.outdir, args, rank, world)
+        run_gen(engine, vae_tf, rows, args.outdir, args, *row_shard(engine, rank, world))
     finally:
         if started:
+            import gc
+
             import torch.distributed as dist
 
+            # the engine's decode graphs hold nccl's communicator: they go
+            # before the group (destroying it under them waits forever)
+            engine = None
+            gc.collect()
             dist.destroy_process_group()
 
 

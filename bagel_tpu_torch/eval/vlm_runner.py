@@ -17,8 +17,10 @@ callable judge into score_with_judge.
 Port of bagel_tpu/eval/vlm_runner.py. The engine runs on CUDA unless
 `--device` names another device. Rows are sharded over the processes of
 the torch.distributed group: under torchrun (WORLD_SIZE > 1) `main` starts
-it (nccl on CUDA, gloo on the CPU), each rank writes `<out>.rank<r>`, and
-rank 0 merges them, sorted by index, into `<out>`.
+it (nccl on CUDA, gloo on the CPU), each shard's writer writes
+`<out>.rank<r>`, and rank 0 merges them, sorted by index, into `<out>`.
+With `--mesh dp,fsdp,tp` (a sharded engine, `serving.app`) the shards are
+the dp coordinates (`gen_runner.row_shard`).
 """
 
 from __future__ import annotations
@@ -408,7 +410,8 @@ def main(argv=None):
     p = argparse.ArgumentParser("bagel_tpu_torch vlm eval")
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--mesh", type=str, default=None,
-                   help="dp,fsdp,tp: not ported yet (raises)")
+                   help="dp,fsdp,tp: a sharded engine over this mesh of processes; the rows "
+                        "shard over dp")
     p.add_argument("--device", type=str, default=None,
                    help="the engine's device (default: CUDA)")
     p.add_argument("--data", type=str, required=True)
@@ -436,40 +439,53 @@ def main(argv=None):
     if args.think and args.batch_size > 1:
         p.error("--think decodes one session at a time; use --batch_size 1")
 
+    from bagel_tpu_torch.eval.gen_runner import row_shard
     from bagel_tpu_torch.serving.app import build_engine
     from bagel_tpu_torch.utils.device import process_rank_world, resolve_device
 
     # the group first: under torchrun it picks each process's card
     rank, nproc, started = process_rank_world(resolve_device(args.device))
+    engine = None
     try:
         engine, vae_tf, vit_tf = build_engine(args)
-        rows = shard(load_rows(args.data), rank, nproc)
+        part, parts, writes = row_shard(engine, rank, nproc)
+        rows = shard(load_rows(args.data), part, parts)
         results = run_eval(engine, vit_tf, rows, args.image_root,
                            args.max_length, args.think, args.batch_size)
-        out_path = args.out if nproc == 1 else f"{args.out}.rank{rank}"
-        with open(out_path, "w") as f:
-            for r in results:
-                f.write(json.dumps(r) + "\n")
+        out_path = args.out if parts == 1 else f"{args.out}.rank{part}"
+        if writes:
+            with open(out_path, "w") as f:
+                for r in results:
+                    f.write(json.dumps(r) + "\n")
 
         if nproc > 1:
-            # wait for every rank's file, then merge + score on process 0
+            # wait for every shard's file, then merge + score on process 0
             # (reference merges via all_gather_object, evaluate_mmbench.py:219-227)
             import torch.distributed as dist
 
             dist.barrier()
             if rank != 0:
                 return
-            results = []
-            for r in range(nproc):
-                results.extend(load_rows(f"{args.out}.rank{r}"))
+            if parts == 1:
+                results = load_rows(args.out)
+            else:
+                results = []
+                for r in range(parts):
+                    results.extend(load_rows(f"{args.out}.rank{r}"))
             results.sort(key=lambda x: x["index"])
             with open(args.out, "w") as f:
                 for r in results:
                     f.write(json.dumps(r) + "\n")
     finally:
         if started:
+            import gc
+
             import torch.distributed as dist
 
+            # the engine's decode graphs hold nccl's communicator: they go
+            # before the group (destroying it under them waits forever)
+            engine = None
+            gc.collect()
             dist.destroy_process_group()
     if args.score:
         if args.score in _JUDGE_SCORERS:

@@ -158,16 +158,17 @@ class DecodeProgram:
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
 
-    def owned_cache(self, cfg, rows: int, max_len: int, dtype, device):
+    def owned_cache(self, cfg, rows: int, max_len: int, dtype, device, layout=None):
         """The program's own cache of these shapes, its lengths 0 (what it
         held before is dead): a caller that fills a cache and then decodes
         in it (`chat_batch`, holding `lock` from here to its decode) takes
-        it here, so its graphs stay valid from call to call."""
+        it here, so its graphs stay valid from call to call. `layout`:
+        this process's KV heads (`qwen2.kv_cache_init`)."""
         from bagel_tpu_torch.models.qwen2 import kv_cache_init
 
         key = (rows, max_len, dtype, torch.device(device))
         own = self._owned_get(key, lambda: kv_cache_init(cfg, rows, max_len, dtype,
-                                                         device=device))
+                                                         device=device, layout=layout))
         own.length.zero_()
         return own
 

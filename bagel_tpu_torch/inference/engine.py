@@ -31,6 +31,16 @@ Contexts share cache buffers on `copy()` exactly as JAX arrays are shared:
 context cannot touch a sibling's buffer. A cache that one call owns
 (`chat_batch`'s, the serving runtime's slot cache) is written in place
 instead (`_extend`, `decode_text(in_place=True)`), where JAX donates it.
+
+Sharded inference (`layout=`, a `parallel.mesh.InferenceLayout` over a
+(dp, fsdp, tp) mesh of processes; JAX's `app.py --mesh` with GSPMD): each
+process holds its shards of the weights and its KV heads of every cache;
+the LLM runs Megatron tp with its fsdp shards gathered a layer at a time
+(`qwen2.llm_extend`), the ViT and the adapters (`connector`, `time_embed`,
+`vae2llm`, `llm2vae`) are gathered at use and computed replicated, the VAE
+is replicated. Every process of the mesh runs every call (dp
+coordinates compute the same rows), and all of them see the same outputs
+and host reads: an all-reduce leaves the same bits on every rank.
 """
 
 from __future__ import annotations
@@ -110,80 +120,93 @@ class GenContext:
                           text_ids=self.text_ids)
 
 
+def _whole(params, layout, *names):
+    """`params` with the subtrees `names` whole: under a layout their shards
+    gathered at use (the ViT and the adapters run replicated)."""
+    if layout is None:
+        return params
+    return dict(params, **{k: layout.gather_tree(params[k], k) for k in names})
+
+
 def _prefill_text(params, cfg: BagelConfig, cache, ids, pos, valid,
-                  attn_impl: str = "auto"):
-    embeds = qwen2.embed_tokens(params["llm"], ids)
+                  attn_impl: str = "auto", layout=None):
+    embeds = qwen2.embed_tokens(params["llm"], ids, layout)
     return qwen2.llm_extend(
         params["llm"], cfg.llm, embeds, pos, cache, valid,
         und_len=ids.shape[1], causal=True, update_cache=True, attn_impl=attn_impl,
+        layout=layout,
     )
 
 
 def _extend(params, cfg: BagelConfig, cache, embeds, pos, valid, *, causal: bool,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", layout=None):
     """A batched und-expert block over rows of a cache the caller owns
     (ragged rows through per-row `valid`): written in place, as JAX's
     `_extend_jit` donates the cache. Never call it with a cache that another
     context shares."""
     return qwen2.llm_extend(
         params["llm"], cfg.llm, embeds, pos, cache, valid, und_len=embeds.shape[1],
-        causal=causal, update_cache=True, attn_impl=attn_impl, in_place=True,
+        causal=causal, update_cache=True, attn_impl=attn_impl, in_place=True, layout=layout,
     )
 
 
 def _prefill_vit(params, cfg: BagelConfig, cache, boundary_ids, patches,
-                 vit_pos, seg, rope_pos: int, valid, attn_impl: str = "auto"):
+                 vit_pos, seg, rope_pos: int, valid, attn_impl: str = "auto", layout=None):
     """Understanding-image block [start, end, vit tokens..., pad]: one rope
     position for the whole block, und expert, non-causal."""
-    vit_emb = encode_vit_tokens(params, cfg, patches, vit_pos, seg, attn_impl=attn_impl)
-    tok_emb = qwen2.embed_tokens(params["llm"], boundary_ids)  # [2, d]
+    vit_emb = encode_vit_tokens(_whole(params, layout, "vit", "connector"), cfg, patches,
+                                vit_pos, seg, attn_impl=attn_impl)
+    tok_emb = qwen2.embed_tokens(params["llm"], boundary_ids, layout)  # [2, d]
     block = torch.cat([tok_emb, vit_emb.to(tok_emb.dtype)])[None]
     t = block.shape[1]
     pos = torch.full((1, t), rope_pos, dtype=torch.int32, device=block.device)
     return qwen2.llm_extend(
         params["llm"], cfg.llm, block, pos, cache, valid,
-        und_len=t, causal=False, update_cache=True, attn_impl=attn_impl,
+        und_len=t, causal=False, update_cache=True, attn_impl=attn_impl, layout=layout,
     )
 
 
 def _prefill_vae(params, cfg: BagelConfig, cache, boundary_ids, latents, lat_pos,
-                 rope_pos: int, valid, attn_impl: str = "auto"):
+                 rope_pos: int, valid, attn_impl: str = "auto", layout=None):
     """Generation-context image block [start, end, clean latents...] at
     t = 0 (upstream bagel.py:491-550): one rope position for the whole
     block, non-causal; the two boundary tokens take the und expert, the
     latents the gen expert (und_len=2)."""
     n = latents.shape[0]
     t_vec = torch.zeros((n,), dtype=torch.float32, device=latents.device)
-    lat_emb = latent_to_llm(params, cfg, latents, t_vec, lat_pos)
-    tok_emb = qwen2.embed_tokens(params["llm"], boundary_ids)  # [2, d]
+    lat_emb = latent_to_llm(_whole(params, layout, "vae2llm", "time_embed"), cfg, latents,
+                            t_vec, lat_pos)
+    tok_emb = qwen2.embed_tokens(params["llm"], boundary_ids, layout)  # [2, d]
     block = torch.cat([tok_emb, lat_emb.to(tok_emb.dtype)])[None]
     t = block.shape[1]
     pos = torch.full((1, t), rope_pos, dtype=torch.int32, device=block.device)
     return qwen2.llm_extend(
         params["llm"], cfg.llm, block, pos, cache, valid,
-        und_len=2, causal=False, update_cache=True, attn_impl=attn_impl,
+        und_len=2, causal=False, update_cache=True, attn_impl=attn_impl, layout=layout,
     )
 
 
 def _make_flow_v(params, cfg: BagelConfig, n: int, n_jobs: int, nb: int,
                  boundary_ids, branch_rope, cache: KVCache, lat_pos,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", layout=None):
     """Closure computing per-branch velocities for one step.
 
     x_t is [J, N, pd]; each job expands into its nb CFG branches
     (jobs-major, branch-minor: cache batch = J*nb), every branch of a job
     sharing its latent block [start, end, latents...]; returns
-    [J*nb, N, pd] in fp32."""
+    [J*nb, N, pd] in fp32. Under a layout the adapters are gathered once,
+    for every step of the phase."""
     b = n_jobs * nb
     tb = n + 2
-    tok_emb = qwen2.embed_tokens(params["llm"], boundary_ids)  # [2, d]
+    tok_emb = qwen2.embed_tokens(params["llm"], boundary_ids, layout)  # [2, d]
     pos = branch_rope[:, None].expand(b, tb)
     valid = torch.full((b,), tb, dtype=torch.int32, device=tok_emb.device)
-    head = params["llm2vae"]
+    adapters = _whole(params, layout, "vae2llm", "time_embed", "llm2vae")
+    head = adapters["llm2vae"]
 
     def flow_v(x_t, t):
         t_vec = torch.full((n,), float(t), dtype=torch.float32, device=x_t.device)
-        lat_emb = latent_to_llm(params, cfg, x_t, t_vec, lat_pos)  # [J, N, d]
+        lat_emb = latent_to_llm(adapters, cfg, x_t, t_vec, lat_pos)  # [J, N, d]
         d = lat_emb.shape[-1]
         block = torch.cat(
             [tok_emb[None].expand(n_jobs, 2, d), lat_emb.to(tok_emb.dtype)], dim=1
@@ -192,7 +215,7 @@ def _make_flow_v(params, cfg: BagelConfig, n: int, n_jobs: int, nb: int,
             block = block.repeat_interleave(nb, dim=0)
         hidden, _ = qwen2.llm_extend(
             params["llm"], cfg.llm, block, pos, cache, valid,
-            und_len=2, causal=False, update_cache=False, attn_impl=attn_impl,
+            und_len=2, causal=False, update_cache=False, attn_impl=attn_impl, layout=layout,
         )
         # fp32 result of the working-dtype product (upcast inputs)
         return torch.matmul(hidden[:, 2:tb].float(), head["w"].float()) + head["b"].float()
@@ -234,12 +257,13 @@ def _denoise_phase(
     cfg_renorm_type: str,
     cfg_renorm_min: float,
     attn_impl: str = "auto",
+    layout=None,
 ):
     """K denoise steps: n_jobs images x n_branches CFG forwards batched."""
     n = x_t.shape[1]
     cache = KVCache(k=k_buf, v=v_buf, length=lengths)
     flow_v = _make_flow_v(params, cfg, n, n_jobs, n_branches, boundary_ids,
-                          branch_rope, cache, lat_pos, attn_impl)
+                          branch_rope, cache, lat_pos, attn_impl, layout)
     for t, dt in zip(timesteps, dts):
         v = flow_v(x_t, t)
         v_t = _combine(v, n_jobs, n_branches, cfg_text_scale, cfg_img_scale,
@@ -271,6 +295,7 @@ def _denoise_phase_taylorseer(
     cfg_renorm_type: str,
     cfg_renorm_min: float,
     attn_impl: str = "auto",
+    layout=None,
 ):
     """`_denoise_phase` with the TaylorSeer step cache: a full step runs the
     LLM forward and updates the per-branch Taylor factors of the velocity,
@@ -282,7 +307,7 @@ def _denoise_phase_taylorseer(
     n = x_t.shape[1]
     cache = KVCache(k=k_buf, v=v_buf, length=lengths)
     flow_v = _make_flow_v(params, cfg, n, n_jobs, n_branches, boundary_ids,
-                          branch_rope, cache, lat_pos, attn_impl)
+                          branch_rope, cache, lat_pos, attn_impl, layout)
     for k, (t, dt) in enumerate(zip(timesteps, dts)):
         if schedule.is_full[k]:
             v = flow_v(x_t, t)
@@ -346,6 +371,7 @@ class BagelEngine:
         device=None,
         attn_impl: str = "auto",
         kv_quant: bool = False,
+        layout=None,
     ):
         """`device`: where the engine runs; CUDA unless the caller passes
         one (the params must already be there).
@@ -370,9 +396,20 @@ class BagelEngine:
 
         On CUDA every w8a8 weight of `params` is made k-major in place
         (`utils.quant.w8a8_kmajor`, a no-op where it already is), the layout
-        the w8a8 kernel reads."""
+        the w8a8 kernel reads.
+
+        `layout` (`parallel.mesh.InferenceLayout`): `params` hold this
+        process's shards (`layout.place_tree`, or `utils.bridge.
+        params_from_numpy(..., layout=)`); `mesh` is its mesh (None
+        without one), as JAX's app sets `engine.mesh`."""
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the card current at construction, not each calling thread's
+            # (a new thread's current card is the first one)
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.attn_impl = attn_impl
+        self.layout = layout
+        self.mesh = None if layout is None else layout.mesh
         emb = params["llm"]["embed"]
         # a quantized embedding ({'w_q', 'row_scale'}, utils.quant) gives
         # bf16 rows, so the engine computes in bf16, as the JAX engine does
@@ -413,7 +450,8 @@ class BagelEngine:
 
     def init_context(self) -> GenContext:
         return GenContext(cache=kv_cache_init(
-            self.cfg.llm, 1, self.max_kv, self.cache_dtype, device=self.device
+            self.cfg.llm, 1, self.max_kv, self.cache_dtype, device=self.device,
+            layout=self.layout,
         ))
 
     def _boundary_ids(self) -> torch.Tensor:
@@ -430,7 +468,7 @@ class BagelEngine:
         pos[0, :t] = np.arange(ctx.rope, ctx.rope + t)
         _, cache = _prefill_text(
             self.params, self.cfg, ctx.cache, self._tensor(ids_arr, torch.long),
-            self._tensor(pos), self._tensor([t]), self.attn_impl,
+            self._tensor(pos), self._tensor([t]), self.attn_impl, self.layout,
         )
         return GenContext(cache=cache, kv_len=ctx.kv_len + t, rope=ctx.rope + t,
                           text_ids=ctx.text_ids + tuple(ids))
@@ -489,7 +527,7 @@ class BagelEngine:
             _, cache = _prefill_vae(
                 self.params, cfg, ctx.cache, boundary, lat,
                 self._tensor(lat_pos, torch.long), ctx.rope, self._tensor([n + 2]),
-                self.attn_impl,
+                self.attn_impl, self.layout,
             )
             ctx = GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1,
                              text_ids=ctx.text_ids)
@@ -512,6 +550,7 @@ class BagelEngine:
                 self.params, cfg, ctx.cache, boundary,
                 self._patches(patches_p), self._tensor(pos_p, torch.long),
                 self._tensor(seg), ctx.rope, self._tensor([n + 2]), self.attn_impl,
+                self.layout,
             )
             ctx = GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1,
                              text_ids=ctx.text_ids)
@@ -571,7 +610,7 @@ class BagelEngine:
                 self.params["llm"], self.cfg.llm, ctx.cache, start, pos,
                 self._tensor(harr, torch.long), self._tensor([len(hist)], torch.long),
                 max_steps=max_length, eos_id=eos, draft_len=speculative, ngram=ngram,
-                attn_impl=self.attn_impl, program=self.decode, graph=graph,
+                attn_impl=self.attn_impl, program=self.decode, graph=graph, layout=self.layout,
             )
         else:
             if rng is None:
@@ -580,7 +619,7 @@ class BagelEngine:
                 self.params["llm"], self.cfg.llm, ctx.cache, start, pos,
                 max_steps=max_length, eos_id=eos, temperature=temperature,
                 do_sample=do_sample, generator=rng, attn_impl=self.attn_impl,
-                program=self.decode, graph=graph,
+                program=self.decode, graph=graph, layout=self.layout,
             )
         toks = toks[0].tolist()
         if eos in toks:
@@ -723,7 +762,7 @@ class BagelEngine:
             common = dict(
                 n_jobs=J, n_branches=b, cfg_text_scale=text_s, cfg_img_scale=img_s,
                 cfg_renorm_type=cfg_renorm_type, cfg_renorm_min=cfg_renorm_min,
-                attn_impl=self.attn_impl,
+                attn_impl=self.attn_impl, layout=self.layout,
             )
             if not enable_taylorseer:
                 return _denoise_phase(*args, **common)
@@ -797,7 +836,8 @@ class BagelEngine:
         seg_p = np.zeros(nb, np.int32)
         seg_p[:off] = np.concatenate(all_seg, 0)
         vit_emb = encode_vit_tokens(
-            self.params, self.cfg, self._patches(packed), self._tensor(pos_p, torch.long),
+            _whole(self.params, self.layout, "vit", "connector"), self.cfg,
+            self._patches(packed), self._tensor(pos_p, torch.long),
             self._tensor(seg_p), attn_impl=self.attn_impl,
         )
         return vit_emb, per_img
@@ -810,7 +850,7 @@ class BagelEngine:
         position, which then advances by 1. The cache is written in place;
         `rope` ({row: position}) is updated."""
         b = cache.batch
-        tok_emb = qwen2.embed_tokens(self.params["llm"], self._boundary_ids())
+        tok_emb = qwen2.embed_tokens(self.params["llm"], self._boundary_ids(), self.layout)
         rounds = max((len(row_images[i]) for i in rows), default=0)
         for k in range(rounds):
             rows_k = [i for i in rows if len(row_images[i]) > k]
@@ -826,7 +866,8 @@ class BagelEngine:
                 valid[i] = n + 2
                 pos[i] = rope[i]  # one rope position for the whole image
             _, cache = _extend(self.params, self.cfg, cache, blocks, self._tensor(pos),
-                               self._tensor(valid), causal=False, attn_impl=self.attn_impl)
+                               self._tensor(valid), causal=False, attn_impl=self.attn_impl,
+                               layout=self.layout)
             for i in rows_k:
                 rope[i] += 1
         return cache
@@ -844,9 +885,11 @@ class BagelEngine:
             ids[i, : len(x)] = x
             pos[i, : len(x)] = rope[i] + np.arange(len(x))
             valid[i] = len(x)
-        embeds = qwen2.embed_tokens(self.params["llm"], self._tensor(ids, torch.long))
+        embeds = qwen2.embed_tokens(self.params["llm"], self._tensor(ids, torch.long),
+                                    self.layout)
         _, cache = _extend(self.params, self.cfg, cache, embeds, self._tensor(pos),
-                           self._tensor(valid), causal=True, attn_impl=self.attn_impl)
+                           self._tensor(valid), causal=True, attn_impl=self.attn_impl,
+                           layout=self.layout)
         return cache
 
     def chat_batch(
@@ -880,7 +923,7 @@ class BagelEngine:
         }
         with self.decode.lock:  # its owned cache is one call's from prefill to decode
             cache = self.decode.owned_cache(self.cfg.llm, b, self.max_kv, self.kv_dtype,
-                                            self.device)
+                                            self.device, self.layout)
             rope = {i: 0 for i in range(b)}
             vit_emb, per_img = self._pack_images(row_images)
             if vit_emb is not None:
@@ -897,7 +940,7 @@ class BagelEngine:
                 self._tensor([rope[i] + len(ids_rows[i]) for i in range(b)]),
                 max_steps=max_length, eos_id=eos, temperature=temperature,
                 do_sample=do_sample, generator=rng, attn_impl=self.attn_impl, in_place=True,
-                program=self.decode, graph=graph,
+                program=self.decode, graph=graph, layout=self.layout,
             )
         outs = []
         for row in toks.tolist():

@@ -88,7 +88,7 @@ def prefix_bound(need: int, s_max: int) -> int:
 
 
 def spec_verify(params: dict, cfg: Qwen2Config, st: SpecState, *, draft_len: int, ngram: int,
-                eos_id: int, attn_impl: str, kv_bound: int) -> None:
+                eos_id: int, attn_impl: str, kv_bound: int, layout=None) -> None:
     """One verify of JAX's speculative loop on `st`, with no read back to the
     host: draft from the history, one causal block of draft_len + 1 through
     the decoder, accept the longest agreeing prefix (cut at the first eos and
@@ -97,7 +97,7 @@ def spec_verify(params: dict, cfg: Qwen2Config, st: SpecState, *, draft_len: int
     0 and emits nothing; once every row is, the verify also writes nothing
     into the cache (JAX's loop has left). `kv_bound`: a host bound on the
     cache lengths over the whole decode (an int8 cache's verify dequantizes
-    that prefix)."""
+    that prefix). `layout`: sharded weights and cache (`qwen2.llm_extend`)."""
     b = st.cur.shape[0]
     k = draft_len
     dev = st.cur.device
@@ -109,11 +109,12 @@ def spec_verify(params: dict, cfg: Qwen2Config, st: SpecState, *, draft_len: int
     live = ~(st.done | (st.out_len >= st.limit))
     q_valid = torch.where(live, k + 1, 0).to(torch.int32)
     hidden, new = llm_extend(
-        params, cfg, embed_tokens(params, block), st.pos[:, None] + jj.to(st.pos.dtype),
+        params, cfg, embed_tokens(params, block, layout), st.pos[:, None] + jj.to(st.pos.dtype),
         st.cache, q_valid, und_len=k + 1, causal=True, update_cache=True, attn_impl=attn_impl,
-        in_place=True, kv_bound=kv_bound, keep=live.any().expand(b),
+        in_place=True, kv_bound=kv_bound, keep=live.any().expand(b), layout=layout,
     )
-    y = lm_logits(params, hidden.reshape(b * (k + 1), -1)).argmax(dim=-1).reshape(b, k + 1)
+    y = lm_logits(params, hidden.reshape(b * (k + 1), -1), layout).argmax(dim=-1)
+    y = y.reshape(b, k + 1)
 
     # the longest accepted draft prefix, cut at the first eos
     a = torch.cumprod((draft == y[:, :k]).to(torch.int64), dim=1).sum(dim=1)
@@ -159,6 +160,7 @@ def decode_text_spec(
     stats: Optional[dict] = None,
     program=None,
     graph: bool = True,
+    layout=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Greedy decode with prompt-lookup speculation: the tokens of
     `decode_text(..., do_sample=False)` ([B, max_steps], eos-padded) and the
@@ -171,8 +173,8 @@ def decode_text_spec(
     tokens it consumed: a chunked caller (the serving runtime) relies on
     both. The verifies run through `program` as `decode_text`'s steps do
     (`spec_verify`, min(program.spec_chunk, max_steps) verifies a chunk); `active`,
-    `in_place`, `stats` (its "forwards": the verify forwards run) and
-    `graph` as in `decode_text`. The given cache's lengths are read once,
+    `in_place`, `stats` (its "forwards": the verify forwards run), `graph`
+    and `layout` as in `decode_text`. The given cache's lengths are read once,
     before the first chunk: with draft_len + max_steps + 1 on top, rounded
     up by `prefix_bound`, they bound an int8 cache's dequantized prefix, a
     key of the program's graphs.
@@ -214,7 +216,8 @@ def decode_text_spec(
 
         def make_step(st):
             return lambda i, gen: spec_verify(params, cfg, st, draft_len=k, ngram=ngram,
-                                              eos_id=eos_id, attn_impl=attn_impl, kv_bound=bound)
+                                              eos_id=eos_id, attn_impl=attn_impl, kv_bound=bound,
+                                              layout=layout)
 
         e = prog.entry(key, buffers_key(work), make_state, make_step,
                        lambda st: st.done.fill_(True), n=n, graph=graph and dev.type == "cuda",

@@ -40,6 +40,14 @@
   the activations per token and runs `ops.int8_matmul`; `w_p4` (int4) runs
   `ops.int4_matmul` for at most 64 activation rows on CUDA (decode) and
   dequantizes otherwise, as the JAX package does.
+- Sharded inference (`layout=`, a `parallel.mesh.InferenceLayout`): the
+  params hold this process's shards. Each layer gathers its fsdp shards at
+  use and runs Megatron tp over its local heads and FFN columns (the
+  cache holds the local KV heads, `kv_cache_init(layout=)`), with one
+  all-reduce after o and one after down, through `_layer_extend`'s `tp`,
+  the hook `train_layer_block` takes; the embedding is a vocab-parallel
+  lookup summed over tp, the logits this rank's part of the vocabulary
+  all-gathered over tp.
 
 Training (`llm_forward_train`): the packed multi-sample forward of the MoT
 stack over one sequence, with its four attention choices (a dense [S, S]
@@ -124,11 +132,13 @@ class KVCache:
 
 def kv_cache_init(
     cfg: Qwen2Config, batch: int, max_len: int, dtype=torch.bfloat16,
-    device=None,
+    device=None, layout=None,
 ) -> KVCache:
+    """A zeroed cache of `batch` rows; under `layout` with this process's
+    KV heads."""
     device = resolve_device(device)
-    shape = (cfg.num_hidden_layers, batch, max_len,
-             cfg.num_key_value_heads, cfg.head_dim)
+    kv_heads = cfg.num_key_value_heads if layout is None else layout.kv_heads
+    shape = (cfg.num_hidden_layers, batch, max_len, kv_heads, cfg.head_dim)
 
     def scales():  # an int8 cache's f32 scales, one per (token, KV head)
         if dtype != torch.int8:
@@ -235,9 +245,26 @@ def init_qwen2_params(
 # ---------------------------------------------------------------------------
 
 
-def _linear(x: torch.Tensor, p) -> torch.Tensor:
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in fp32, as JAX's preferred_element_type=f32 product: on CUDA
+    a bf16 x bf16 product with f32 accumulation and f32 output
+    (`torch.mm(..., out_dtype=torch.float32)`), with no f32 copy of the
+    weight; elsewhere (this op has no CPU kernel) the inputs upcast."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(x.shape[:-1] + (w.shape[-1],))
+    return torch.matmul(x.float(), w.float())
+
+
+def _linear(x: torch.Tensor, p, width: Optional[int] = None,
+            f32: bool = False) -> torch.Tensor:
     """x @ w (+ b) over a weight leaf: {'w'[, 'b']}, a bare tensor, or a
-    quantized dict (`utils.quant`; see the module docstring).
+    quantized dict (`utils.quant`; see the module docstring). `width`: the
+    whole leaf's output width where `p` is a tp shard of its columns (B4's
+    eligibility reads the whole leaf, as JAX's rule does). f32=True: the
+    product of a bias-free leaf in fp32, not rounded (a tp rank's partial
+    sum, rounded once after the all-reduce, as JAX rounds the whole sum);
+    B4 and B5 write bf16, so their partial sums are rounded once before.
 
     The bias is added in fp32 before the one rounding to x.dtype, as the
     JAX `preferred_element_type=f32` product does: in the matmul's epilogue
@@ -250,20 +277,22 @@ def _linear(x: torch.Tensor, p) -> torch.Tensor:
     if "w_q8" in p:
         xq, xs = quantize_rows(x.reshape(-1, x.shape[-1]))
         out = int8_matmul(xq, xs, p["w_q8"], p["scale"], p.get("b"), out_dtype=x.dtype)
+        out = out.float() if f32 else out  # B5 writes the activation dtype, as B4 does
         return out.reshape(lead + (out.shape[-1],))
     if "w_p4" in p:
         rows = math.prod(lead)
-        if int4_gemv_eligible(rows, p, x.device):
+        if int4_gemv_eligible(rows, p, x.device, out=width):
             # bandwidth-bound decode: the kernel reads the packed nibbles
             # once instead of a dequantized weight in device memory
             x2 = x.reshape(rows, x.shape[-1])
             if x.dtype == torch.bfloat16:  # one launch: the bias in the epilogue
                 out = int4_matmul(x2, p["w_p4"], p["scale4"], p.get("b"))
+                out = out.float() if f32 else out
             else:
                 out = int4_matmul(x2, p["w_p4"], p["scale4"]).float()
                 if "b" in p:
                     out = out + p["b"].float()
-                out = out.to(x.dtype)
+                out = out if f32 else out.to(x.dtype)
             return out.reshape(lead + (out.shape[-1],))
     if "w_q" in p:
         w = (p["w_q"].float() * p["scale"][..., None, :]).to(x.dtype)
@@ -271,6 +300,8 @@ def _linear(x: torch.Tensor, p) -> torch.Tensor:
         w = dequantize_weight4(p, x.dtype)
     else:
         w = p["w"]
+    if f32:
+        return _matmul_f32(x, w)
     if "b" not in p:
         return torch.matmul(x, w)
     if p["b"].dtype != x.dtype:  # e.g. f32 biases beside a quantized embedding's bf16
@@ -333,27 +364,30 @@ def fuse_llm_params(params: dict, inplace: bool = False) -> dict:
     return out
 
 
-def _proj_qkv(x, attn, h, kh, hd):
-    """(q, k, v) heads from either fused or separate projection leaves."""
+def _proj_qkv(x, attn, h, kh, hd, widths=None):
+    """(q, k, v) heads from either fused or separate projection leaves
+    (`widths`: the whole leaves' output widths of tp shards, by name)."""
     lead = x.shape[:-1]
+    w = widths or {}
     if "qkv" in attn:
-        qkv = _linear(x, attn["qkv"])
+        qkv = _linear(x, attn["qkv"], w.get("qkv"))
         q, k, v = torch.split(qkv, [h * hd, kh * hd, kh * hd], dim=-1)
     else:
-        q = _linear(x, attn["q"])
-        k = _linear(x, attn["k"])
-        v = _linear(x, attn["v"])
+        q = _linear(x, attn["q"], w.get("q"))
+        k = _linear(x, attn["k"], w.get("k"))
+        v = _linear(x, attn["v"], w.get("v"))
     return (q.reshape(lead + (h, hd)), k.reshape(lead + (kh, hd)),
             v.reshape(lead + (kh, hd)))
 
 
-def _ffn_mix(z, mlp):
+def _ffn_mix(z, mlp, widths=None):
     """silu(gate) * up from fused or separate gate/up leaves."""
+    w = widths or {}
     if "gate_up" in mlp:
-        gate, up = _linear(z, mlp["gate_up"]).chunk(2, dim=-1)
+        gate, up = _linear(z, mlp["gate_up"], w.get("gate_up")).chunk(2, dim=-1)
     else:
-        gate = _linear(z, mlp["gate"])
-        up = _linear(z, mlp["up"])
+        gate = _linear(z, mlp["gate"], w.get("gate"))
+        up = _linear(z, mlp["up"], w.get("up"))
     return F.silu(gate) * up
 
 
@@ -396,15 +430,23 @@ def _layer_extend(
     cos: torch.Tensor,  # [B, T, D]
     sin: torch.Tensor,
     attn_impl: str = "auto",
+    tp=None,
 ) -> torch.Tensor:
     """One decoder layer over a new token block; writes the block's K/V into
     k_buf/v_buf at [past_len, past_len + T) (an int8 cache: codes, and
     scales into ks_buf/vs_buf) and returns the new x. The block's start is
-    clamped into the buffer, as JAX's dynamic_update_slice clamps it."""
+    clamped into the buffer, as JAX's dynamic_update_slice clamps it.
+
+    tp (`parallel.mesh.InferenceTP`): Megatron over this rank's heads and
+    FFN columns, the o and down products' partial sums all-reduced."""
     b, t, d = x.shape
     h = cfg.num_attention_heads
     kh = cfg.num_key_value_heads
     hd = cfg.head_dim
+    widths, leave = None, (lambda z: z)
+    if tp is not None:
+        h, kh, widths, leave = tp.heads, tp.kv_heads, tp.widths, tp.leave
+    partial = tp is not None and tp.n > 1  # o and down give fp32 partial sums
     mot = cfg.layer_module == "mot"
 
     attn_u = lp["attn"]
@@ -419,12 +461,12 @@ def _layer_extend(
         lambda xg: rms_norm(xg, ln_g, cfg.rms_norm_eps),
     )
     if und_len >= t:
-        q, k, v = _proj_qkv(hqkv, attn_u, h, kh, hd)
+        q, k, v = _proj_qkv(hqkv, attn_u, h, kh, hd, widths)
     elif und_len <= 0:
-        q, k, v = _proj_qkv(hqkv, attn_g, h, kh, hd)
+        q, k, v = _proj_qkv(hqkv, attn_g, h, kh, hd, widths)
     else:
-        qu, ku, vu = _proj_qkv(hqkv[:, :und_len], attn_u, h, kh, hd)
-        qg, kg, vg = _proj_qkv(hqkv[:, und_len:], attn_g, h, kh, hd)
+        qu, ku, vu = _proj_qkv(hqkv[:, :und_len], attn_u, h, kh, hd, widths)
+        qg, kg, vg = _proj_qkv(hqkv[:, und_len:], attn_g, h, kh, hd, widths)
         q = torch.cat([qu, qg], dim=1)
         k = torch.cat([ku, kg], dim=1)
         v = torch.cat([vu, vg], dim=1)
@@ -476,11 +518,11 @@ def _layer_extend(
         att = attend(q, k_use, v_use, past_len, q_valid, causal=causal, int8_compute=int8)
     att = att.reshape(b, t, h * hd)
 
-    o = _split_apply(
+    o = leave(_split_apply(
         att.to(x.dtype), und_len,
-        lambda z: _linear(z, attn_u["o"]),
-        lambda z: _linear(z, attn_g["o"]),
-    )
+        lambda z: _linear(z, attn_u["o"], f32=partial),
+        lambda z: _linear(z, attn_g["o"], f32=partial),
+    ))
     if att.dtype != x.dtype:
         # an int8 cache's bf16 attention beside f32 weights: JAX's product
         # promotes it and rounds its result to the attention's dtype
@@ -496,11 +538,11 @@ def _layer_extend(
     def ffn(mlp, pln):
         def f(z):
             z = rms_norm(z, pln, cfg.rms_norm_eps)
-            return _linear(_ffn_mix(z, mlp), mlp["down"])
+            return _linear(_ffn_mix(z, mlp, widths), mlp["down"], f32=partial)
 
         return f
 
-    m = _split_apply(x, und_len, ffn(mlp_u, pln_u), ffn(mlp_g, pln_g))
+    m = leave(_split_apply(x, und_len, ffn(mlp_u, pln_u), ffn(mlp_g, pln_g)))
     return res + m.to(res.dtype)
 
 
@@ -528,6 +570,7 @@ def llm_extend(
     in_place: bool = False,
     kv_bound: Optional[int] = None,
     keep: Optional[torch.Tensor] = None,
+    layout=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder stack over one new block of tokens.
 
@@ -547,6 +590,10 @@ def llm_extend(
     after the loop's exit): the entries the block overwrites are read once
     before the layers and put back after them, one gather and one write a
     buffer for the whole stack.
+
+    `layout` (`parallel.mesh.InferenceLayout`): `params` and the cache
+    hold this process's shards (module docstring); a layer's leaves are
+    gathered at its start, only the und expert's for an und-only block.
     """
     t = embeds.shape[1]
     if kv_bound is None:
@@ -568,16 +615,20 @@ def llm_extend(
     # without update_cache the per-layer scratch buffer holds only the live
     # prefix: no key past it is visible, so the bucket's tail is never copied
     live = min(kv_bound + t, cache.max_len)
+    tp = None if layout is None else layout.tp
     x = embeds
     for i in range(cfg.num_hidden_layers):
+        lp = _layer_params(params["layers"], i)
+        if layout is not None:
+            lp = layout.gather_tree(lp, "llm/layers", layer=True,
+                                    skip=("attn_gen", "mlp_gen") if und_len >= t else ())
         if update_cache:
             bufs = [None if buf is None else buf[i] for buf in new.buffers()]
         else:
             bufs = [None if buf is None else buf[i, :, :live].clone() for buf in cache.buffers()]
         x = _layer_extend(
-            cfg, und_len, causal, x, _layer_params(params["layers"], i),
-            *bufs, cache.length, live, q_valid, cos, sin,
-            attn_impl=attn_impl,
+            cfg, und_len, causal, x, lp, *bufs, cache.length, live, q_valid, cos, sin,
+            attn_impl=attn_impl, tp=tp,
         )
 
     fin_u = params["final_norm"]
@@ -597,30 +648,36 @@ def llm_extend(
     return x, cache
 
 
-def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: dict, ids: torch.Tensor, layout=None) -> torch.Tensor:
+    """Embedding rows of ids; under `layout` a vocab-parallel lookup in this
+    rank's rows, summed over tp."""
     emb = params["embed"]
-    if isinstance(emb, dict):  # int8 rows with per-row scales
+    quant = isinstance(emb, dict)  # int8 rows with per-row scales
+    hit = None
+    if layout is not None:
+        ids, hit = layout.vocab_ids(ids, (emb["w_q"] if quant else emb).shape[0])
+    if quant:
         rows = emb["w_q"][ids].float()
-        return (rows * emb["row_scale"][ids][..., None]).to(torch.bfloat16)
-    return emb[ids]
+        rows = (rows * emb["row_scale"][ids][..., None]).to(torch.bfloat16)
+    else:
+        rows = emb[ids]
+    return rows if layout is None else layout.vocab_sum(rows, hit)
 
 
-def lm_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32, as JAX's preferred_element_type=f32 product: on CUDA
-    a bf16 x bf16 product with f32 accumulation and f32 output
-    (`torch.mm(..., out_dtype=torch.float32)`), with no f32 copy of the
-    1 GB head; elsewhere (this op has no CPU kernel) the inputs upcast. An
-    int8 head dequantizes to hidden's dtype first, as in JAX."""
+def lm_logits(params: dict, hidden: torch.Tensor, layout=None) -> torch.Tensor:
+    """Logits in fp32 (`_matmul_f32`: no f32 copy of the 1 GB head on
+    CUDA). An int8 head dequantizes to hidden's dtype first, as in JAX. Under
+    `layout` this rank's part of the vocabulary, the fp32 rows
+    all-gathered over tp."""
     head = params["lm_head"]
+    if layout is not None:
+        head = layout.gather_tree(head, "llm/lm_head")
+        return layout.vocab_gather(lm_logits({"lm_head": head}, hidden))
     if "w_q" in head:
         w = (head["w_q"].float() * head["scale"][None, :]).to(hidden.dtype)
     else:
         w = head["w"]
-    if hidden.is_cuda and hidden.dtype == w.dtype == torch.bfloat16:
-        lead = hidden.shape[:-1]
-        out = torch.mm(hidden.reshape(-1, hidden.shape[-1]), w, out_dtype=torch.float32)
-        return out.reshape(lead + (w.shape[-1],))
-    return torch.matmul(hidden.float(), w.float())
+    return _matmul_f32(hidden, w)
 
 
 # ---------------------------------------------------------------------------
@@ -899,7 +956,7 @@ class DecodeState:
 def decode_step(
     params: dict, cfg: Qwen2Config, st: DecodeState, col: int,
     generator: Optional[torch.Generator], *, eos_id: int, temperature: float,
-    do_sample: bool, early_stop: bool, frozen: bool, attn_impl: str,
+    do_sample: bool, early_stop: bool, frozen: bool, attn_impl: str, layout=None,
 ) -> None:
     """One step of JAX's decode loop on `st`, with no read back to the host.
 
@@ -914,11 +971,12 @@ def decode_step(
         go = go & ~st.done.all()
     rows = go.expand(b) & ~st.done if frozen else go.expand(b)
     hidden, new = llm_extend(
-        params, cfg, embed_tokens(params, st.tok)[:, None, :], st.pos[:, None], st.cache,
-        rows.to(torch.int32).contiguous(), und_len=1, causal=True, update_cache=True,
-        attn_impl=attn_impl, in_place=True, kv_bound=st.cache.max_len, keep=go.expand(b),
+        params, cfg, embed_tokens(params, st.tok, layout)[:, None, :], st.pos[:, None],
+        st.cache, rows.to(torch.int32).contiguous(), und_len=1, causal=True,
+        update_cache=True, attn_impl=attn_impl, in_place=True, kv_bound=st.cache.max_len,
+        keep=go.expand(b), layout=layout,
     )
-    logits = lm_logits(params, hidden[:, 0])
+    logits = lm_logits(params, hidden[:, 0], layout)
     if do_sample:
         probs = torch.softmax(logits / temperature, dim=-1)
         nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
@@ -952,6 +1010,7 @@ def decode_text(
     stats: Optional[dict] = None,
     program=None,
     graph: bool = True,
+    layout=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Autoregressive decode. Returns [B, max_steps] tokens (eos-padded
     after stop) and the final cache.
@@ -978,7 +1037,9 @@ def decode_text(
     decode of that shape. With in_place=True the caller owns the given cache
     (JAX donates it): the tokens are written into its buffers. `stats`, if
     given, gets the decoder forwards the loop ran (chunks x chunk) added to
-    its "forwards".
+    its "forwards". `layout`: sharded weights and cache (`llm_extend`); a
+    graph then holds the step's collectives, and every process of a tp and
+    fsdp group captures and replays the same graphs in lockstep.
     """
     from bagel_tpu_torch.inference.decode_program import (
         DecodeProgram,
@@ -1009,7 +1070,8 @@ def decode_text(
         def make_step(st):
             return lambda i, gen: decode_step(
                 params, cfg, st, i, gen, eos_id=eos_id, temperature=temperature,
-                do_sample=do_sample, early_stop=early_stop, frozen=frozen, attn_impl=attn_impl)
+                do_sample=do_sample, early_stop=early_stop, frozen=frozen, attn_impl=attn_impl,
+                layout=layout)
 
         e = prog.entry(key, buffers_key(work), make_state, make_step,
                        lambda st: st.limit.zero_(), n=n, graph=graph and dev.type == "cuda",

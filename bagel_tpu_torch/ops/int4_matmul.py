@@ -199,13 +199,18 @@ def int4_matmul(x: torch.Tensor, w_p4: torch.Tensor, scale4: torch.Tensor,
 int4_matmul.launches = 0
 
 
-def int4_gemv_eligible(x_rows: int, leaf: dict, device: torch.device) -> bool:
+def int4_gemv_eligible(x_rows: int, leaf: dict, device: torch.device,
+                       out: Optional[int] = None) -> bool:
     """The kernel takes a `w_p4` matmul with few activation rows (the
     weight-bandwidth-bound decode regime) on CUDA, at shapes it tiles; the
-    JAX package's rule with CUDA in place of the TPU."""
+    JAX package's rule with CUDA in place of the TPU. `out`: the whole
+    leaf's output width where `leaf` is a tp shard of its columns: JAX's
+    rule reads the whole leaf, and the kernel takes the shard (its own
+    limit, out % 16, is `_check`'s)."""
     if "w_p4" not in leaf or device.type != "cuda":
         return False
-    kp, out = leaf["w_p4"].shape
+    kp, local_out = leaf["w_p4"].shape
+    out = local_out if out is None else out
     in_ = kp * 2
     return (x_rows <= MAX_ROWS and in_ % GROUP == 0 and out % _JAX_OUT_TILE == 0
             and leaf["scale4"].shape[0] == in_ // GROUP)

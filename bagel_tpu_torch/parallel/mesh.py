@@ -23,6 +23,21 @@ shard by the same table and the collectives are explicit: autograd
 Functions whose backward is the transpose of their forward (all-gather and
 reduce-scatter, identity and all-reduce, a ring permute and its reverse).
 
+Inference (`InferenceLayout`): the engine's weights and KV cache by the
+same table, with no autograd: Megatron tp over the LLM layers (local heads
+and FFN columns, one all-reduce after o and one after down), the
+embedding and the head vocab-parallel over tp, every other leaf's shards
+gathered at use (the fsdp shards of a layer inside that layer, the ViT and
+the adapters whole, computed replicated), each collective a plain
+`torch.distributed` call on the current stream, so that a CUDA graph can
+capture it. Its restrictions are where Megatron differs from GSPMD:
+tp divides the query heads and the FFN width; where tp exceeds the KV
+heads (tp a multiple of them) each rank keeps the one KV head its query
+heads read, so the KV heads are replicated (JAX's cache rule shards KV
+heads only where tp divides them); a 4-bit leaf split along its input
+rows splits on its scale groups. Any other shape raises a ValueError that
+names the axis.
+
 The state is plain local tensors, one shard a leaf, not DTensors: the
 forward is the port's functions over parameter dicts, with ctypes kernels
 that take plain contiguous tensors, and each collective sits at one named
@@ -36,6 +51,7 @@ the math exact.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import math
@@ -45,6 +61,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from bagel_tpu_torch.utils.quant import is_kmajor
 
 AXES = ("dp", "fsdp", "tp")
 
@@ -212,14 +230,24 @@ def group_rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
-def _split(full: torch.Tensor, dim: int, n: int, i: int, sections=None) -> torch.Tensor:
-    """Shard i of n of `full` along dim: a contiguous chunk, or with
-    `sections` (sizes along dim) chunk i of each section, concatenated."""
+def _split(full: torch.Tensor, dim: int, n: int, i: int, sections=None,
+           where: str = "a leaf") -> torch.Tensor:
+    """Shard i of n of `full` along dim: a contiguous chunk or, with
+    `sections` (sizes along dim, or (size, units) pairs), chunk i of each
+    section, concatenated; a section of fewer units than n (KV heads under
+    tp above them, at inference) gives each unit to n // units ranks in
+    turn."""
     if sections is None:
-        if full.shape[dim] % n:
-            raise ValueError(f"dim {dim} of size {full.shape[dim]} does not split {n} ways")
-        return full.chunk(n, dim)[i].contiguous()
-    return torch.cat([_split(p, dim, n, i) for p in full.split(list(sections), dim)], dim)
+        sections = (full.shape[dim],)
+    sections = [s if isinstance(s, tuple) else (s, n) for s in sections]
+    parts = []
+    for piece, (size, units) in zip(full.split([s for s, _ in sections], dim), sections):
+        k = min(units, n)
+        if size % k or (units % n if units >= n else n % units):
+            raise ValueError(f"{where}: dim {dim} of size {size} ({units} units) does not "
+                             f"split over {n} processes")
+        parts.append(piece.chunk(k, dim)[i * k // n])
+    return torch.cat(parts, dim) if len(parts) > 1 else parts[0].contiguous()
 
 
 def _join(parts, dim: int, sections=None) -> torch.Tensor:
@@ -671,3 +699,259 @@ def shard_batch(mesh: Mesh, batch):
         return x[i * b:(i + 1) * b]
 
     return batch.map(rows) if hasattr(batch, "map") else rows(batch)
+
+
+# ---------------------------------------------------------------------------
+# Inference: the engine's weights and KV cache over the mesh
+# ---------------------------------------------------------------------------
+
+_QUANT_W = ("w_q8", "w_q", "w_p4", "w_nf4")  # utils.quant's weight codes: the "w" rule
+_GROUPED = ("scale4", "absmax")  # [.., K / GROUP, N]: the weight's rule, K split on groups
+_VOCAB = r"^llm/(embed|lm_head)(/|$)"  # vocab-parallel over tp
+
+
+def inference_pspec(s: str, ndim: int) -> tuple:
+    """`param_pspec`'s spec of a leaf of the engine's tree, quantized leaves
+    (`utils.quant`) included: the codes and the group scales take their
+    weight's rule, a per-column `scale` the rule without the input dim, the
+    embedding's per-row `row_scale` the rule without the last dim."""
+    parent, _, key = s.rpartition("/")
+    if key in _QUANT_W + _GROUPED:
+        return _spec(parent + "/w", ndim)
+    if key in ("scale", "row_scale"):
+        w = _spec(parent + "/w", ndim + 1)
+        w = w + (None,) * (ndim + 1 - len(w))
+        return w[:-2] + w[-1:] if key == "scale" else w[:-1]
+    return _spec(s, ndim)
+
+
+# the inference collectives issued, by (kind, "captured" | "eager"): a call
+# under CUDA-graph capture is recorded into the graph, whose replays run it
+collectives: collections.Counter = collections.Counter()
+
+
+def _issued(kind: str, x: torch.Tensor) -> None:
+    captured = x.is_cuda and torch.cuda.is_current_stream_capturing()
+    collectives[(kind, "captured" if captured else "eager")] += 1
+
+
+def gather_plain(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's shards of x concatenated along dim, with no autograd. A
+    k-major int8 weight (`utils.quant.is_kmajor`) stays k-major. A CUDA
+    tensor under a backend other than nccl (gloo's all_gather takes host
+    tensors) goes through host memory."""
+    if group is None:
+        return x
+    dim %= x.ndim
+    if x.dtype == torch.int8 and x.ndim >= 2 and dim >= x.ndim - 2 and is_kmajor(x):
+        return gather_plain(x.mT, 2 * x.ndim - 3 - dim, group).mT
+    src = x.contiguous()
+    stage = src.is_cuda and dist.get_backend(group) != "nccl"
+    if stage:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    _issued("all_gather", x)
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim)
+    return out.to(x.device) if stage else out
+
+
+def _all_reduce_plain(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group, in place on x, with no autograd."""
+    if group is not None:
+        _issued("all_reduce", x)
+        dist.all_reduce(x, group=group)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceTP:
+    """Megatron over one LLM layer at inference: the group (None: no
+    collective) of n processes, this rank's query and KV heads, the
+    column-parallel leaves' whole output widths (B4's rule reads the whole
+    leaf, as JAX's does), and `leave`, the in-place all-reduce of the o and
+    down products' partial sums: fp32 where n > 1, rounded once after the
+    sum as JAX rounds the whole product; at n = 1 the whole product,
+    rounded as unsharded."""
+
+    group: object
+    n: int
+    heads: int
+    kv_heads: int
+    widths: Dict[str, int]
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        return _all_reduce_plain(x, self.group)
+
+
+class InferenceLayout:
+    """The engine's weights and KV cache on a (dp, fsdp, tp) mesh (module
+    docstring): `place` takes a whole leaf to this process's shard,
+    `gather` a shard to the leaf the forward reads (no gather over tp for
+    the Megatron leaves and the vocab-parallel embedding and head), `tp`
+    the layers' Megatron pair, `vocab_ids` / `vocab_sum` / `vocab_gather`
+    the vocab-parallel embedding and logits, `kv_heads` and `slot_rows`
+    the slot cache's local part.
+
+    The collectives of tp and dp run on every process group they have:
+    at world 1 under an initialized process group that is the world
+    group of one process (the all-reduces, the logits' and the tokens'
+    gathers launch as at tp = 2, the smoke's check of them inside CUDA
+    graphs on one card); a weight's gather over an axis of one process
+    is the weight itself. Every process of a tp and fsdp group runs the
+    same calls in the same order (the collectives' lockstep); dp
+    coordinates differ only in the serving runtime's slot rows."""
+
+    def __init__(self, mesh: Mesh, cfg):
+        if tuple(mesh.axes) != AXES:
+            raise ValueError(f"sharded inference takes a {AXES} mesh, got {mesh.axes}")
+        self.mesh, self.cfg = mesh, cfg
+        llm = cfg.llm
+        self.tp_n = tp = mesh.shape["tp"]
+        h, kh, f = llm.num_attention_heads, llm.num_key_value_heads, llm.intermediate_size
+        for what, n in (("query heads", h), ("FFN columns", f)):
+            if n % tp:
+                raise ValueError(f"axis tp = {tp} does not divide the LLM's {n} {what}")
+        if kh % tp and tp % kh:
+            raise ValueError(f"axis tp = {tp} neither divides the LLM's {kh} KV heads nor is a "
+                             f"multiple of them")
+        self.heads = h // tp
+        self.kv_heads = max(kh // tp, 1)  # tp > KV heads: the one its query heads read
+        hd = llm.head_dim
+        self.tp = InferenceTP(self.group("tp"), tp, self.heads, self.kv_heads, dict(
+            qkv=(h + 2 * kh) * hd, q=h * hd, k=kh * hd, v=kh * hd, gate_up=2 * f, gate=f, up=f))
+
+    def group(self, *axes: str):
+        """The mesh's group of `axes`, or at world 1 under a process group
+        the world group (class docstring); None: no collective."""
+        g = self.mesh.group(*axes)
+        if g is None and self.mesh.world == 1 and dist.is_available() and dist.is_initialized():
+            return dist.group.WORLD
+        return g
+
+    def _sections(self, s: str, ndim: int, dim: int):
+        """The tp split of a fused or per-head LLM leaf's output dim: (size,
+        units) sections, each split by its units (heads, FFN columns)."""
+        if dim != ndim - 1 or not s.startswith("llm/layers/"):
+            return None
+        llm, t = self.cfg.llm, s + "/"
+        hd, h, kh = llm.head_dim, llm.num_attention_heads, llm.num_key_value_heads
+        if "/qkv/" in t:
+            return (h * hd, h), (kh * hd, kh), (kh * hd, kh)
+        if re.search(r"/attn(_gen)?/[kv]/", t):
+            return ((kh * hd, kh),)
+        if re.search(r"/attn(_gen)?/q/", t):
+            return ((h * hd, h),)
+        if "/gate_up" in t:
+            f = llm.intermediate_size
+            return (f, f), (f, f)
+        return None
+
+    def place(self, s: str, full: torch.Tensor) -> torch.Tensor:
+        """This process's shard of the whole leaf at path `s`: a copy that
+        keeps none of `full`'s memory, or `full` itself where nothing
+        splits."""
+        x = full
+        for dim, axis in enumerate(inference_pspec(s, full.ndim)):
+            if axis is None or self.mesh.shape[axis] == 1:
+                continue
+            sections = self._sections(s, full.ndim, dim) if axis == "tp" else None
+            x = _split(x, dim, self.mesh.shape[axis], self.mesh.coord[axis], sections,
+                       f"{s} over axis {axis}")
+        if x is full:
+            return full
+        same = x.untyped_storage().data_ptr() == full.untyped_storage().data_ptr()
+        return x.clone() if same else x
+
+    def place_tree(self, tree, prefix: str = ""):
+        """`place` over every leaf of a dict/list tree (paths from `prefix`)."""
+        if isinstance(tree, dict):
+            return {k: self.place_tree(v, f"{prefix}/{k}" if prefix else str(k))
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.place_tree(v, f"{prefix}/{i}") for i, v in enumerate(tree))
+        return self.place(prefix, tree)
+
+    def gather(self, s: str, local: torch.Tensor, layer: bool = False) -> torch.Tensor:
+        """The leaf as the forward reads it: each shard gathered but tp's of
+        the Megatron and vocab-parallel leaves. layer=True: `local` is one
+        layer's slice of a stacked leaf."""
+        local_tp = re.search(_MEGATRON, s + "/") or re.search(_VOCAB, s)
+        x = local
+        spec = inference_pspec(s, local.ndim + layer)
+        for dim in reversed(range(len(spec))):
+            axis = spec[dim]
+            if axis is None or (layer and dim == 0) or (axis == "tp" and local_tp) \
+                    or self.mesh.shape[axis] == 1:
+                continue
+            x = gather_plain(x, dim - layer, self.mesh.group(axis))
+        return x
+
+    def gather_tree(self, tree, prefix: str, layer: bool = False, skip=()):
+        """`gather` over a dict/list tree; the top-level keys in `skip` stay
+        as they are."""
+        if isinstance(tree, dict):
+            return {k: v if k in skip else self.gather_tree(v, f"{prefix}/{k}", layer)
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.gather_tree(v, f"{prefix}/{i}", layer)
+                              for i, v in enumerate(tree))
+        return self.gather(prefix, tree, layer)
+
+    # -- the vocab-parallel embedding and head --------------------------------
+
+    def vocab_ids(self, ids: torch.Tensor, rows: int):
+        """(local ids, hit): ids in this rank's `rows` of the vocabulary,
+        others at 0, and where they were."""
+        local = ids - self.mesh.coord["tp"] * rows
+        hit = (local >= 0) & (local < rows)
+        return torch.where(hit, local, torch.zeros_like(local)), hit
+
+    def vocab_sum(self, rows: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+        """Embedding rows looked up on each rank's part of the vocabulary:
+        the misses zeroed, each row's fsdp shards gathered, the sum over tp
+        (one rank's row and zeros: exact)."""
+        rows = torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                             device=rows.device))
+        if self.mesh.shape["fsdp"] > 1:
+            rows = gather_plain(rows, -1, self.mesh.group("fsdp"))
+        return _all_reduce_plain(rows.contiguous(), self.tp.group)
+
+    def vocab_gather(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's logits over its part of the vocabulary [..., V / tp]
+        -> every rank's [..., V] (the rows all-gathered, not the head)."""
+        return gather_plain(logits, -1, self.tp.group)
+
+    # -- the slot cache -----------------------------------------------------------
+
+    def slot_rows(self, slots: int) -> Tuple[int, int]:
+        """(first, count) of the slot rows this dp coordinate holds: its
+        share where dp divides the slots, else all of them."""
+        n = self.mesh.shape["dp"]
+        if slots % n:
+            return 0, slots
+        return self.mesh.coord["dp"] * (slots // n), slots // n
+
+    def dp_group(self, slots: int):
+        """The group that all-gathers the slot rows' tokens and lengths
+        (None where every dp coordinate holds every row)."""
+        return self.group("dp") if slots % self.mesh.shape["dp"] == 0 else None
+
+
+def shard_cache(layout: InferenceLayout, cache, slots: int):
+    """This process's part of a whole slot cache ([L, slots, S, KH, D] and
+    its scales) by JAX's `_shard_cache` rule (bagel_tpu/serving/runtime.py:
+    207-223): the slots over dp where dp divides them, the KV heads over tp
+    (each rank the KV heads its query heads read)."""
+    first, rows = layout.slot_rows(slots)
+    tp, kh = layout.mesh.shape["tp"], cache.k.shape[3]
+
+    def take(t):
+        if t is None:
+            return None
+        return _split(t[:, first:first + rows], 3, tp, layout.mesh.coord["tp"], ((kh, kh),),
+                      "the cache's KV heads over axis tp").contiguous()
+
+    return dataclasses.replace(cache, k=take(cache.k), v=take(cache.v),
+                               k_scale=take(cache.k_scale), v_scale=take(cache.v_scale),
+                               length=cache.length[first:first + rows].clone())

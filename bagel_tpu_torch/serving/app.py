@@ -9,9 +9,18 @@ serves the same engine over HTTP.
   python -m bagel_tpu_torch.serving.app [--checkpoint /path/to/BAGEL-7B-MoT] \
       [--mode t2i] [--prompt "..."] [--output out.png] [--device cpu]
 
-The engine runs on CUDA unless `--device` names another device. A mesh
-(`--mesh`) waits for sharded inference, the next slice of the port, and
-raises.
+The engine runs on CUDA unless `--device` names another device.
+
+`--mesh dp,fsdp,tp` shards the weights over that mesh of processes (JAX's
+GSPMD-sharded serving, app.py:123-141; here `parallel.mesh.
+InferenceLayout`), one process a mesh entry under torchrun:
+
+  torchrun --nproc_per_node 2 -m bagel_tpu_torch.serving.server --mesh 1,1,2
+
+The shape's product must equal the processes' number. Each leaf is cut
+to this process's shard as it is placed (quantized on the whole leaf
+first with `--quant`); `engine.mesh` is the mesh, over which the serving
+runtime shards its slot cache.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", type=str, default=None,
                    help="released checkpoint dir; omit for a random micro demo")
     p.add_argument("--mesh", type=str, default=None,
-                   help="dp,fsdp,tp: not ported yet (raises)")
+                   help="dp,fsdp,tp: shard the weights over this mesh of processes "
+                        "(torchrun; the product equals WORLD_SIZE)")
     p.add_argument("--device", type=str, default=None,
                    help="the engine's device (default: CUDA)")
     p.add_argument("--max_kv", type=int, default=8192)
@@ -86,6 +96,20 @@ def demo_config(device: torch.device):
     return cfg, torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
+def inference_layout(mesh_arg: str, cfg, device):
+    """The layout of `--mesh dp,fsdp,tp` over this process group (started
+    from torchrun's environment if it is not yet: nccl on CUDA, gloo on the
+    CPU); the shape's product must be its size."""
+    from bagel_tpu_torch.parallel.mesh import InferenceLayout, make_mesh
+    from bagel_tpu_torch.utils.device import process_rank_world
+
+    shape = tuple(int(x) for x in mesh_arg.split(","))
+    if len(shape) != 3:
+        raise ValueError(f"--mesh takes dp,fsdp,tp, got {mesh_arg!r}")
+    process_rank_world(device)
+    return InferenceLayout(make_mesh(shape), cfg)
+
+
 def build_engine(args):
     """(engine, vae_transform, vit_transform) from parsed arguments."""
     from bagel_tpu_torch.data.transforms import ImageTransform
@@ -93,31 +117,33 @@ def build_engine(args):
     from bagel_tpu_torch.models.qwen2 import fuse_llm_params
     from bagel_tpu_torch.utils.device import resolve_device
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: weight sharding over a mesh waits for sharded inference, the next slice "
-            "of the port (ROADMAP A4, parallelism)"
-        )
     device = resolve_device(args.device)
     if args.checkpoint:
         from bagel_tpu_torch.configs import BagelConfig, Qwen2Config, SiglipConfig, VAEConfig
+
+        cfg = BagelConfig(llm=Qwen2Config(), vit=SiglipConfig(), vae=VAEConfig(),
+                          max_latent_size=args.max_latent_size, timestep_shift=3.0)
+    else:
+        cfg, dtype = demo_config(device)
+    layout = inference_layout(args.mesh, cfg, device) if args.mesh else None
+    # each leaf cut to this process's shard as it is placed; with --quant
+    # each whole leaf is quantized first, then cut (below)
+    cut = None if args.quant else layout
+    if args.checkpoint:
         from bagel_tpu_torch.data.tokenizer import load_tokenizer
         from bagel_tpu_torch.utils.bridge import params_to
         from bagel_tpu_torch.utils.convert import load_checkpoint_dir
 
-        cfg = BagelConfig(llm=Qwen2Config(), vit=SiglipConfig(), vae=VAEConfig(),
-                          max_latent_size=args.max_latent_size, timestep_shift=3.0)
         # f32 leaves to bf16, as the JAX app does
         params = params_to(load_checkpoint_dir(args.checkpoint, cfg), device,
-                           dtype=torch.bfloat16)
+                           dtype=torch.bfloat16, layout=cut)
         tokenizer, new_token_ids, _ = load_tokenizer(args.checkpoint)
     else:
         from bagel_tpu_torch.data.tokenizer import MockTokenizer
         from bagel_tpu_torch.models.bagel import init_bagel_params
 
-        cfg, dtype = demo_config(device)
         params = init_bagel_params(torch.Generator(device=device).manual_seed(0), cfg,
-                                   dtype, device=device)
+                                   dtype, device=device, place=cut and cut.place)
         tokenizer = MockTokenizer(cfg.llm.vocab_size)
         new_token_ids = tokenizer.new_token_ids
 
@@ -125,9 +151,12 @@ def build_engine(args):
         from bagel_tpu_torch.utils.quant import quantize_bagel_params
 
         params = quantize_bagel_params(params, args.quant)
+        if layout is not None:
+            params = layout.place_tree(params)
     if not args.no_fuse:
         # after quantization, so that the leaves concatenate with their
-        # per-output-channel scales
+        # per-output-channel scales; a shard's q, k, v (gate, up) fuse into
+        # its shard of the fused leaf
         params["llm"] = fuse_llm_params(params["llm"], inplace=True)
 
     stride = cfg.latent_downsample
@@ -139,7 +168,8 @@ def build_engine(args):
         vit_tf = ImageTransform(56, 28, cfg.vit.patch_size, max_pixels=56 * 56)
     engine = BagelEngine(params, cfg, tokenizer, new_token_ids, max_kv=args.max_kv,
                          vae_transform=vae_tf, vit_transform=vit_tf,
-                         kv_quant=getattr(args, "kv_quant", False), device=device)
+                         kv_quant=getattr(args, "kv_quant", False), device=device,
+                         layout=layout)
     return engine, vae_tf, vit_tf
 
 

@@ -3,17 +3,20 @@ bagel_tpu/serving/multihost.py).
 
 A tick of `ServingRuntime._tick` is deterministic given (a) the request
 queues at its entry and (b) the device's outputs. Processes that hold the
-same engine (replicated weights from one seed or one checkpoint) compute
-the same outputs, so serving from several processes reduces to replicating
-(a): the leader (rank 0) stages client requests, broadcasts the staged
-ingress batch before every tick, and every process, the leader too, then
-runs the same tick. The followers stay in lockstep with no RPC layer and
-no routing table.
+same engine (replicated weights from one seed or one checkpoint, or each
+its shards of one sharded engine: `BagelEngine(layout=)`, whose
+collectives leave the same bits on every rank, with `mesh=engine.mesh`
+for the runtime) compute the same outputs, so serving from several
+processes reduces to replicating (a): the leader (rank 0) stages client
+requests, broadcasts the staged ingress batch before every tick, and
+every process, the leader too, then runs the same tick. The followers
+stay in lockstep with no RPC layer and no routing table.
 
 The bus is `TorchDistBus`: a pickled batch through
 `torch.distributed.broadcast_object_list` on a gloo group, also when the
 engines run on CUDA, so the control plane never waits on the card
-(`JaxHostBus` in JAX). `LocalBus` fans out in memory (one process, tests).
+(`JaxHostBus` in JAX); a sharded engine's compute collectives take the
+mesh's groups. `LocalBus` fans out in memory (one process, tests).
 
 Lockstep holds when every process draws the same numbers: the port samples
 from `torch.Generator`s (ROADMAP C), so every process seeds its own
@@ -203,6 +206,7 @@ class MultiHostFrontend:
     def _drive(self):
         rt = self.runtime
         try:
+            rt.enter_device()
             while True:
                 if self.leader:
                     with self._lock:
@@ -235,8 +239,9 @@ class MultiHostFrontend:
 
 def serve_multihost(engine, bus=None, **runtime_kwargs) -> MultiHostFrontend:
     """The lockstep frontend of this process. Under a torch.distributed
-    group of several processes (each with the same engine) rank 0 leads over
-    a `TorchDistBus`; one process falls back to a plain leader with no bus
+    group of several processes (each with the same engine, or its shards of
+    a sharded one: pass `mesh=engine.mesh`) rank 0 leads over a
+    `TorchDistBus`; one process falls back to a plain leader with no bus
     (no cost over a ServingRuntime)."""
     import torch.distributed as dist
 

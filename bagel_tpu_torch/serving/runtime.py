@@ -21,6 +21,13 @@ runs on the scheduler thread; client threads only enqueue and wait on a
 `Future`. A failed decode chunk fails every live session and rebuilds the
 cache, so the thread keeps serving (`_recover_cache`).
 
+Over a mesh (`mesh=`, the engine's: `BagelEngine(layout=)`) the slot cache
+is sharded by JAX's rule (bagel_tpu/serving/runtime.py:150-223): each
+process holds its KV heads, and where dp divides the slots each dp
+coordinate holds its share of the rows, prefills and decodes only those,
+and all-gathers the chunk's tokens and the rows' lengths over dp, so that
+every process's scheduler sees the same tick.
+
 Usage:
     rt = ServingRuntime(engine, slots=4, decode_chunk=16)
     rt.start()
@@ -46,6 +53,7 @@ from bagel_tpu_torch.inference.engine import _bucket, gen_batch_key
 from bagel_tpu_torch.inference.speculative import decode_text_spec
 from bagel_tpu_torch.models import qwen2
 from bagel_tpu_torch.models.qwen2 import KVCache, kv_cache_init
+from bagel_tpu_torch.parallel.mesh import gather_plain
 
 
 class Future:
@@ -134,13 +142,14 @@ class ServingRuntime:
         Each decode chunk runs through the runtime's own `DecodeProgram`
         (`self.decode`: one CUDA-graph replay over the slot cache, captured
         again when `_recover_cache` replaces the cache); graph=False runs
-        the same steps eagerly (to compare against)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded slot cache waits for sharded inference, the next slice of "
-                "the port (ROADMAP A4, parallelism); replicated engines serve across "
-                "processes through serving.multihost"
-            )
+        the same steps eagerly (to compare against).
+
+        `mesh`: the engine's mesh (`engine.mesh`), over which the slot
+        cache is sharded (module docstring); every process of the mesh
+        runs the same ticks (`serving.multihost`)."""
+        if mesh is not None and mesh is not engine.mesh:
+            raise ValueError("the slot cache shards over the engine's own mesh: pass "
+                             "engine.mesh, from BagelEngine(layout=)")
         self.engine = engine
         self.slots = slots
         self.decode_chunk = decode_chunk
@@ -150,6 +159,11 @@ class ServingRuntime:
         self.gen_batch = gen_batch
         self.graph = graph
         self.decode = DecodeProgram(chunk=decode_chunk)
+        layout = engine.layout
+        # this process's slot rows [first, first + count) and the group that
+        # gathers every row's tokens and lengths (None: every row is here)
+        self.first, self.count = (0, slots) if layout is None else layout.slot_rows(slots)
+        self._dp = None if layout is None else layout.dp_group(slots)
         self.hist = np.zeros((slots, engine.max_kv), np.int64)
         self.hist_len = np.zeros(slots, np.int64)
         self.cache: KVCache = self._new_cache()
@@ -165,10 +179,23 @@ class ServingRuntime:
                       "vit_passes": 0, "prefill_blocks": 0, "decode_forwards": 0}
 
     def _new_cache(self) -> KVCache:
-        """The one slot-cache constructor (at start and after a failure)."""
+        """The one slot-cache constructor (at start and after a failure):
+        this process's rows and KV heads."""
         eng = self.engine
-        return kv_cache_init(eng.cfg.llm, self.slots, eng.max_kv, eng.kv_dtype,
-                             device=eng.device)
+        return kv_cache_init(eng.cfg.llm, self.count, eng.max_kv, eng.kv_dtype,
+                             device=eng.device, layout=eng.layout)
+
+    def _here(self, rows: List[int]) -> dict:
+        """{cache row: slot} of the slots `rows` that this process holds."""
+        return {r - self.first: r for r in rows if self.first <= r < self.first + self.count}
+
+    def _every_row(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-row tensor of this process's rows -> every slot's (dp's
+        all-gather)."""
+        return gather_plain(x, 0, self._dp)
+
+    def _lengths(self) -> List[int]:
+        return self._every_row(self.cache.length).tolist()
 
     # -- client API ----------------------------------------------------------
 
@@ -217,7 +244,7 @@ class ServingRuntime:
 
     def _reset_length(self, rows: List[int]):
         length = self.cache.length.clone()
-        length[rows] = 0
+        length[list(self._here(rows))] = 0
         self.cache = dataclasses.replace(self.cache, length=length)
 
     def _recover_cache(self, err: BaseException):
@@ -331,23 +358,30 @@ class ServingRuntime:
         if widths is None:
             widths = [self._request_widths(r) for r in reqs]
         max_tb = self._plan_blocks(widths)[3]
-        lengths = self.cache.length.tolist()
+        lengths = self._lengths()
         live_max = max((lengths[i] for i, s in enumerate(self.slot_state)
                         if s is not None and i not in rows), default=0)
         if live_max + max_tb > eng.max_kv:
             raise _Defer()
 
         self._reset_length(rows)  # the admitted rows' old KV is dead
-        rope = {i: 0 for i in rows}
         row_images = {i: self._images(req) for i, req in zip(rows, reqs)}
-        vit_emb, per_img = eng._pack_images(row_images)
-        if vit_emb is not None:
-            self.cache = eng._image_rounds(self.cache, rows, row_images, vit_emb, per_img, rope)
+        ids_rows = {i: eng._prompt_ids(req.prompt) for i, req in zip(rows, reqs)}
+        here = self._here(rows)  # the stats count the whole admission, on every process
+        if here:
+            images = {j: row_images[i] for j, i in here.items()}
+            rope_here = {j: 0 for j in here}
+            vit_emb, per_img = eng._pack_images(images)
+            if vit_emb is not None:
+                self.cache = eng._image_rounds(self.cache, list(here), images, vit_emb, per_img,
+                                               rope_here)
+            self.cache = eng._text_rows(self.cache, {j: ids_rows[i] for j, i in here.items()},
+                                        rope_here)
+        if any(row_images.values()):
             self.stats["vit_passes"] += 1
             self.stats["prefill_blocks"] += max(len(v) for v in row_images.values())
-        ids_rows = {i: eng._prompt_ids(req.prompt) for i, req in zip(rows, reqs)}
-        self.cache = eng._text_rows(self.cache, ids_rows, rope)
         self.stats["prefill_blocks"] += 1
+        rope = {i: len(row_images[i]) for i in rows}  # each image advances a row's rope by one
         for i, req in zip(rows, reqs):
             self.slot_state[i] = _Slot(req=req, next_token=eng.new_token_ids["bos_token_id"],
                                        next_pos=rope[i] + len(ids_rows[i]))
@@ -366,7 +400,7 @@ class ServingRuntime:
         # a session whose next chunk could overflow its KV rows ends now
         # with what it has; a speculative chunk writes draft_len + 1 entries
         # past the consumed length before rolling back
-        lengths = self.cache.length.tolist()
+        lengths = self._lengths()
         margin = self.decode_chunk + (self.speculative + 1 if self.speculative > 0 else 0)
         for i, s in enumerate(self.slot_state):
             if s is not None and lengths[i] + margin > eng.max_kv:
@@ -384,21 +418,25 @@ class ServingRuntime:
             return
         dev = eng.device
         counted: dict = {}
+        here = slice(self.first, self.first + self.count)  # this process's rows
         common = dict(max_steps=self.decode_chunk, eos_id=eos,
-                      active=torch.as_tensor(active, device=dev), attn_impl=eng.attn_impl,
-                      in_place=True, stats=counted, program=self.decode, graph=self.graph)
-        start_t, pos_t = torch.as_tensor(start, device=dev), torch.as_tensor(pos, device=dev)
+                      active=torch.as_tensor(active[here], device=dev), attn_impl=eng.attn_impl,
+                      in_place=True, stats=counted, program=self.decode, graph=self.graph,
+                      layout=eng.layout)
+        start_t = torch.as_tensor(start[here], device=dev)
+        pos_t = torch.as_tensor(pos[here], device=dev)
         llm = eng.params["llm"]
         if self.speculative > 0:
             toks, self.cache = decode_text_spec(
                 llm, eng.cfg.llm, self.cache, start_t, pos_t,
-                torch.as_tensor(self.hist, device=dev), torch.as_tensor(self.hist_len, device=dev),
+                torch.as_tensor(self.hist[here], device=dev),
+                torch.as_tensor(self.hist_len[here], device=dev),
                 draft_len=self.speculative, ngram=self.ngram, **common,
             )
         else:
             toks, self.cache = qwen2.decode_text(llm, eng.cfg.llm, self.cache, start_t, pos_t,
                                                  **common)
-        toks = toks.tolist()
+        toks = self._every_row(toks).tolist()
         self.stats["chunks"] += 1
         self.stats["decode_forwards"] += counted.get("forwards", 0)
         for i, s in enumerate(self.slot_state):
@@ -505,7 +543,15 @@ class ServingRuntime:
                 except queue.Empty:
                     break
 
+    def enter_device(self):
+        """Make the engine's card the calling thread's current one (a new
+        thread starts on the first card): the scheduler's threads call it
+        before any device work."""
+        if self.engine.device.type == "cuda":
+            torch.cuda.set_device(self.engine.device)
+
     def _loop(self):
+        self.enter_device()
         while not self._stop.is_set():
             busy = self._tick()
             if not busy and self.chat_q.empty() and not self._gen_pending:

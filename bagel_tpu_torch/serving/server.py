@@ -23,6 +23,11 @@ different numbers from one seed).
 
   python -m bagel_tpu_torch.serving.server [--checkpoint DIR] [--kv_quant] \
       [--slots 8] [--port 8000] [--device cpu]
+
+Under torchrun (a torch.distributed group of several processes) every
+process runs `main`: each builds its engine (its shards with `--mesh`),
+and the frontend is `serving.multihost.serve_multihost`: rank 0 serves
+HTTP, the others tick in lockstep until it stops (JAX's server.py:320-345).
 """
 
 from __future__ import annotations
@@ -271,7 +276,9 @@ def serve_in_thread(server: BagelServer, host: str = "127.0.0.1", port: int = 0)
 
 def main(argv: Optional[list] = None):
     from bagel_tpu_torch.serving.app import build_engine, parse_args
+    from bagel_tpu_torch.serving.multihost import serve_multihost
     from bagel_tpu_torch.serving.runtime import ServingRuntime
+    from bagel_tpu_torch.utils.device import process_rank_world, resolve_device
 
     ap = argparse.ArgumentParser("bagel_tpu_torch http server", add_help=False)
     ap.add_argument("--host", type=str, default="127.0.0.1")
@@ -283,12 +290,28 @@ def main(argv: Optional[list] = None):
                          "parameters run as one batched denoise")
     own, rest = ap.parse_known_args(argv)
     args = parse_args(rest)
+    # the group first (under torchrun): it picks each process's card
+    rank, world, _ = process_rank_world(resolve_device(args.device))
     engine, vae_tf, vit_tf = build_engine(args)
-    rt = ServingRuntime(engine, slots=own.slots, decode_chunk=own.decode_chunk,
-                        speculative=args.speculative, ngram=own.ngram, gen_batch=own.gen_batch)
-    rt.start()
+    kw = dict(slots=own.slots, decode_chunk=own.decode_chunk, mesh=engine.mesh,
+              speculative=args.speculative, ngram=own.ngram, gen_batch=own.gen_batch)
+    if world > 1:
+        # every process runs this program; rank 0 also takes HTTP traffic and
+        # broadcasts it before each scheduler tick (serving/multihost.py)
+        rt = serve_multihost(engine, **kw)
+        rt.start()
+        if not rt.leader:
+            print(f"bagel_tpu_torch follower (process {rank}) ticking until the leader stops")
+            rt.join()
+            if rt.error is not None:
+                raise rt.error
+            return
+    else:
+        rt = ServingRuntime(engine, **kw)
+        rt.start()
     httpd = serve(BagelServer(rt, vae_tf, vit_tf), own.host, args.port)
-    print(f"bagel_tpu_torch serving on http://{own.host}:{args.port} (slots={own.slots})")
+    print(f"bagel_tpu_torch serving on http://{own.host}:{httpd.server_address[1]} "
+          f"(slots={own.slots})")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

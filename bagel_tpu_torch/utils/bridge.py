@@ -10,6 +10,12 @@ port's tree in the same layout: the LLM, the SigLIP tower (`vit`: stacked
 the adapters. The one layout change: VAE conv kernels go from HWIO to OIHW.
 This module imports no JAX; bf16 leaves arrive as ml_dtypes bfloat16 arrays
 and are reinterpreted bit for bit.
+
+Both take `layout=` (`parallel.mesh.InferenceLayout`): each leaf is then
+cut to this process's shard before it moves, so the device never holds
+more than one whole leaf's shard at a time (a quantized tree arrives
+quantized on the whole leaf, and its codes and scales are cut with their
+columns).
 """
 
 from __future__ import annotations
@@ -34,12 +40,12 @@ def _to_tensor(x) -> torch.Tensor:
 SCALE_KEYS = frozenset({"scale", "scale4", "absmax", "row_scale"})
 
 
-def _walk(tree, leaf, key=None):
+def _walk(tree, leaf, key=None, path=""):
     if isinstance(tree, dict):
-        return {k: _walk(v, leaf, k) for k, v in tree.items()}
+        return {k: _walk(v, leaf, k, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_walk(v, leaf) for v in tree)
-    return leaf(tree, key)
+        return type(tree)(_walk(v, leaf, None, f"{path}/{i}") for i, v in enumerate(tree))
+    return leaf(tree, key, path)
 
 
 def _cast(t: torch.Tensor, key, dtype) -> torch.Tensor:
@@ -48,27 +54,33 @@ def _cast(t: torch.Tensor, key, dtype) -> torch.Tensor:
     return t
 
 
-def params_to(tree, device, dtype: Optional[torch.dtype] = None):
+def _placed(t: torch.Tensor, path: str, layout) -> torch.Tensor:
+    return t if layout is None else layout.place(path, t)
+
+
+def params_to(tree, device, dtype: Optional[torch.dtype] = None, layout=None):
     """A tree of tensors (dicts and lists walked) on `device`; `dtype`, if
     given, casts every floating-point leaf but the scales of quantized
-    leaves (SCALE_KEYS)."""
+    leaves (SCALE_KEYS); `layout`: this process's shards (module
+    docstring)."""
     device = resolve_device(device)
-    return _walk(tree, lambda t, key: _cast(t, key, dtype).to(device))
+    return _walk(tree, lambda t, key, path: _placed(_cast(t, key, dtype), path,
+                                                    layout).to(device))
 
 
-def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
+def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None, layout=None):
     """Dicts and lists are walked; every array leaf becomes a tensor on
     `device`. 4-D leaves, which in this tree are the VAE's conv kernels and
     nothing else (the SigLIP tower's leaves are at most 3-D), are
     transposed HWIO -> OIHW. `dtype`, if given, casts every floating-point
     leaf except the scales of quantized leaves (SCALE_KEYS), which stay
-    f32."""
+    f32. `layout`: this process's shards (module docstring)."""
     device = resolve_device(device)
 
-    def leaf(node, key):
+    def leaf(node, key, path):
         t = _to_tensor(node)
         if t.ndim == 4:
             t = t.permute(3, 2, 0, 1).contiguous()
-        return _cast(t, key, dtype).to(device)
+        return _placed(_cast(t, key, dtype), path, layout).to(device)
 
     return _walk(tree, leaf)

@@ -224,6 +224,27 @@ Phases (the first failure exits non-zero, and no result line is printed):
              are fewer): ep = 2 and fsdp over every card, each gated
              against one process's plain path on the whole tree, and fsdp
              at 28 layers with offload.
+ 12. sharded  sharded inference (`parallel.mesh.InferenceLayout`): (a) this
+             process alone in an nccl group, mesh 1,1,1 (nothing splits;
+             every tp and dp collective launches, in the decode programs'
+             graphs too), on phase 5's weights: phase 5's image and latent
+             and phase 6's VQA answer bit for bit through the sharded
+             engine, the 8-slot runtime over a bf16 and an int8 cache and
+             with speculative=4, each answer equal to the plain runtime's
+             on the same queue, launch counts and the collectives issued
+             (eager and captured) against their formulas, the 8-slot
+             chunk's time beside the plain engine's; (b) tp = 2 in two
+             processes on the one card over gloo (`--child`; NCCL takes
+             one rank a device), each building its half of live_place
+             weights in turns, eager: a full-depth gen block's velocity,
+             the first decode step's logits and a greedy VQA answer
+             against one process's engine on the same weights, a control
+             (one rank's o partial sums dropped) that must fail the gate;
+             B4 launched at the local shard shapes in int4 decode steps
+             (eligible on the whole leaf's width) and against its plain
+             version there, B5 in a w8a8 gen block and bit for bit at the
+             local shapes; (c) tp over two cards or more through nccl (a
+             line says when the machine has fewer).
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 int4_split_sweep() times B4 at every split of K it takes,
@@ -1806,10 +1827,12 @@ def n_latents(cfg, px):
 def gen_block_velocity(engine, ctxs, x1, depth, impl):
     """The velocity of one gen block [start, end, latents x1 at t=0.8] over
     the contexts' caches (batch = len(ctxs)), through `depth` layers."""
+    from bagel_tpu_torch.inference.engine import _whole
     from bagel_tpu_torch.models import qwen2
     from bagel_tpu_torch.models.bagel import latent_to_llm
 
-    cfg, params = engine.cfg, engine.params
+    cfg, layout = engine.cfg, engine.layout
+    params = _whole(engine.params, layout, "vae2llm", "time_embed", "llm2vae")
     n = x1.shape[0]
     px = int(round(n ** 0.5)) * cfg.latent_downsample
     cache = stacked_cache(ctxs)
@@ -1817,13 +1840,13 @@ def gen_block_velocity(engine, ctxs, x1, depth, impl):
     lat_pos = torch.as_tensor(engine._pos_ids(px, px, cfg.latent_downsample,
                                               cfg.max_latent_size), device=DEVICE)
     lat = latent_to_llm(params, cfg, x1, torch.full((n,), 0.8, device=DEVICE), lat_pos)
-    tok = qwen2.embed_tokens(params["llm"], engine._boundary_ids())
+    tok = qwen2.embed_tokens(params["llm"], engine._boundary_ids(), layout)
     block = torch.cat([tok, lat.to(tok.dtype)])[None].expand(b, n + 2, -1).contiguous()
     pos = torch.tensor([c.rope for c in ctxs], device=DEVICE)[:, None].expand(b, n + 2)
     valid = torch.full((b,), n + 2, dtype=torch.int32, device=DEVICE)
     llm_cfg = dataclasses.replace(cfg.llm, num_hidden_layers=depth)
     hidden, _ = qwen2.llm_extend(params["llm"], llm_cfg, block, pos, cache, valid, und_len=2,
-                                 causal=False, update_cache=False, attn_impl=impl)
+                                 causal=False, update_cache=False, attn_impl=impl, layout=layout)
     head = params["llm2vae"]
     vel = hidden[:, 2:].float() @ head["w"].float() + head["b"].float()
     del hidden
@@ -1972,7 +1995,7 @@ def phase_t2i(engine, gen):
         f"forward {forward_ms['B=3']:.1f} ms at B=3, {forward_ms['B=1']:.1f} ms at B=1; "
         f"VAE decode {vae_ms:.1f} ms; total __call__ {total_s:.2f} s")
     return dict(launches=launches, total_s=total_s, latent=latent, noise=noise.cpu().numpy(),
-                forward_ms=forward_ms)
+                image=img, forward_ms=forward_ms)
 
 
 def vqa_context(engine, image):
@@ -1986,13 +2009,13 @@ def first_logits(engine, ctx, impl):
     """The first decode step's logits (bos at the context's rope position)."""
     from bagel_tpu_torch.models import qwen2
 
-    llm = engine.params["llm"]
+    llm, layout = engine.params["llm"], engine.layout
     bos = engine._tensor([engine.new_token_ids["bos_token_id"]], torch.long)
     hidden, _ = qwen2.llm_extend(
-        llm, engine.cfg.llm, qwen2.embed_tokens(llm, bos)[None], engine._tensor([[ctx.rope]]),
-        ctx.cache, engine._tensor([1]), und_len=1, causal=True, update_cache=False,
-        attn_impl=impl)
-    return qwen2.lm_logits(llm, hidden[:, 0])
+        llm, engine.cfg.llm, qwen2.embed_tokens(llm, bos, layout)[None],
+        engine._tensor([[ctx.rope]]), ctx.cache, engine._tensor([1]), und_len=1, causal=True,
+        update_cache=False, attn_impl=impl, layout=layout)
+    return qwen2.lm_logits(llm, hidden[:, 0], layout)
 
 
 def program_steps(steps: int, chunk: int, max_steps: int = MAX_THINK) -> int:
@@ -2102,8 +2125,8 @@ def phase_vqa(engine, card):
         f"{img_ctx.kv_len}); decode through the decode program "
         f"{decode_ms:.2f} ms per token (host clock, {steps} steps); total __call__ "
         f"{total_s:.2f} s; peak {peak / 2**30:.2f} GiB")
-    return dict(b1=b1, b3=b3, total_s=total_s, warm_s=warm_s, peak_gib=peak / 2**30,
-                vit_ms=vit_ms,
+    return dict(b1=b1, b3=b3, answer=answer, total_s=total_s, warm_s=warm_s,
+                peak_gib=peak / 2**30, vit_ms=vit_ms,
                 prefill_ms=prefill_ms, question_ms=question_ms, decode_ms=decode_ms,
                 steps=steps, logits_rel=rel, tokens_agree=agree)
 
@@ -4332,7 +4355,9 @@ SERVE11_PROMPTS = serve_prompts() + [QUESTION, "Name three things that are often
 PAR_SERVE_CFG = "BagelConfig"  # the serving children's config (configs.<name>())
 # the module constants a child process takes from its parent
 CHILD_CONSTS = ("DEVICE", "SEED", "MAX_KV", "SERVE_SLOTS", "SERVE_CHUNK", "SERVE_TOKENS",
-                "PAR_SERVE_CFG", "CHILD_TIMEOUT")
+                "PAR_SERVE_CFG", "CHILD_TIMEOUT", "SHARD_TP", "SHARD_CFG", "SHARD_VQA_PX",
+                "SHARD_DECODE", "FORWARD_PX", "VQA_PX", "MAX_THINK", "SERVE_VIT_TF",
+                "SERVE_VAE_TF")
 
 
 def free_port() -> int:
@@ -4379,7 +4404,7 @@ def run_children(label, specs, timeout=CHILD_TIMEOUT):
     tails = []
     for r, f in enumerate(logs):
         f.seek(0)
-        tails.append(f"--- {label} process {r} ---\n" + f.read()[-2500:])
+        tails.append(f"--- {label} process {r} ---\n" + f.read()[-6000:])
         f.close()
     codes = [p.returncode for p in procs]
     if any(codes):
@@ -4394,13 +4419,19 @@ def run_children(label, specs, timeout=CHILD_TIMEOUT):
 
 
 def child_main(spec_path) -> int:
-    """A child process of phase 11: one trainer run or one serving process."""
+    """A child process of phases 11 and 12: one trainer run, one serving
+    process or one sharded engine. A child still running a little before
+    its timeout prints every thread's stack into its log and exits."""
+    import faulthandler
+
     with open(spec_path) as f:
         spec = json.load(f)
     globals().update(spec["consts"])
+    faulthandler.dump_traceback_later(max(CHILD_TIMEOUT - 20, 10), exit=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = child_train(spec) if spec["kind"] == "train" else child_serve(spec)
+    out = dict(train=child_train, serve=child_serve, sharded=child_sharded,
+               sharded_cards=child_sharded_cards)[spec["kind"]](spec)
     with open(spec["out"], "w") as f:
         json.dump(out, f)
     return 0
@@ -4866,6 +4897,714 @@ def par_multicard(cfg, out):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: sharded inference
+# ---------------------------------------------------------------------------
+
+
+SHARD_TP = 2  # 12b: tensor parallelism over two processes on the one card
+SHARD_CFG = "BagelConfig"  # phase 12's config (configs.<name>())
+SHARD_VQA_PX = SERVE_GATE_PX  # 12b's VQA image: its blocks' all-reduces go through host memory
+SHARD_DECODE = 4  # 12b's int4 decode steps (one whole chunk)
+# 12b's greedy answers may part only at a near tie of one process's logits:
+# its top two tokens within this fraction of the logits' standard deviation
+NEAR_TIE = 5e-2
+
+
+def collectives_reset():
+    """The inference layout's collective counts set to 0. Returns read():
+    {"all_reduce": {"eager": n, "captured": n}, "all_gather": {...}}, the
+    calls issued since, those under CUDA-graph capture apart (each replay
+    of their graph runs them again)."""
+    from bagel_tpu_torch.parallel import mesh
+
+    mesh.collectives.clear()
+
+    def read():
+        return {kind: {how: mesh.collectives[(kind, how)] for how in ("eager", "captured")}
+                for kind in ("all_reduce", "all_gather")}
+
+    return read
+
+
+def nccl_replayed() -> int:
+    """The kernel launches of the decode programs' replays whose names are
+    NCCL's (none where NCCL copies a one-rank collective without a kernel)."""
+    from bagel_tpu_torch.inference import decode_program
+
+    return sum(n for name, n in decode_program.replayed_kernels.items() if "nccl" in name.lower())
+
+
+def queued_answers(engine, chats, speculative):
+    """The chats through a ServingRuntime over the engine's mesh, all queued
+    before its first tick (one admission group, so two engines are held
+    against each other on the same schedule): the answers, the runtime's
+    stats, the launch and collective counts of the run, the decode chunks'
+    host ms and the decode program's captures and forwards a graph."""
+    from bagel_tpu_torch.serving.runtime import ServingRuntime
+    from bagel_tpu_torch.serving.server import decode_png
+
+    _, vit_tf = serve_transforms(engine.cfg)
+    rt = ServingRuntime(engine, slots=SERVE_SLOTS, decode_chunk=SERVE_CHUNK,
+                        max_new_default=SERVE_TOKENS, speculative=speculative, mesh=engine.mesh)
+    chunk_s, step = [], rt._decode_step
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+
+    def timed_step():
+        sync()
+        t0 = time.perf_counter()
+        step()
+        sync()
+        chunk_s.append(time.perf_counter() - t0)
+
+    rt._decode_step = timed_step
+    futs = [rt.submit_chat(b["prompt"], image=decode_png(b["image"], vit_tf)
+                           if b.get("image") else None) for b in chats]
+    read, coll = counts_reset(), collectives_reset()
+    rt.start()
+    try:
+        answers = [f.result(timeout=900) for f in futs]
+    finally:
+        rt.stop()
+    counts, collectives = read(), coll()
+    per_graph = min(rt.decode.spec_chunk if speculative else rt.decode.chunk, SERVE_CHUNK)
+    return dict(answers=answers, stats=dict(rt.stats), counts=counts, collectives=collectives,
+                captures=rt.decode.captures, per_graph=per_graph, chunks=len(chunk_s),
+                chunk_ms_min=1e3 * min(chunk_s), chunk_ms_median=1e3 * float(np.median(chunk_s)))
+
+
+def sharded_world1(card, t2i=None, vqa=None):
+    """12a: the sharded code paths at world 1 through nccl (a mesh 1,1,1:
+    nothing splits, and every tp and dp collective launches on the world
+    group of this one process, in the decode programs' graphs too), on
+    phase 5's weights (the same seed): phase 5's 1024 px image and its
+    latent bit for bit (`t2i`, or the plain engine's when phase 12 runs
+    alone), phase 6's VQA answer (`vqa`), and the 8-slot runtime over a
+    bf16 and an int8 slot cache and with speculative=4, each answer equal
+    to the plain engine's runtime on the same queue; launch counts and the
+    collectives issued (eager and captured) against their formulas; the
+    8-slot chunk's time beside the plain engine's."""
+    import torch.distributed as dist
+
+    from bagel_tpu_torch import configs
+    from bagel_tpu_torch.data.tokenizer import MockTokenizer
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models.bagel import init_bagel_params
+    from bagel_tpu_torch.parallel.mesh import InferenceLayout, leaf_paths, make_mesh
+
+    group = dict(init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    if DEVICE == "cuda":
+        dist.init_process_group("nccl", device_id=torch.device(DEVICE, torch.cuda.current_device()),
+                                **group)
+    else:  # a rehearsal on the CPU
+        dist.init_process_group("gloo", **group)
+    try:
+        cfg = getattr(configs, SHARD_CFG)()
+        tok = MockTokenizer(cfg.llm.vocab_size)
+        L, LV = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
+        per_forward = 2 * L + 1  # o and down a layer, the embedding's sum
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        params = init_bagel_params(gen, cfg, torch.bfloat16 if DEVICE == "cuda" else torch.float32,
+                                   device=DEVICE)
+        live_weights(params, cfg, gen)
+        gc_cuda()
+        layout = InferenceLayout(make_mesh((1, 1, 1)), cfg)
+        sparams = layout.place_tree(params)
+        check(all(a is b for (_, a), (_, b) in zip(leaf_paths(params), leaf_paths(sparams))),
+              "12a: a mesh 1,1,1 placed a leaf elsewhere than the whole leaf")
+
+        def engines(**kw):
+            return (BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE,
+                                **kw),
+                    BagelEngine(sparams, cfg, tok, tok.new_token_ids, max_kv=MAX_KV,
+                                device=DEVICE, layout=layout, **kw))
+
+        plain, sharded = engines()
+        out = dict(launches={})
+        with flash_int8(False):
+            # phase 5: the image through __call__, then the latent
+            coll = collectives_reset()
+            img, secs, counts, peak = counted_call(lambda: sharded(
+                text=PROMPT, image_shapes=(PX, PX),
+                rng=torch.Generator(device=DEVICE).manual_seed(SEED), **CFG)["image"])
+            c = coll()
+            want = bf16_counts(b1=L * (2 + NUM_TIMESTEPS - 1))
+            # 2 prompt prefills and 7 denoise forwards; the embedding sums of
+            # the two prompts and of the boundary tokens of each CFG phase
+            want_c = dict(all_reduce=dict(eager=2 * L * (2 + NUM_TIMESTEPS - 1) + 4, captured=0),
+                          all_gather=dict(eager=0, captured=0))
+            check(counts == want, f"12a t2i: launches {counts} != {want}")
+            check(c == want_c, f"12a t2i: collectives {c} != {want_c}")
+            noise = t2i["noise"] if t2i else torch.randn(
+                (n_latents(cfg, PX), cfg.patch_latent_dim),
+                generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE
+            ).cpu().numpy()
+
+            def latent(eng):
+                ctx, cfg_text, cfg_img = prompt_contexts(eng)
+                return eng.gen_image((PX, PX), ctx, cfg_text_precontext=cfg_text,
+                                     cfg_img_precontext=cfg_img, init_noise=noise,
+                                     return_latent=True, **CFG)
+
+            ref = t2i["latent"] if t2i else latent(plain)
+            lat = latent(sharded)
+            check(np.array_equal(lat, ref), f"12a: the sharded latent differs from phase 5's "
+                  f"(max |diff| {float(np.abs(lat - ref).max()):.3e})")
+            ref_img = t2i["image"] if t2i else plain(
+                text=PROMPT, image_shapes=(PX, PX),
+                rng=torch.Generator(device=DEVICE).manual_seed(SEED), **CFG)["image"]
+            check(np.array_equal(img, ref_img), "12a: the sharded image differs from phase 5's")
+            out["t2i"] = dict(s=secs, peak_gib=peak, launches=counts, collectives=c)
+            out["launches"]["sharded_t2i"] = counts
+            log(f"[sharded] 12a mesh 1,1,1 through nccl ({card}): text-to-image {PX} px, "
+                f"{NUM_TIMESTEPS} timesteps, {secs:.2f} s: image and latent equal to phase 5's bit "
+                f"for bit; launches {counts}; collectives {c} (expected {want_c})")
+
+            # phase 6: the VQA, its decode through the program's graphs
+            coll = collectives_reset()
+            caps0 = sharded.decode.captures
+            res, secs, counts, peak = counted_call(lambda: sharded(
+                image=vqa_image(), text=QUESTION, understanding_output=True,
+                max_think_token_n=MAX_THINK))
+            c, nccl = coll(), nccl_replayed()
+            answer = res["text"]
+            ref = vqa["answer"] if vqa else plain(image=vqa_image(), text=QUESTION,
+                                                  understanding_output=True,
+                                                  max_think_token_n=MAX_THINK)["text"]
+            check(answer == ref, f"12a VQA: the sharded answer differs from phase 6's at token "
+                                 f"{first_difference(answer, ref)}")
+            caps = sharded.decode.captures - caps0
+            n_tok = len(answer.split())
+            steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK
+            run = program_steps(steps, sharded.decode.chunk)
+            graph_steps = min(sharded.decode.chunk, MAX_THINK)
+            want = bf16_counts(b1=L * (2 + caps + run), b3=LV)
+            # 2 prefills and the warm-up steps eager; each capture records a
+            # chunk of steps, each with its all-reduces and the logits' gather
+            want_c = dict(all_reduce=dict(eager=per_forward * (2 + caps),
+                                          captured=per_forward * caps * graph_steps),
+                          all_gather=dict(eager=caps, captured=caps * graph_steps))
+            check(counts == want, f"12a VQA: launches {counts} != {want}")
+            check(c == want_c, f"12a VQA: collectives {c} != {want_c}")
+            out["vqa"] = dict(s=secs, answer_tokens=n_tok, launches=counts, collectives=c,
+                              captures=caps, nccl_kernels_replayed=nccl)
+            out["launches"]["sharded_vqa"] = counts
+            log(f"[sharded] 12a VQA {VQA_PX} px, {MAX_THINK} tokens at most: {secs:.2f} s, the "
+                f"answer equal to phase 6's ({n_tok} tokens); launches {counts}; collectives {c} "
+                f"(expected {want_c}: {caps} capture(s) of {graph_steps} steps, {per_forward} "
+                f"all-reduces and one logits gather a step); NCCL kernels in the replays: {nccl}")
+
+            # phase 9: the 8-slot runtime over a bf16 cache, an int8 cache, speculative
+            chats = serve_chats()
+            out["serve"] = {}
+            for label, kw, spec in (("bf16", {}, 0), ("int8", dict(kv_quant=True), 0),
+                                    (f"speculative={SERVE_SPECULATIVE}", {}, SERVE_SPECULATIVE)):
+                p_eng, s_eng = (plain, sharded) if not kw else engines(**kw)
+                a = queued_answers(p_eng, chats, spec)
+                b = queued_answers(s_eng, chats, spec)
+                diffs = [first_difference(x, y) for x, y in zip(b["answers"], a["answers"])]
+                check(all(d is None for d in diffs), f"12a serve ({label}): the sharded runtime's "
+                      f"answers differ from the plain runtime's at tokens {diffs}")
+                st = b["stats"]
+                fwd = st["decode_forwards"] + b["captures"]
+                if kw:
+                    want = bf16_counts(b1=L * st["prefill_blocks"], b3=LV * st["vit_passes"],
+                                       kv8=L * fwd)
+                else:
+                    want = bf16_counts(b1=L * (st["prefill_blocks"] + fwd),
+                                       b3=LV * st["vit_passes"])
+                check(b["counts"] == want, f"12a serve ({label}): launches {b['counts']} != {want}")
+                captured = b["captures"] * b["per_graph"]
+                c = b["collectives"]
+                check(c["all_reduce"]["captured"] == per_forward * captured
+                      and c["all_gather"]["captured"] == captured,
+                      f"12a serve ({label}): captured collectives {c} != {per_forward} x "
+                      f"{captured} all-reduces and {captured} gathers")
+                out["serve"][label] = dict(
+                    plain_chunk_ms=a["chunk_ms_min"], sharded_chunk_ms=b["chunk_ms_min"],
+                    ratio=b["chunk_ms_min"] / a["chunk_ms_min"], stats=st, launches=b["counts"],
+                    collectives=c, captures=b["captures"])
+                out["launches"][f"sharded_serve_{label.split('=')[0]}"] = b["counts"]
+                log(f"[sharded] 12a serve ({label}), 8 slots: answers equal to the plain "
+                    f"runtime's on the same queue; a {SERVE_CHUNK}-step chunk {b['chunk_ms_min']:.1f}"
+                    f" ms sharded vs {a['chunk_ms_min']:.1f} ms plain at best "
+                    f"({b['chunk_ms_min'] / a['chunk_ms_min']:.3f}x); launches {b['counts']} "
+                    f"(expected {want}); collectives {c}")
+                del p_eng, s_eng
+                gc_cuda()
+        del plain, sharded, params, sparams
+        gc_cuda()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+class DropPartial:
+    """An InferenceTP whose rank `rank` zeroes its partial sum of every o
+    product before the all-reduce (12b's control)."""
+
+    def __init__(self, tp, rank):
+        self.tp, self.rank, self.calls = tp, rank, 0
+
+    def __getattr__(self, name):
+        return getattr(self.tp, name)
+
+    def leave(self, x):
+        import torch.distributed as dist
+
+        self.calls += 1  # a layer's o, then its down
+        if self.calls % 2 == 1 and dist.get_rank() == self.rank:
+            x.zero_()
+        return self.tp.leave(x)
+
+
+def shard_inputs(cfg):
+    """12b's inputs: the gen block's x1 at FORWARD_PX and the VQA image."""
+    x1 = torch.randn((n_latents(cfg, FORWARD_PX), cfg.patch_latent_dim),
+                     generator=torch.Generator(device=DEVICE).manual_seed(SEED + 21), device=DEVICE)
+    o = (VQA_PX - SHARD_VQA_PX) // 2
+    return x1, vqa_image()[o:o + SHARD_VQA_PX, o:o + SHARD_VQA_PX]
+
+
+def shard_paths(engine, x1, image):
+    """The velocity of a full-depth gen block over the prompt's contexts,
+    the first decode step's logits of the VQA context and its greedy
+    answer (eager: gloo runs no collective inside a CUDA graph), and the
+    VQA context."""
+    L = engine.cfg.llm.num_hidden_layers
+    vel = gen_block_velocity(engine, prompt_contexts(engine), x1, L, "auto")
+    ctx = vqa_context(engine, image)
+    logits = first_logits(engine, ctx, "auto")
+    return vel, logits, engine.gen_text(ctx, max_length=MAX_THINK, graph=False), ctx
+
+
+def answer_margins(engine, ctx, answer: str):
+    """The logits along a greedy answer, teacher-forced (one causal block of
+    bos and the answer's tokens over the context): at each step the top two
+    tokens and their gap in units of the logits' standard deviation."""
+    from bagel_tpu_torch.models import qwen2
+
+    llm, layout = engine.params["llm"], engine.layout
+    ids = [engine.new_token_ids["bos_token_id"]] + [int(t) for t in answer.split()]
+    t = len(ids)
+    hidden, _ = qwen2.llm_extend(
+        llm, engine.cfg.llm, qwen2.embed_tokens(llm, engine._tensor([ids], torch.long), layout),
+        engine._tensor([[ctx.rope + i for i in range(t)]]), ctx.cache, engine._tensor([t]),
+        und_len=t, causal=True, update_cache=False, layout=layout)
+    logits = qwen2.lm_logits(llm, hidden[0], layout)
+    top = logits.topk(2, dim=-1)
+    gap = (top.values[:, 0] - top.values[:, 1]) / logits.std(dim=-1)
+    return [(a, b, g) for (a, b), g in zip(top.indices.tolist(), gap.tolist())]
+
+
+def tp4_kernel_rows(cfg, gen):
+    """B4 (M = 1, against its plain version) and B5 (M = 64, bit for bit)
+    at the local shapes of tp = 4 (7 query heads and 1 KV head a rank):
+    qkv and gate_up at N / 4, o and down at K / 4 (7 and 37 groups of 128),
+    on random weights quantized on the card."""
+    from bagel_tpu_torch.ops import int4_matmul as m4
+    from bagel_tpu_torch.ops import int8_matmul as m8
+    from bagel_tpu_torch.utils.quant import quantize_weight, quantize_weight_int4, to_kmajor
+
+    llm, n = cfg.llm, 4
+    hd, d, f = llm.head_dim, llm.hidden_size, llm.intermediate_size
+    shapes = dict(qkv=(d, (llm.num_attention_heads + 2 * llm.num_key_value_heads) // n * hd),
+                  o=(llm.num_attention_heads // n * hd, d), gate_up=(d, 2 * f // n),
+                  down=(f // n, d))
+    rows = []
+    for name, (k, nn) in shapes.items():
+        w = (torch.randn((k, nn), generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        q4 = quantize_weight_int4(w)
+        x = torch.randn((1, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+        got = m4.int4_matmul(x, q4["w_p4"], q4["scale4"])
+        err, ratio = int4_error(got, m4.int4_matmul_plain(x, q4["w_p4"], q4["scale4"]), x,
+                                m4.dequantize_weight4(q4, torch.bfloat16))
+        q8 = quantize_weight(w)
+        xq, xs = m8.quantize_rows(torch.randn((64, k), generator=gen,
+                                              device=DEVICE).to(torch.bfloat16))
+        w8 = to_kmajor(q8["w_q"])
+        same = torch.equal(m8.int8_matmul(xq, xs, w8, q8["scale"]),
+                           m8.int8_matmul_plain(xq, xs, w8, q8["scale"]))
+        rows.append(dict(leaf=name, K=k, N=nn, int4_limit_ratio=ratio, int4_max_abs_err=err,
+                         int8_bit_identical=bool(same)))
+    return rows
+
+
+def child_sharded(spec):
+    """One of 12b's processes: a tp rank on the card (gloo: NCCL takes one
+    rank a device), its shards of the live_place weights built in turns
+    with the other process; the velocity, logits and VQA answer of
+    `shard_paths`, the control (rank 1's o partial sums dropped), then B4
+    and B5 at their local shard shapes: an int4 engine's decode steps and
+    a w8a8 engine's gen block through the kernels, and each kernel against
+    its plain version on this rank's layer-0 leaves."""
+    import torch.distributed as dist
+
+    from bagel_tpu_torch import configs
+    from bagel_tpu_torch.data.tokenizer import MockTokenizer
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.models.bagel import init_bagel_params
+    from bagel_tpu_torch.ops import int4_matmul as m4
+    from bagel_tpu_torch.ops import int8_matmul as m8
+    from bagel_tpu_torch.parallel.mesh import InferenceLayout, make_mesh
+    from bagel_tpu_torch.utils.quant import quantize_bagel_params
+
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    cfg = getattr(configs, SHARD_CFG)()
+    L = cfg.llm.num_hidden_layers
+    tok = MockTokenizer(cfg.llm.vocab_size)
+    layout = InferenceLayout(make_mesh((1, 1, SHARD_TP)), cfg)
+    for turn in range(dist.get_world_size()):  # one process draws at a time
+        if turn == rank:
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            params = init_bagel_params(gen, cfg, torch.bfloat16 if cuda else torch.float32,
+                                       device=DEVICE, place=live_place(gen, cfg, layout.place))
+            if cuda:
+                gc_cuda()
+        dist.barrier()
+    llm_gb = sum(t.numel() * t.element_size() for t in leaves(params["llm"])) / 1e9
+    res = dict(rank=rank, llm_gb=llm_gb)
+    x1, image = shard_inputs(cfg)
+    with flash_int8(False):
+        engine = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE,
+                             layout=layout)
+        t0 = time.perf_counter()
+        read = counts_reset()
+        vel, logits, answer, _ = shard_paths(engine, x1, image)
+        res.update(answer=answer, counts=read(), paths_s=time.perf_counter() - t0)
+        tp, layout.tp = layout.tp, DropPartial(layout.tp, 1)
+        control = gen_block_velocity(engine, prompt_contexts(engine), x1, L, "auto")
+        layout.tp = tp
+        if rank == 0:
+            res["tensors"] = spec["out"] + ".pt"
+            torch.save(dict(velocity=vel.cpu(), logits=logits.cpu(), control=control.cpu()),
+                       res["tensors"])
+        del engine, vel, control, logits
+
+        # B4 at its local shapes: int4 groups lie along the input rows, so
+        # this rank's shard quantized is the whole leaf's quantization cut
+        q = quantize_bagel_params(params, "int4")
+        q["llm"] = qwen2.fuse_llm_params(q["llm"], inplace=True)
+        qeng = BagelEngine(q, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE,
+                           layout=layout)
+        ctx = qeng.update_context_text(QUESTION, qeng.init_context())
+        read = counts_reset()
+        qeng.gen_text(ctx, max_length=SHARD_DECODE, graph=False)
+        res["int4_counts"] = read()
+        x_gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+        rows = []
+        for group, name in (("attn", "qkv"), ("attn", "o"), ("mlp", "gate_up"), ("mlp", "down")):
+            leaf = {k: t[0] for k, t in q["llm"]["layers"][group][name].items()}
+            x = torch.randn((1, leaf["w_p4"].shape[0] * 2), generator=x_gen,
+                            device=DEVICE).to(torch.bfloat16)
+            got = m4.int4_matmul(x, leaf["w_p4"], leaf["scale4"])
+            want = m4.int4_matmul_plain(x, leaf["w_p4"], leaf["scale4"])
+            err, ratio = int4_error(got, want, x,
+                                    m4.dequantize_weight4(leaf, torch.bfloat16))
+            n0 = m4.int4_matmul.launches
+            qwen2._linear(x, leaf, width=layout.tp.widths.get(name))
+            rows.append(dict(leaf=name, K=x.shape[1], N=got.shape[1], max_abs_err=err,
+                             limit_ratio=ratio,
+                             linear_launches=m4.int4_matmul.launches - n0))
+        res["int4_rows"] = rows
+        del qeng, q, ctx
+        if rank == 0:  # B4 and B5 at tp = 4's local shapes too (odd group counts)
+            res["tp4_rows"] = tp4_kernel_rows(cfg, x_gen)
+
+        # B5 at its local shapes: a w8a8 engine's gen block, and the kernel
+        # bit for bit on this rank's k-major layer-0 leaves
+        q = quantize_bagel_params(params, "w8a8")
+        q["llm"] = qwen2.fuse_llm_params(q["llm"], inplace=True)
+        qeng = BagelEngine(q, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE,
+                           layout=layout)
+        ctxs = prompt_contexts(qeng)
+        read = counts_reset()
+        gen_block_velocity(qeng, ctxs, x1, L, "auto")
+        res["w8a8_counts"] = read()
+        rows = []
+        for group, name in (("attn", "qkv"), ("attn", "o"), ("mlp", "gate_up"), ("mlp", "down")):
+            leaf = {k: t[0] for k, t in q["llm"]["layers"][group][name].items()}
+            x = torch.randn((64, leaf["w_q8"].shape[0]), generator=x_gen,
+                            device=DEVICE).to(torch.bfloat16)
+            xq, xs = m8.quantize_rows(x)
+            got = m8.int8_matmul(xq, xs, leaf["w_q8"], leaf["scale"], leaf.get("b"))
+            want = m8.int8_matmul_plain(xq, xs, leaf["w_q8"], leaf["scale"], leaf.get("b"))
+            rows.append(dict(leaf=name, M=64, K=x.shape[1], N=got.shape[1],
+                             bit_identical=bool(torch.equal(got, want))))
+        res["w8a8_rows"] = rows
+        del qeng, q, ctxs
+    dist.barrier()
+    dist.destroy_process_group()
+    return res
+
+
+def shard_reference():
+    """One process's engine on 12b's and 12c's live_place weights: the
+    velocity, logits and greedy VQA answer of `shard_paths`, and the
+    answer's margins (`answer_margins`)."""
+    from bagel_tpu_torch import configs
+    from bagel_tpu_torch.data.tokenizer import MockTokenizer
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models.bagel import init_bagel_params
+
+    cfg = getattr(configs, SHARD_CFG)()
+    tok = MockTokenizer(cfg.llm.vocab_size)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_bagel_params(gen, cfg, torch.bfloat16 if DEVICE == "cuda" else torch.float32,
+                               device=DEVICE, place=live_place(gen, cfg))
+    x1, image = shard_inputs(cfg)
+    with flash_int8(False):
+        engine = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE)
+        vel, logits, answer, ctx = shard_paths(engine, x1, image)
+        margins = answer_margins(engine, ctx, answer)
+    ref = dict(velocity=vel.cpu(), logits=logits.cpu(), answer=answer, margins=margins,
+               eos=tok.new_token_ids["eos_token_id"], s=time.perf_counter() - t0)
+    del engine, params, ctx, vel, logits
+    gc_cuda()
+    return ref
+
+
+def shard_gates(label, procs, ref, control=True):
+    """The lead process's velocity, logits and answer against one process's
+    (`ref`): the velocity within FORWARD_TOL, the logits within LOGITS_TOL,
+    the answer equal or parting where one process's logits hold a near tie
+    of both tokens (the partial sums' fp32 order may flip it); every rank's
+    answer equal; with `control`, rank 1's o partial sums dropped must fail
+    the velocity's gate. Returns the gaps."""
+    lead = procs[0]
+    got = torch.load(lead["tensors"])
+    rel = relative_error(got["velocity"], ref["velocity"])
+    lrel = relative_error(got["logits"], ref["logits"])
+    check(all(p["answer"] == lead["answer"] for p in procs), f"{label}: the ranks' answers differ")
+    check(rel <= FORWARD_TOL, f"{label}: velocity rel err {rel:.3e} > {FORWARD_TOL}")
+    check(lrel <= LOGITS_TOL, f"{label}: first decode step logits rel err {lrel:.3e} > {LOGITS_TOL}")
+    out = dict(velocity_rel=rel, logits_rel=lrel, answer_parts=None)
+    if control:
+        out["control_rel"] = ctl = relative_error(got["control"], ref["velocity"])
+        check(ctl > FORWARD_TOL, f"{label}: the control (rank 1's o partial sums dropped) passes "
+                                 f"the gate: rel err {ctl:.3e} <= {FORWARD_TOL}")
+    part = first_difference(lead["answer"], ref["answer"])
+    if part is not None:
+        mine = lead["answer"].split()
+        got_tok = int(mine[part]) if part < len(mine) else ref["eos"]
+        top1, top2, gap = ref["margins"][part]
+        out["answer_parts"] = dict(token=part, got=got_tok, top2=[top1, top2], gap=gap)
+        check(got_tok in (top1, top2) and gap <= NEAR_TIE,
+              f"{label}: the VQA answer parts from one process's at token {part} ({got_tok}), "
+              f"where one process's top two are {top1}, {top2}, {gap:.3e} std apart (a near "
+              f"tie: <= {NEAR_TIE})")
+    return out
+
+
+def answer_text(out, ref):
+    tie = out["answer_parts"]
+    if tie is None:
+        return "equal to one process's"
+    return (f"parts from one process's at token {tie['token']} of "
+            f"{len(ref['answer'].split())}, a near tie there ({tie['gap']:.2e} std between its "
+            f"top two; {NEAR_TIE} allowed)")
+
+
+def sharded_tp2(card, ref):
+    """12b: tp = 2 on the one card, two processes over gloo (`child_sharded`),
+    held against one process's engine on the same weights (`ref`,
+    `shard_gates`: with the control); B4 and B5 launched at their local
+    shard shapes per their formulas and held against their plain versions
+    there."""
+    from bagel_tpu_torch import configs
+
+    L = getattr(configs, SHARD_CFG)().llm.num_hidden_layers
+    t0 = time.perf_counter()
+    procs = run_children("sharded", [dict(kind="sharded", local_rank=0)] * SHARD_TP)
+    wall = time.perf_counter() - t0
+    lead = procs[0]
+    out = shard_gates(f"12b tp = {SHARD_TP}", procs, ref)
+    n4 = L * 4 * SHARD_DECODE  # 4 linears a layer, one whole chunk of steps
+    n5 = L * 8  # the gen block: both experts' 4 linears a layer
+    for p in procs:
+        check(p["counts"]["b4"] == p["counts"]["b5"] == 0, "12b: the bf16 paths ran B4 or B5")
+        check(p["int4_counts"]["b4"] == n4, f"12b rank {p['rank']}: B4 launched "
+              f"{p['int4_counts']['b4']} times in {SHARD_DECODE} decode steps, not {n4}")
+        check(p["w8a8_counts"]["b5"] == p["w8a8_counts"]["quant"] == n5,
+              f"12b rank {p['rank']}: B5 / quantize_rows launched {p['w8a8_counts']['b5']} / "
+              f"{p['w8a8_counts']['quant']} times in one gen block, not {n5}")
+        for r in p["int4_rows"]:
+            check(r["limit_ratio"] <= 1.0 and r["linear_launches"] == 1,
+                  f"12b rank {p['rank']}: B4 at {r}")
+        for r in p["w8a8_rows"]:
+            check(r["bit_identical"], f"12b rank {p['rank']}: B5 at {r}")
+    for r in lead["tp4_rows"]:
+        check(r["int4_limit_ratio"] <= 1.0 and r["int8_bit_identical"],
+              f"12b: B4 / B5 at tp = 4's local shape {r}")
+    out.update(reference_s=ref["s"], wall_s=wall, llm_gb=[p["llm_gb"] for p in procs],
+               paths_s=[p["paths_s"] for p in procs], int4_rows=lead["int4_rows"],
+               w8a8_rows=lead["w8a8_rows"], tp4_rows=lead["tp4_rows"],
+               launches=dict(sharded_tp2_int4=lead["int4_counts"],
+                             sharded_tp2_w8a8=lead["w8a8_counts"],
+                             sharded_tp2_bf16=lead["counts"]))
+    log(f"[sharded] 12b tp = {SHARD_TP} on one card ({card}), two processes over gloo, "
+        f"{out['llm_gb'][0]:.2f} GB of LLM weights each: the gen block's velocity ({FORWARD_PX} "
+        f"px, {L} layers) rel err {out['velocity_rel']:.3e} (tol {FORWARD_TOL}), the control "
+        f"(rank 1's o partial sums dropped) {out['control_rel']:.3e} (must exceed it); the first "
+        f"decode step's logits {out['logits_rel']:.3e} (tol {LOGITS_TOL}); the {SHARD_VQA_PX} px "
+        f"VQA's greedy answer {answer_text(out, ref)}; B4 {lead['int4_counts']['b4']} launches in "
+        f"{SHARD_DECODE} int4 decode steps at the local shapes "
+        f"{[(r['leaf'], r['K'], r['N']) for r in lead['int4_rows']]} (limit ratios "
+        f"{[round(r['limit_ratio'], 3) for r in lead['int4_rows']]}), B5 "
+        f"{lead['w8a8_counts']['b5']} in a w8a8 gen block, bit-identical at "
+        f"{[(r['leaf'], r['K'], r['N']) for r in lead['w8a8_rows']]}; at tp = 4's local shapes "
+        f"{[(r['leaf'], r['K'], r['N']) for r in lead['tp4_rows']]} B4's limit ratios "
+        f"{[round(r['int4_limit_ratio'], 3) for r in lead['tp4_rows']]}, B5 bit-identical; the paths "
+        f"{out['paths_s'][0]:.1f} s a process; one process's reference {ref['s']:.1f} s; "
+        f"{wall:.1f} s with both processes' set-up")
+    return out
+
+
+def child_sharded_cards(spec):
+    """One of 12c's processes: tp rank LOCAL_RANK on its own card through
+    nccl, its shards of the live_place weights; `shard_paths` with the
+    VQA's decode through the decode program's graphs (the tp all-reduces
+    captured), then the 8-slot runtime's chats (the chunk's time)."""
+    import torch.distributed as dist
+
+    from bagel_tpu_torch import configs
+    from bagel_tpu_torch.data.tokenizer import MockTokenizer
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models.bagel import init_bagel_params
+    from bagel_tpu_torch.parallel.mesh import InferenceLayout, make_mesh
+
+    cuda = DEVICE == "cuda"
+    if cuda:
+        local = int(os.environ["LOCAL_RANK"])
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", init_method="env://", device_id=torch.device("cuda", local))
+    else:  # a rehearsal on the CPU
+        dist.init_process_group("gloo", init_method="env://")
+    n, rank = dist.get_world_size(), dist.get_rank()
+    cfg = getattr(configs, SHARD_CFG)()
+    L = cfg.llm.num_hidden_layers
+    tok = MockTokenizer(cfg.llm.vocab_size)
+    layout = InferenceLayout(make_mesh((1, 1, n)), cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_bagel_params(gen, cfg, torch.bfloat16 if cuda else torch.float32,
+                               device=DEVICE, place=live_place(gen, cfg, layout.place))
+    if cuda:
+        gc_cuda()
+    engine = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE,
+                         layout=layout)
+    x1, image = shard_inputs(cfg)
+    res = dict(rank=rank)
+    log(f"[12c rank {rank}] weights placed")
+    with flash_int8(False):
+        vel = gen_block_velocity(engine, prompt_contexts(engine), x1, L, "auto")
+        ctx = vqa_context(engine, image)
+        logits = first_logits(engine, ctx, "auto")
+        log(f"[12c rank {rank}] velocity and first logits")
+        read, coll = counts_reset(), collectives_reset()
+        caps0 = engine.decode.captures
+        res["answer"] = engine.gen_text(ctx, max_length=MAX_THINK)
+        res.update(counts=read(), collectives=coll(), captures=engine.decode.captures - caps0,
+                   nccl_kernels_replayed=nccl_replayed())
+        log(f"[12c rank {rank}] the VQA's decode through the program")
+        if rank == 0:
+            res["tensors"] = spec["out"] + ".pt"
+            torch.save(dict(velocity=vel.cpu(), logits=logits.cpu()), res["tensors"])
+        del vel, logits, ctx
+        run = queued_answers(engine, serve_chats(), 0)
+        log(f"[12c rank {rank}] the runtime's chats")
+        res["serve"] = {k: v for k, v in run.items() if k != "answers"}
+        res["serve_answers"] = run["answers"]
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    # the decode graphs hold nccl's communicator: they go before the group
+    # (destroying it under them waited forever on four cards)
+    del engine, run
+    release_graphs()
+    dist.barrier()
+    dist.destroy_process_group()
+    return res
+
+
+def release_graphs():
+    """Free what is unreferenced, the decode programs' CUDA graphs with it,
+    and wait for the card."""
+    import gc
+
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def sharded_cards(card, ref, plain_chunk_ms=None):
+    """12c: tp over every card of the machine through nccl, the decode
+    programs' graphs holding the all-reduces, held against one process's
+    engine (`ref`, `shard_gates` without the control); launch and captured
+    collective counts against their formulas; the 8-slot chunk's time
+    (beside `plain_chunk_ms`, one card's, where 12a measured it)."""
+    from bagel_tpu_torch import configs
+
+    n = torch.cuda.device_count()
+    L = getattr(configs, SHARD_CFG)().llm.num_hidden_layers
+    per_forward = 2 * L + 1
+    t0 = time.perf_counter()
+    procs = run_children("sharded_cards", [dict(kind="sharded_cards", local_rank=r)
+                                           for r in range(n)])
+    wall = time.perf_counter() - t0
+    lead = procs[0]
+    label = f"12c tp = {n} over {n} cards"
+    out = shard_gates(label, procs, ref, control=False)
+    check(all(p["serve_answers"] == lead["serve_answers"] for p in procs),
+          f"{label}: the ranks' served answers differ")
+    steps = min(len(lead["answer"].split()) + 1, MAX_THINK)
+    run = program_steps(steps, 16)
+    caps = lead["captures"]
+    want = bf16_counts(b1=L * (caps + run))
+    check(lead["counts"] == want, f"{label}: the VQA decode's launches {lead['counts']} != {want}")
+    c = lead["collectives"]
+    check(c["all_reduce"]["captured"] == per_forward * caps * min(16, MAX_THINK),
+          f"{label}: captured all-reduces {c}")
+    chunk = lead["serve"]["chunk_ms_min"]
+    out.update(wall_s=wall, captures=caps, collectives=c,
+               nccl_kernels_replayed=lead["nccl_kernels_replayed"], chunk_ms=chunk,
+               step_ms=chunk / SERVE_CHUNK, peak_gib=[p["peak_gib"] for p in procs],
+               launches={f"sharded_tp{n}_vqa_decode": lead["counts"]})
+    log(f"[sharded] {label} through nccl ({card} each): velocity rel err "
+        f"{out['velocity_rel']:.3e}, first logits {out['logits_rel']:.3e}, the VQA answer (decode "
+        f"program, {caps} capture(s)) {answer_text(out, ref)}; launches {lead['counts']}, "
+        f"collectives {c}, {lead['nccl_kernels_replayed']} NCCL kernels in the replays; the "
+        f"8-slot runtime: a {SERVE_CHUNK}-step chunk {chunk:.1f} ms at best ({chunk / SERVE_CHUNK:.2f}"
+        f" ms a step" + (f"; one card, 12a: {plain_chunk_ms:.1f} ms" if plain_chunk_ms else "")
+        + f"); peak {max(out['peak_gib']):.2f} GiB a card; {wall:.1f} s with set-up")
+    return out
+
+
+def phase_sharded(card, t2i=None, vqa=None):
+    """Phase 12: sharded inference. 12a (`sharded_world1`), one process's
+    reference on live_place weights (`shard_reference`), 12b
+    (`sharded_tp2`), and 12c (`sharded_cards`) where the machine has two
+    cards or more (a line says when it has fewer)."""
+    t0 = time.perf_counter()
+    out = dict(world1=sharded_world1(card, t2i, vqa))
+    ref = shard_reference()
+    out["tp2"] = sharded_tp2(card, ref)
+    launches = dict(out["world1"].pop("launches"), **out["tp2"].pop("launches"))
+    if torch.cuda.device_count() >= 2:
+        out["cards"] = sharded_cards(card, ref, out["world1"]["serve"]["bf16"]["plain_chunk_ms"])
+        launches.update(out["cards"].pop("launches"))
+    else:
+        log(f"[sharded] 12c needs two cards or more ({torch.cuda.device_count()} on the "
+            f"machine): tp over cards through nccl not run")
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = launches
+    log(f"[sharded] phase 12: {out['wall_s']:.1f} s")
+    return out
+
+
 def gc_cuda():
     import gc
 
@@ -4954,6 +5693,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated before phase 10")
     train = phase_train(card)
     par = phase_parallel(card, train)
+    sharded = phase_sharded(card, t2i, vqa)
 
     main_shape = shapes[0]
     decode = next(r for r in shapes if r["T"] == 1)
@@ -4974,7 +5714,8 @@ def main() -> int:
                     **{f"serve_{k}": counts[key] for k, counts in serve["launches"].items()},
                     **{k: counts[key] for k, counts in evals["launches"].items()},
                     train=train["timing"]["b3_launches"] if key == "b3" else 0,
-                    **{k: counts[key] for k, counts in par["launches"].items()})
+                    **{k: counts[key] for k, counts in par["launches"].items()},
+                    **{k: counts[key] for k, counts in sharded["launches"].items()})
 
     kernels = [
         dict(
@@ -5185,7 +5926,8 @@ def main() -> int:
     log(json.dumps({"vqa": vqa, "taylorseer": taylorseer, "edit": edit, "batch": batch,
                     "t2i_w8a8": w8a8, "vqa_int4": int4, "serve": serve,
                     "decode_program": program, "eval": evals, "train": train,
-                    "parallel": {k: v for k, v in par.items() if k != "launches"}}))
+                    "parallel": {k: v for k, v in par.items() if k != "launches"},
+                    "sharded": {k: v for k, v in sharded.items() if k != "launches"}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -114,14 +114,11 @@ def test_update_leaves_sibling_context_untouched(setup):
 
 
 def test_later_slices_raise(setup):
-    """What still raises: serving over a mesh (ROADMAP A, parallelism). Speculative
-    decode runs (tests/test_torch_speculative.py), as do editing and
-    TaylorSeer (tests/test_torch_edit.py, test_torch_taylorseer.py)."""
-    from bagel_tpu_torch.serving.runtime import ServingRuntime
-
+    """The features of later slices run: speculative decode (here, and
+    tests/test_torch_speculative.py), editing and TaylorSeer
+    (tests/test_torch_edit.py, test_torch_taylorseer.py). Serving over a
+    mesh, which raised here, is held in tests/test_torch_sharded_inference.py."""
     _, _, _, teng, _ = setup
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        ServingRuntime(teng, slots=2, mesh=object())
     kw = dict(understanding_output=True, max_think_token_n=4)
     assert teng(text="x", speculative=4, **kw) == teng(text="x", **kw)
 

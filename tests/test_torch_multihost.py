@@ -10,7 +10,9 @@ tiny_bagel in fp32 on the CPU:
 - one process falls back to a plain leader with no bus;
 - two gloo processes over a `TorchDistBus` (tests/torch_dist_util.py): the
   leader's answers equal a single runtime's and bagel_tpu's token for
-  token, the follower ran the same number of ticks and the same stats.
+  token, the follower ran the same number of ticks and the same stats;
+- `serving.server.main` in two gloo processes: the follower ticks, the
+  leader's HTTP chat equals a runtime alone's.
 """
 
 import numpy as np
@@ -121,3 +123,24 @@ def test_two_gloo_processes(setup, tmp_path):
     assert follower["answers"] is None
     assert follower["ticks"] == leader["ticks"] and follower["stats"] == leader["stats"]
     assert leader["stats"]["chat_done"] == len(prompts)
+
+
+def test_server_main_two_processes(tmp_path):
+    """serving.server.main under a group of two processes (JAX's
+    server.py:322-337): the follower ticks until the leader stops, and the
+    leader's HTTP chat equals a runtime alone's on the same demo engine."""
+    from bagel_tpu_torch.serving import app
+
+    argv = ["--device", "cpu", "--port", "0", "--max_kv", "512", "--slots", "2",
+            "--decode_chunk", "3"]
+    leader, follower = run("serve_main", 2, tmp_path, argv=argv, prompt="hello there")
+    assert follower["answer"] is None and leader["stopped"]
+    engine, _, _ = app.build_engine(app.parse_args(["--device", "cpu", "--max_kv", "512"]))
+    rt = ServingRuntime(engine, slots=2, decode_chunk=3)
+    rt.start()
+    try:
+        alone = rt.submit_chat("hello there", max_new_tokens=6).result(timeout=TIMEOUT)
+    finally:
+        rt.stop()
+    assert alone and leader["answer"] == alone
+    assert "ticking until the leader stops" in (tmp_path / "serve_main.rank1.log").read_text()

@@ -7,8 +7,8 @@ bagel_tpu's); slots reused; mixed chat and generate traffic; a session that
 reaches the end of its KV rows ends with what it has (the decode margin,
 speculative chunks included); an oversized request fails on its own future;
 `stop` fails what is pending; multi-image requests; speculative chunks
-greedy-exact; the int8 slot cache's answers equal bagel_tpu's; a mesh
-raises; every HTTP endpoint, streaming included; `app.build_engine` and
+greedy-exact; the int8 slot cache's answers equal bagel_tpu's; every
+HTTP endpoint, streaming included; `app.build_engine` and
 `run_once` on the CPU.
 """
 
@@ -219,11 +219,6 @@ def test_runtime_stop_fails_pending(engine):
     for f in (fut, gen):
         with pytest.raises(RuntimeError, match="stopped"):
             f.result(timeout=5)
-
-
-def test_runtime_mesh_raises(engine):
-    with pytest.raises(NotImplementedError, match="sharded inference, the next slice"):
-        ServingRuntime(engine, slots=2, mesh=object())
 
 
 def test_runtime_multi_image_request(engine):
@@ -489,8 +484,3 @@ def test_app_build_engine_and_run_once(tmp_path, capsys):
          "--output", str(png), "--device", "cpu"]))
     assert out["image"].shape == (32, 32, 3) and png.is_file()
     assert "saved" in capsys.readouterr().out
-
-
-def test_app_mesh_raises():
-    with pytest.raises(NotImplementedError, match="sharded inference, the next slice"):
-        app.build_engine(app.parse_args(["--device", "cpu", "--mesh", "1,8,1"]))

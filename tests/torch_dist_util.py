@@ -271,5 +271,93 @@ def serve_two(tree, cfg, prompts, runtime):
     return dict(answers=answers, ticks=fe.ticks, stats=dict(fe.stats))
 
 
+def sharded_paths(shapes, jobs):
+    """Every inference path of a sharded engine, for each (dp, fsdp, tp)
+    mesh of `shapes` over this world. Each job {name, cfg, tree, work,
+    chats}: its numpy tree (quantized on the whole leaf where it is) placed
+    leaf by leaf (`params_from_numpy(layout=)`) and fused; the
+    text-to-image latent from `work["noise"]`; with `chats` the greedy
+    understanding answer, the serving runtime's answers over the sharded
+    slot cache (plain and speculative) and the slot cache's local part.
+    Returns {shape: {name: {...}}}."""
+    from bagel_tpu_torch.data.tokenizer import MockTokenizer
+    from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models.qwen2 import fuse_llm_params, kv_cache_init
+    from bagel_tpu_torch.parallel.mesh import InferenceLayout, make_mesh, shard_cache
+    from bagel_tpu_torch.serving.runtime import ServingRuntime
+    from bagel_tpu_torch.utils.bridge import params_from_numpy
+
+    out = {}
+    for shape in shapes:
+        mesh = make_mesh(tuple(shape))
+        out[tuple(shape)] = per_job = {}
+        for job in jobs:
+            cfg, work = job["cfg"], job["work"]
+            tok = MockTokenizer(cfg.llm.vocab_size)
+            layout = InferenceLayout(mesh, cfg)
+            params = params_from_numpy(job["tree"], "cpu", layout=layout)
+            params["llm"] = fuse_llm_params(params["llm"], inplace=True)
+            eng = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=512, device="cpu",
+                              layout=layout)
+            ctx = eng.init_context()
+            cfg_text, cfg_img = ctx.copy(), ctx.copy()
+            ctx = eng.update_context_text(work["prompt"], ctx)
+            cfg_img = eng.update_context_text(work["prompt"], cfg_img)
+            res = per_job[job["name"]] = dict(latent=eng.gen_image(
+                work["shape"], ctx, cfg_text_precontext=cfg_text, cfg_img_precontext=cfg_img,
+                init_noise=work["noise"], return_latent=True, **work["gen"]))
+            if not job.get("chats"):
+                continue
+            res["understand"] = eng(image=work["image"], text=work["question"],
+                                    understanding_output=True,
+                                    max_think_token_n=work["max_new"])["text"]
+            for spec in (0, 2):
+                rt = ServingRuntime(eng, slots=2, decode_chunk=3, max_new_default=work["max_new"],
+                                    mesh=eng.mesh, speculative=spec)
+                rt.start()
+                try:
+                    futs = [rt.submit_chat(p, image=im) for p, im in job["chats"]]
+                    res[f"serve_{spec}"] = [f.result(timeout=120) for f in futs]
+                finally:
+                    rt.stop()
+            whole = kv_cache_init(cfg.llm, 2, 8, torch.float32, device="cpu")
+            whole.k.normal_()
+            part = shard_cache(layout, whole, 2)
+            res["cache"] = dict(local=tuple(rt.cache.k.shape), shard=tuple(part.k.shape),
+                                rows=layout.slot_rows(2), kv_heads=layout.kv_heads,
+                                shard_k=part.k.numpy(), whole_k=whole.k.numpy())
+    return out
+
+
+def serve_main(argv, prompt):
+    """serving.server.main under this group: the leader answers one chat
+    over HTTP and shuts its server down, the follower ticks until then."""
+    import json
+    import threading
+    import urllib.request
+
+    from bagel_tpu_torch.serving import server
+
+    made = []
+    serve = server.serve
+    server.serve = lambda *a, **k: made.append(serve(*a, **k)) or made[-1]
+    if dist.get_rank() != 0:
+        server.main(argv)
+        return dict(answer=None)
+    t = threading.Thread(target=server.main, args=(argv,), daemon=True)
+    t.start()
+    end = time.monotonic() + 240
+    while not made and time.monotonic() < end:
+        time.sleep(0.05)
+    port = made[0].server_address[1]
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/chat",
+                                 data=json.dumps(dict(prompt=prompt, max_tokens=6)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    answer = json.loads(urllib.request.urlopen(req, timeout=240).read())["text"]
+    made[0].shutdown()
+    t.join(timeout=120)
+    return dict(answer=answer, stopped=not t.is_alive())
+
+
 if __name__ == "__main__":
     _main(sys.argv[1], int(sys.argv[2]))
