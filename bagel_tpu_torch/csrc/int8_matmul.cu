@@ -8,7 +8,10 @@
 //
 //   out[m,n] = bf16( ((f32(sum_k xq[m,k] * wq[k,n]) * xs[m]) * ws[n]) + b[n] )
 //
-// with each f32 step rounded on its own (__fmul_rn / __fadd_rn: nvcc would
+// or, in its f32 instance, the same value before the one rounding to bf16
+// (a tp rank's partial sum of a row-parallel leaf, rounded once after the
+// all-reduce as JAX rounds the whole int32 sum's product); with each f32
+// step rounded on its own (__fmul_rn / __fadd_rn: nvcc would
 // otherwise contract a*b+c into one FMA), the order of
 // bagel_tpu/models/qwen2.py:_linear's w8a8 branch. The int32 sums are
 // exact, so the result equals the plain version bit for bit.
@@ -21,6 +24,12 @@
 // (__float2int_rn): bit-identical to the JAX expression. One block per row
 // reads the bf16 row, takes its absmax, and reads it again (from L1) to
 // write the codes: bound by the bytes it moves (2K in, K + 4 out a row).
+// Its two halves are kernels of their own for a row split over tensor
+// parallelism, where JAX's max runs over the whole row (XLA reduces it
+// across the shards): row_absmax_kernel writes each row's absmax of this
+// rank's slice (2K in, 4 out), the caller all-reduces it with MAX and makes
+// the scale as the plain version does, and quantize_rows_given_kernel
+// writes the codes with the scales it is given (2K + 4 in, K out).
 //
 // Layout: xq [M, K] int8 row-major; wq [K, N] int8 K-MAJOR, i.e. the JAX
 // [in, out] leaf as a transposed view of a contiguous [N, K] tensor, made
@@ -51,7 +60,7 @@
 // - Output tiles are rasterized in groups of 16 M tiles, so that the
 //   blocks resident together share their xq and weight tiles in L2.
 // - The epilogue is the plain version's: ((f32(acc) * xs) * ws) + b, each
-//   step rounded, then bf16.
+//   step rounded, then bf16 (or stored as f32 by the f32 instance).
 //
 // What it leaves on the table: no persistent grid (the epilogue does not
 // overlap the next tile's loads), no TMA store of the output, one block an
@@ -96,10 +105,19 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64
 
 // --- the GEMM --------------------------------------------------------------
 
+// two neighbouring output values: rounded to bf16, or kept in f32
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
 int8_matmul_kernel(const __grid_constant__ Maps maps, const float* __restrict__ xs,
                    const float* __restrict__ ws, const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+                   OutT* __restrict__ out, int M, int N, int K) {
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 B
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -168,7 +186,7 @@ int8_matmul_kernel(const __grid_constant__ Maps maps, const float* __restrict__ 
   wgmma_wait<0>();
   fence_regs(acc);
 
-  // epilogue: ((f32(acc) * xs) * ws) + b, each step rounded, then bf16.
+  // epilogue: ((f32(acc) * xs) * ws) + b, each step rounded, then OutT.
   // Accumulator 4 j + e holds row lane/4 (+ 8 for e >= 2) of this warp's
   // 16, column 8 j + 2 (lane % 4) + e % 2.
 #pragma unroll
@@ -176,7 +194,7 @@ int8_matmul_kernel(const __grid_constant__ Maps maps, const float* __restrict__ 
     const int m = m0 + wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * half;
     if (m >= M) continue;
     const float sx = xs[m];
-    __nv_bfloat16* orow = out + static_cast<size_t>(m) * N;
+    OutT* orow = out + static_cast<size_t>(m) * N;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * (lane % 4);
@@ -187,39 +205,53 @@ int8_matmul_kernel(const __grid_constant__ Maps maps, const float* __restrict__ 
         v0 = __fadd_rn(v0, bias[n]);
         v1 = __fadd_rn(v1, bias[n + 1]);
       }
-      *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(v0, v1);
+      store2(orow + n, v0, v1);
     }
   }
 }
 
 // --- the activation quantization ------------------------------------------
 
-__global__ void __launch_bounds__(kQThreads)
-quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, long long x_st,
-                     int8_t* __restrict__ xq, float* __restrict__ xs, int K) {
+enum QuantMode { kWhole, kAbsmaxOnly, kGivenScale };
+
+// One row of x: kWhole its scale (into xs) and codes, kAbsmaxOnly its
+// absmax (into xs), kGivenScale its codes with the scale xs[m].
+template <QuantMode Mode>
+__device__ __forceinline__ void quantize_row(const __nv_bfloat16* __restrict__ x, long long x_st,
+                                             int8_t* __restrict__ xq, float* __restrict__ xs,
+                                             int K) {
   __shared__ float red[kQThreads / 32];
   const int m = blockIdx.x, tid = threadIdx.x;
   const __nv_bfloat16* row = x + static_cast<long long>(m) * x_st;
   const int chunks = K / 8;  // 16-byte loads of 8 values
-  float amax = 0.f;
-  for (int c = tid; c < chunks; c += kQThreads) {
-    const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * c);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+  float scale;
+  if (Mode == kGivenScale) {
+    scale = xs[m];
+  } else {
+    float amax = 0.f;
+    for (int c = tid; c < chunks; c += kQThreads) {
+      const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * c);
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(p[i]);
-      amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(p[i]);
+        amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+      }
     }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (tid % 32 == 0) red[tid / 32] = amax;
+    __syncthreads();
+    amax = red[0];
+#pragma unroll
+    for (int w = 1; w < kQThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+    if (Mode == kAbsmaxOnly) {
+      if (tid == 0) xs[m] = amax;
+      return;
+    }
+    scale = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
+    if (tid == 0) xs[m] = scale;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if (tid % 32 == 0) red[tid / 32] = amax;
-  __syncthreads();
-  amax = red[0];
-#pragma unroll
-  for (int w = 1; w < kQThreads / 32; ++w) amax = fmaxf(amax, red[w]);
-  const float scale = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
-  if (tid == 0) xs[m] = scale;
   int8_t* qrow = xq + static_cast<long long>(m) * K;
   for (int c = tid; c < chunks; c += kQThreads) {
     const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * c);
@@ -237,6 +269,24 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, long long x_st,
   }
 }
 
+__global__ void __launch_bounds__(kQThreads)
+quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, long long x_st,
+                     int8_t* __restrict__ xq, float* __restrict__ xs, int K) {
+  quantize_row<kWhole>(x, x_st, xq, xs, K);
+}
+
+__global__ void __launch_bounds__(kQThreads)
+row_absmax_kernel(const __nv_bfloat16* __restrict__ x, long long x_st,
+                  float* __restrict__ amax, int K) {
+  quantize_row<kAbsmaxOnly>(x, x_st, nullptr, amax, K);
+}
+
+__global__ void __launch_bounds__(kQThreads)
+quantize_rows_given_kernel(const __nv_bfloat16* __restrict__ x, long long x_st,
+                           const float* __restrict__ xs, int8_t* __restrict__ xq, int K) {
+  quantize_row<kGivenScale>(x, x_st, xq, const_cast<float*>(xs), K);
+}
+
 // --- host side -------------------------------------------------------------
 
 // an int8 [rows, K] row-major view (a row stride of K bytes), boxes of
@@ -246,27 +296,39 @@ int make_rows_map(CUtensorMap* map, const void* base, int K, int rows, int box_r
                      true, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
+template <typename OutT>
+int launch_int8_matmul(const void* xq, const void* xs, const void* wq, const void* ws,
+                       const void* bias, void* out, int M, int N, int K, void* stream) {
+  Maps maps;
+  int err = make_rows_map(&maps.a, xq, K, M, kBM);
+  err = err ? err : make_rows_map(&maps.b, wq, K, N, kBN);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(int8_matmul_kernel<OutT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  int8_matmul_kernel<OutT><<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      maps, static_cast<const float*>(xs), static_cast<const float*>(ws),
+      static_cast<const float*>(bias), static_cast<OutT*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream` and returns 0 on success, else cudaGetLastError()'s
 // code, or 100000 + the CUresult of a refused tensor map. wq points at the
-// contiguous [N, K] codes of the k-major weight.
+// contiguous [N, K] codes of the k-major weight. out [M, N] bf16.
 int int8_matmul_bf16(const void* xq, const void* xs, const void* wq, const void* ws,
                      const void* bias, void* out, int M, int N, int K, void* stream) {
-  Maps maps;
-  int err = make_rows_map(&maps.a, xq, K, M, kBM);
-  err = err ? err : make_rows_map(&maps.b, wq, K, N, kBN);
-  if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(int8_matmul_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  int8_matmul_kernel<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      maps, static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return launch_int8_matmul<__nv_bfloat16>(xq, xs, wq, ws, bias, out, M, N, K, stream);
+}
+
+// The same with out [M, N] f32: the epilogue's value before its rounding.
+int int8_matmul_f32(const void* xq, const void* xs, const void* wq, const void* ws,
+                    const void* bias, void* out, int M, int N, int K, void* stream) {
+  return launch_int8_matmul<float>(xq, xs, wq, ws, bias, out, M, N, K, stream);
 }
 
 // x: M rows of K bf16 values, row stride x_st (elements); xq [M, K] int8,
@@ -276,6 +338,23 @@ int quantize_rows_bf16(const void* x, long long x_st, void* xq, void* xs, int M,
   quantize_rows_kernel<<<M, kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), x_st, static_cast<int8_t*>(xq),
       static_cast<float*>(xs), K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// amax [M] f32: each row's max |x|. Same return convention.
+int row_absmax_bf16(const void* x, long long x_st, void* amax, int M, int K, void* stream) {
+  row_absmax_kernel<<<M, kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), x_st, static_cast<float*>(amax), K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xq [M, K] int8: the codes of x with the scales xs [M] f32 given. Same
+// return convention.
+int quantize_rows_given_bf16(const void* x, long long x_st, const void* xs, void* xq, int M,
+                             int K, void* stream) {
+  quantize_rows_given_kernel<<<M, kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), x_st, static_cast<const float*>(xs),
+      static_cast<int8_t*>(xq), K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -78,8 +78,11 @@ def _wrapper_kernels() -> dict:
         flash.flash_cached_attention_q8: ("15flash_q8_kernel",),
         flash.q8_prep: ("16q8_absmax_kernel",),
         int4_matmul.int4_matmul: ("18int4_matmul_kernel",),
-        int8_matmul.int8_matmul: ("18int8_matmul_kernel",),
+        int8_matmul.int8_matmul: ("18int8_matmul_kernel",),  # both instances
+        int8_matmul.int8_matmul_f32: ("18int8_matmul_kernelIf",),
         int8_matmul.quantize_rows: ("20quantize_rows_kernel",),
+        int8_matmul.quantize_rows_given: ("26quantize_rows_given_kernel",),
+        int8_matmul.row_absmax: ("17row_absmax_kernel",),
         sparse_flash.sparse_packed_attention: ("30sparse_packed_attention_kernel",),
         sparse_flash.sparse_packed_attention_bwd: ("22sparse_bwd_dkdv_kernel",),
     }

@@ -45,7 +45,9 @@
   use and runs Megatron tp over its local heads and FFN columns (the
   cache holds the local KV heads, `kv_cache_init(layout=)`), with one
   all-reduce after o and one after down, through `_layer_extend`'s `tp`,
-  the hook `train_layer_block` takes; the embedding is a vocab-parallel
+  the hook `train_layer_block` takes (a w8a8 o or down adds one before:
+  its activation rows' absmax, MAX over tp, so that each row is quantized
+  with its whole row's scale, as JAX's); the embedding is a vocab-parallel
   lookup summed over tp, the logits this rank's part of the vocabulary
   all-gathered over tp.
 
@@ -89,7 +91,7 @@ from bagel_tpu_torch.ops.flash import (
 )
 from bagel_tpu_torch.ops.flash import kv_dequantize as _kv_dequantize
 from bagel_tpu_torch.ops.int4_matmul import int4_gemv_eligible, int4_matmul
-from bagel_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows
+from bagel_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows, row_absmax, row_scale
 from bagel_tpu_torch.ops.norms import rms_norm
 from bagel_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from bagel_tpu_torch.ops.ring import ring_packed_attention
@@ -256,15 +258,32 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
-def _linear(x: torch.Tensor, p, width: Optional[int] = None,
-            f32: bool = False) -> torch.Tensor:
+def quantize_activations(x2: torch.Tensor, tp=None):
+    """w8a8's (codes, scales [M, 1]) of the activation rows x2 [M, K]: each
+    row with its own scale, or, for a row-parallel leaf (`tp`, an
+    `InferenceTP` of n > 1, whose input rows this rank holds a slice of),
+    with the whole row's: the slice's absmax all-reduced with MAX over tp,
+    then the scale and the codes of the slice, as JAX's max over the
+    sharded axis. Per-token scales alone need this: the int8 KV cache's are
+    per (token, KV head) and heads split whole over tp; weight-only int8,
+    int4 and NF4 scales are per column or group and follow their weight's
+    split."""
+    if tp is None:
+        return quantize_rows(x2)
+    return quantize_rows(x2, row_scale(tp.row_max(row_absmax(x2))))
+
+
+def _linear(x: torch.Tensor, p, width: Optional[int] = None, tp=None) -> torch.Tensor:
     """x @ w (+ b) over a weight leaf: {'w'[, 'b']}, a bare tensor, or a
     quantized dict (`utils.quant`; see the module docstring). `width`: the
     whole leaf's output width where `p` is a tp shard of its columns (B4's
-    eligibility reads the whole leaf, as JAX's rule does). f32=True: the
-    product of a bias-free leaf in fp32, not rounded (a tp rank's partial
-    sum, rounded once after the all-reduce, as JAX rounds the whole sum);
-    B4 and B5 write bf16, so their partial sums are rounded once before.
+    eligibility reads the whole leaf, as JAX's rule does). `tp`: the
+    `InferenceTP` (n > 1) of a row-parallel leaf, whose input rows this rank
+    holds a slice of: the product of the bias-free leaf is then this rank's
+    partial sum in fp32, not rounded (rounded once after the all-reduce, as
+    JAX rounds the whole sum; B5 writes it unrounded too, B4 writes bf16, so
+    its partial sums are rounded once before), and a w8a8 leaf quantizes
+    each row with the whole row's scale (`quantize_activations`).
 
     The bias is added in fp32 before the one rounding to x.dtype, as the
     JAX `preferred_element_type=f32` product does: in the matmul's epilogue
@@ -274,10 +293,11 @@ def _linear(x: torch.Tensor, p, width: Optional[int] = None,
     if not isinstance(p, dict):
         p = {"w": p}
     lead = x.shape[:-1]
+    f32 = tp is not None
     if "w_q8" in p:
-        xq, xs = quantize_rows(x.reshape(-1, x.shape[-1]))
-        out = int8_matmul(xq, xs, p["w_q8"], p["scale"], p.get("b"), out_dtype=x.dtype)
-        out = out.float() if f32 else out  # B5 writes the activation dtype, as B4 does
+        xq, xs = quantize_activations(x.reshape(-1, x.shape[-1]), tp)
+        out = int8_matmul(xq, xs, p["w_q8"], p["scale"], p.get("b"),
+                          out_dtype=torch.float32 if f32 else x.dtype)
         return out.reshape(lead + (out.shape[-1],))
     if "w_p4" in p:
         rows = math.prod(lead)
@@ -446,7 +466,8 @@ def _layer_extend(
     widths, leave = None, (lambda z: z)
     if tp is not None:
         h, kh, widths, leave = tp.heads, tp.kv_heads, tp.widths, tp.leave
-    partial = tp is not None and tp.n > 1  # o and down give fp32 partial sums
+    # o and down give fp32 partial sums, their w8a8 rows the whole row's scale
+    rowpar = tp if tp is not None and tp.n > 1 else None
     mot = cfg.layer_module == "mot"
 
     attn_u = lp["attn"]
@@ -520,8 +541,8 @@ def _layer_extend(
 
     o = leave(_split_apply(
         att.to(x.dtype), und_len,
-        lambda z: _linear(z, attn_u["o"], f32=partial),
-        lambda z: _linear(z, attn_g["o"], f32=partial),
+        lambda z: _linear(z, attn_u["o"], tp=rowpar),
+        lambda z: _linear(z, attn_g["o"], tp=rowpar),
     ))
     if att.dtype != x.dtype:
         # an int8 cache's bf16 attention beside f32 weights: JAX's product
@@ -538,7 +559,7 @@ def _layer_extend(
     def ffn(mlp, pln):
         def f(z):
             z = rms_norm(z, pln, cfg.rms_norm_eps)
-            return _linear(_ffn_mix(z, mlp, widths), mlp["down"], f32=partial)
+            return _linear(_ffn_mix(z, mlp, widths), mlp["down"], tp=rowpar)
 
         return f
 

@@ -9,8 +9,10 @@ the end: the order of `qwen2._linear`'s w8a8 branch (without a bias it is
 plain version agree bit for bit.
 
 On a CUDA tensor `int8_matmul` launches the hand-written Hopper kernel
-`csrc/int8_matmul.cu` (wgmma + TMA, bf16 out) or raises; it takes the plain
-version `int8_matmul_plain` only for CPU tensors. The kernel reads the
+`csrc/int8_matmul.cu` (wgmma + TMA; bf16 out, or with out_dtype=float32
+the epilogue's value before its rounding, counted also in
+`int8_matmul_f32.launches`) or raises; it takes the plain version
+`int8_matmul_plain` only for CPU tensors. The kernel reads the
 weight K-major: on CUDA `wq` [K, N] must be a transposed view of a
 contiguous [N, K] tensor, made once at load by `utils.quant.to_kmajor` /
 `w8a8_kmajor` (the wrapper raises on a row-major weight; it never
@@ -19,7 +21,11 @@ kernel's tiles (bm, bn, bk) are TPU tiling and are not ported.
 
 `quantize_rows` (the per-token activation quantization feeding it) is a
 kernel wrapper too: one pass of `csrc/int8_matmul.cu` on a CUDA tensor,
-`quantize_rows_plain` on a CPU tensor.
+`quantize_rows_plain` on a CPU tensor. Where a row is split over tensor
+parallelism its two halves run apart, as JAX's max over the sharded axis
+does: `row_absmax` (each row's absmax of this rank's slice), an all-reduce
+with MAX, `row_scale`, then `quantize_rows(x, scale)` (the codes with the
+scales given, counted in `quantize_rows_given.launches`).
 """
 
 from __future__ import annotations
@@ -34,16 +40,28 @@ from bagel_tpu_torch.ops import _build
 KERNEL = "int8_matmul"
 
 
-def quantize_rows_plain(x: torch.Tensor):
+def row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Each row's max |x| of x [..., K], f32 [..., 1]."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def row_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The w8a8 activation scale of a row absmax: max(amax, 1e-12) / 127."""
+    amax = torch.clamp(amax, min=1e-12)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # product with its reciprocal, which is not the IEEE quotient
+    return amax / torch.full_like(amax, 127.0)
+
+
+def quantize_rows_plain(x: torch.Tensor, scale: Optional[torch.Tensor] = None):
     """Dynamic per-token (per-row) symmetric int8 of activations [..., K]:
     (codes int8, scales f32 [..., 1]), as the JAX package's w8a8 `_linear`
     makes them (XLA's work there): scale max(absmax, 1e-12) / 127, codes
-    round-half-even(x / scale) clamped to +-127, in f32."""
+    round-half-even(x / scale) clamped to +-127, in f32. `scale` [..., 1]
+    f32, if given, is taken in place of the row's own (a tp rank's slice of
+    a row quantized with the whole row's scale) and returned as it is."""
     xf = x.float()
-    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-12)
-    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
-    # product with its reciprocal, which is not the IEEE quotient
-    xs = amax / torch.full_like(amax, 127.0)
+    xs = row_scale(row_absmax_plain(xf)) if scale is None else scale
     return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
 
 
@@ -59,36 +77,81 @@ def _check_rows(x: torch.Tensor) -> None:
                          f"(strides {x.stride()})")
 
 
-def quantize_rows(x: torch.Tensor):
+def _quant_launch(fn, name: str, x: torch.Tensor, *ptrs) -> None:
+    """Launch the quantization pass `name` over the rows of x on its stream."""
+    m, k = x.shape
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, name)(x.data_ptr(), x.stride(0), *ptrs, m, k, stream)
+    if err:
+        msg = lib.int8_matmul_error_string(err).decode()
+        raise RuntimeError(f"{fn.__name__} launch failed: {msg} ({err})")
+    _build.count_launch(fn)
+
+
+def quantize_rows(x: torch.Tensor, scale: Optional[torch.Tensor] = None):
     """`quantize_rows_plain`'s (codes [M, K] int8, scales [M, 1] f32) of x
     [M, K]: on a CUDA tensor one launch of the quantization kernel (bf16
     rows; bit-identical to the plain version), on a CPU tensor the plain
-    version.
+    version. With `scale` [M, 1] f32 given, the codes with that scale (the
+    given-scale kernel).
 
-    `quantize_rows.launches` counts kernel launches."""
+    `quantize_rows.launches` counts the launches of the whole pass,
+    `quantize_rows_given.launches` those with a given scale."""
     if x.device.type == "cpu":
-        return quantize_rows_plain(x)
+        return quantize_rows_plain(x, scale)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_rows(x)
     m, k = x.shape
+    if scale is not None:
+        if scale.device != x.device or scale.dtype != torch.float32 or scale.shape != (m, 1):
+            raise ValueError(f"scale must be [{m}, 1] f32 on {x.device}, got "
+                             f"{tuple(scale.shape)} {scale.dtype} on {scale.device}")
+        scale = scale.contiguous()
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device) if scale is None else scale
     if m == 0 or k == 0:
         return xq, xs
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.quantize_rows_bf16(x.data_ptr(), x.stride(0), xq.data_ptr(), xs.data_ptr(),
-                                     m, k, stream)
-    if err:
-        msg = lib.int8_matmul_error_string(err).decode()
-        raise RuntimeError(f"quantize_rows launch failed: {msg} ({err})")
-    _build.count_launch(quantize_rows)
+    if scale is None:
+        _quant_launch(quantize_rows, "quantize_rows_bf16", x, xq.data_ptr(), xs.data_ptr())
+    else:
+        _quant_launch(quantize_rows_given, "quantize_rows_given_bf16", x, xs.data_ptr(),
+                      xq.data_ptr())
     return xq, xs
 
 
 quantize_rows.launches = 0
+
+
+def quantize_rows_given(x: torch.Tensor, scale: torch.Tensor):
+    """`quantize_rows(x, scale)`: the given-scale kernel's launches are
+    counted on this function."""
+    return quantize_rows(x, scale)
+
+
+quantize_rows_given.launches = 0
+
+
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """`row_absmax_plain` of x [M, K] ([M, 1] f32): on a CUDA tensor one
+    launch of the reduce-only kernel (bf16 rows; bit-identical), on a CPU
+    tensor the plain version.
+
+    `row_absmax.launches` counts kernel launches."""
+    if x.device.type == "cpu":
+        return row_absmax_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_rows(x)
+    amax = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
+    if x.numel():
+        _quant_launch(row_absmax, "row_absmax_bf16", x, amax.data_ptr())
+    return amax
+
+
+row_absmax.launches = 0
 
 
 def int8_products(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -121,8 +184,12 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.quantize_rows_bf16.argtypes = [p, ctypes.c_int64, p, p, i, i, p]
-        lib.quantize_rows_bf16.restype = ctypes.c_int
+        lib.int8_matmul_f32.argtypes = fn.argtypes
+        lib.int8_matmul_f32.restype = ctypes.c_int
+        for name, n_ptrs in (("quantize_rows_bf16", 2), ("quantize_rows_given_bf16", 2),
+                             ("row_absmax_bf16", 1)):
+            getattr(lib, name).argtypes = [p, ctypes.c_int64] + [p] * n_ptrs + [i, i, p]
+            getattr(lib, name).restype = ctypes.c_int
         lib.int8_matmul_error_string.argtypes = [i]
         lib.int8_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -144,8 +211,8 @@ def _check(xq, xs, wq, ws, bias, out_dtype) -> None:
     if k % 16 or n % 16:
         raise ValueError(f"the kernel loads 16-byte rows: K ({k}) and N ({n}) "
                          "must be multiples of 16")
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel writes bf16, not {out_dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA kernel writes bf16 or f32, not {out_dtype}")
     if not wq.t().is_contiguous():
         raise ValueError(
             f"the CUDA kernel reads the weight k-major: wq [K, N] must be a transposed view "
@@ -163,9 +230,11 @@ def int8_matmul(
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """[M, N] in out_dtype (see the module docstring). Any M, N and K; on
-    CUDA, K and N multiples of 16 (every BAGEL matmul).
+    CUDA, K and N multiples of 16 (every BAGEL matmul), and out_dtype bf16
+    or float32 (the f32 instance: the epilogue's value unrounded).
 
-    `int8_matmul.launches` counts kernel launches."""
+    `int8_matmul.launches` counts kernel launches, `int8_matmul_f32.launches`
+    those of the f32 instance among them."""
     if xq.device.type == "cpu":
         return int8_matmul_plain(xq, xs, wq, ws, bias, out_dtype)
     if xq.device.type != "cuda":
@@ -183,7 +252,8 @@ def int8_matmul(
     lib = _library()
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
-        err = lib.int8_matmul_bf16(
+        launch = lib.int8_matmul_f32 if out_dtype == torch.float32 else lib.int8_matmul_bf16
+        err = launch(
             xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr(),
             m, n, xq.shape[1], stream,
@@ -192,7 +262,18 @@ def int8_matmul(
         msg = lib.int8_matmul_error_string(err).decode()
         raise RuntimeError(f"int8_matmul launch failed: {msg} ({err})")
     _build.count_launch(int8_matmul)
+    if out_dtype == torch.float32:
+        _build.count_launch(int8_matmul_f32)
     return out
 
 
 int8_matmul.launches = 0
+
+
+def int8_matmul_f32(xq, xs, wq, ws, bias=None) -> torch.Tensor:
+    """`int8_matmul(..., out_dtype=torch.float32)`: the f32 instance's
+    launches are counted on this function too."""
+    return int8_matmul(xq, xs, wq, ws, bias, out_dtype=torch.float32)
+
+
+int8_matmul_f32.launches = 0

@@ -756,11 +756,11 @@ def gather_plain(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.to(x.device) if stage else out
 
 
-def _all_reduce_plain(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum over the group, in place on x, with no autograd."""
+def _all_reduce_plain(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or `op`) over the group, in place on x, with no autograd."""
     if group is not None:
         _issued("all_reduce", x)
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=op, group=group)
     return x
 
 
@@ -772,7 +772,9 @@ class InferenceTP:
     leaf, as JAX's does), and `leave`, the in-place all-reduce of the o and
     down products' partial sums: fp32 where n > 1, rounded once after the
     sum as JAX rounds the whole product; at n = 1 the whole product,
-    rounded as unsharded."""
+    rounded as unsharded. `row_max`: the in-place all-reduce with MAX of a
+    w8a8 row-parallel leaf's activation row absmax (its input rows are
+    split over tp, and JAX's scale is the whole row's)."""
 
     group: object
     n: int
@@ -782,6 +784,9 @@ class InferenceTP:
 
     def leave(self, x: torch.Tensor) -> torch.Tensor:
         return _all_reduce_plain(x, self.group)
+
+    def row_max(self, amax: torch.Tensor) -> torch.Tensor:
+        return _all_reduce_plain(amax, self.group, dist.ReduceOp.MAX)
 
 
 class InferenceLayout:

@@ -4,9 +4,11 @@ bagel_tpu/train/checkpoint.py).
 Layout: <dir>/<step:07d>/{state/, data_status.json, config.json}, as in the
 JAX package, but `state/` holds safetensors files (params, ema, the Adam
 moments mu and nu, each leaf under its '/'-joined path) and `state.json`
-(step, update count, which trees exist) in place of Orbax's format. A JAX
-Orbax checkpoint is not read (ROADMAP A, reading a JAX Orbax training
-state).
+(step, update count, which trees exist) in place of Orbax's format. The
+port reads no Orbax: a JAX training state converts with
+`python tools/orbax_to_torch.py --ckpt <JAX ckpt_dir or step dir> --out
+<dir>` (where JAX and Orbax are installed), and restoring an Orbax step
+directory raises an error that names that command.
 
 Under a mesh (`layout`, `parallel.mesh.Layout`) the files hold the full
 leaves, as one process's: a save gathers one leaf at a time from its
@@ -83,19 +85,19 @@ _ST_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"
               torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
 
 
-def _stream_tree(file: Optional[str], tree, layout, device) -> None:
-    """A sharded tree's full leaves into the safetensors file `file`, one
-    leaf at a time: each gathered from its shards (collective: every
-    process calls it, `file` None but on rank 0; each shard visits
-    `device` for the gather) and written before the next, so host memory
-    holds one leaf. A write error is raised after the last gather, so the
-    other processes never wait on a writer that stopped."""
-    flat = _flatten(tree)
+def write_leaves(file: Optional[str], specs: dict, leaves) -> None:
+    """One safetensors file, a leaf at a time: `specs` ({path: (dtype,
+    shape)}, in the file's order) makes the header, written first; then
+    each (path, tensor) pair that the iterable `leaves` yields, in the same
+    order, is written as it arrives, so the caller holds one leaf. With
+    `file` None the leaves are drawn and dropped (a process that takes part
+    in a collective gather but does not write). A write error is raised
+    after the last leaf is drawn, so that processes gathering with the
+    writer never wait on one that stopped."""
     header, end = {}, 0
-    for k, v in flat.items():
-        shape = layout.shapes[k]
-        n = math.prod(shape) * v.element_size()
-        header[k] = {"dtype": _ST_DTYPES[v.dtype], "shape": list(shape),
+    for k, (dtype, shape) in specs.items():
+        n = math.prod(shape) * dtype.itemsize
+        header[k] = {"dtype": _ST_DTYPES[dtype], "shape": list(shape),
                      "data_offsets": [end, end + n]}
         end += n
     f, err = None, None
@@ -107,18 +109,37 @@ def _stream_tree(file: Optional[str], tree, layout, device) -> None:
             f.write(struct.pack("<Q", len(head)) + head)
     except OSError as e:
         err = e
-    for k, v in flat.items():
-        full = layout.unshard(k, v.detach().to(device))
-        if f is not None and err is None:
-            try:
-                f.write(full.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().data)
-            except OSError as e:
-                err = e
-        del full
-    if f is not None:
-        f.close()
+    try:
+        order = iter(specs.items())
+        for k, t in leaves:
+            want, (dtype, shape) = next(order, (None, (None, ())))  # None: one too many
+            if (k, t.dtype, tuple(t.shape)) != (want, dtype, tuple(shape)):
+                raise ValueError(f"leaf {k} {t.dtype} {tuple(t.shape)} arrived where the "
+                                 f"header has {want} {dtype} {tuple(shape)}")
+            if f is not None and err is None:
+                try:
+                    f.write(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().data)
+                except OSError as e:
+                    err = e
+            del t
+        if next(order, None) is not None:
+            raise ValueError(f"{file}: fewer leaves than the header names")
+    finally:
+        if f is not None:
+            f.close()
     if err is not None:
         raise err
+
+
+def _stream_tree(file: Optional[str], tree, layout, device) -> None:
+    """A sharded tree's full leaves into the safetensors file `file`, one
+    leaf at a time (`write_leaves`): each gathered from its shards
+    (collective: every process calls it, `file` None but on rank 0; each
+    shard visits `device` for the gather) and written before the next."""
+    flat = _flatten(tree)
+    specs = {k: (v.dtype, layout.shapes[k]) for k, v in flat.items()}
+    write_leaves(file, specs, ((k, layout.unshard(k, v.detach().to(device)))
+                               for k, v in flat.items()))
 
 
 def _trees(state: TrainState) -> dict:
@@ -321,10 +342,24 @@ def _unflatten(flat: dict):
     return lists(tree)
 
 
+# what an Orbax save leaves in a step's `state` directory
+_ORBAX_MARKS = ("_CHECKPOINT_METADATA", "manifest.ocdbt")
+
+
 def checkpoint_meta(path: str) -> dict:
-    """A step directory's state.json: step, update count and saved trees."""
-    with open(os.path.join(path, "state", "state.json")) as f:
+    """A step directory's state.json: step, update count and saved trees.
+    Raises, naming the converter, on a JAX (Orbax) training state."""
+    state = os.path.join(path, "state")
+    if not os.path.exists(os.path.join(state, "state.json")) and any(
+            os.path.exists(os.path.join(state, m)) for m in _ORBAX_MARKS):
+        raise ValueError(
+            f"{path} holds a bagel_tpu (Orbax) training state, which bagel_tpu_torch does "
+            f"not read: convert it first with `python tools/orbax_to_torch.py --ckpt {path} "
+            "--out <dir>` (run where JAX and Orbax are installed), then point the port at "
+            "<dir>")
+    with open(os.path.join(state, "state.json")) as f:
         return json.load(f)
+
 
 
 def load_tree(path: str, name: str) -> dict:

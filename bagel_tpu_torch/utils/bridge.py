@@ -68,19 +68,30 @@ def params_to(tree, device, dtype: Optional[torch.dtype] = None, layout=None):
                                                     layout).to(device))
 
 
+def port_layout(t: torch.Tensor, key=None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A JAX-layout leaf tensor in the port's layout: 4-D leaves, which in
+    this tree are the VAE's conv kernels and nothing else (the SigLIP
+    tower's leaves are at most 3-D), transposed HWIO -> OIHW; `dtype`, if
+    given, casts a floating-point leaf unless its `key` is one of the
+    quantized leaves' scales (SCALE_KEYS), which stay f32. The parameters'
+    tree and every tree of their shape (EMA, Adam's moments) take the same
+    map. A meta tensor gives the (dtype, shape) of the result alone."""
+    if t.ndim == 4:
+        t = t.permute(3, 2, 0, 1).contiguous()
+    return _cast(t, key, dtype)
+
+
+def port_leaf(node, key=None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An array leaf of a JAX-layout tree as the port's CPU tensor
+    (`port_layout`)."""
+    return port_layout(_to_tensor(node), key, dtype)
+
+
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None, layout=None):
     """Dicts and lists are walked; every array leaf becomes a tensor on
-    `device`. 4-D leaves, which in this tree are the VAE's conv kernels and
-    nothing else (the SigLIP tower's leaves are at most 3-D), are
-    transposed HWIO -> OIHW. `dtype`, if given, casts every floating-point
-    leaf except the scales of quantized leaves (SCALE_KEYS), which stay
-    f32. `layout`: this process's shards (module docstring)."""
+    `device` (`port_leaf`: the VAE's conv kernels HWIO -> OIHW; `dtype`, if
+    given, casts every floating-point leaf but the quantized leaves'
+    scales). `layout`: this process's shards (module docstring)."""
     device = resolve_device(device)
-
-    def leaf(node, key, path):
-        t = _to_tensor(node)
-        if t.ndim == 4:
-            t = t.permute(3, 2, 0, 1).contiguous()
-        return _placed(_cast(t, key, dtype), path, layout).to(device)
-
-    return _walk(tree, leaf)
+    return _walk(tree, lambda node, key, path: _placed(port_leaf(node, key, dtype), path,
+                                                       layout).to(device))

@@ -51,7 +51,13 @@ Phases (the first failure exits non-zero, and no result line is printed):
                 ragged M/N/K (control: ws reversed); the activation
                 quantization pass (quantize_rows) bit for bit, codes and
                 scales, at the four path shapes and a ragged one, timed
-                against its bytes bound;
+                against its bytes bound; a row split over tp (o and down at
+                tp = 2 and 4's local K, M in {1, 8, 77}): the reduce-only
+                pass (row_absmax) and the given-scale one
+                (quantize_rows_given) bit for bit (control: a scale 1 %
+                off), B5's f32 instance bit for bit against the plain
+                epilogue before its rounding, each timed at tp = 2 against
+                its bound;
              3d B4 int4_matmul at every decode linear's shape, M in {1, 3, 64},
                 one launch a call (the counter, and the kernel nodes of one
                 call captured in a CUDA graph), two calls bit-identical,
@@ -243,7 +249,14 @@ Phases (the first failure exits non-zero, and no result line is printed):
              B4 launched at the local shard shapes in int4 decode steps
              (eligible on the whole leaf's width) and against its plain
              version there, B5 in a w8a8 gen block and bit for bit at the
-             local shapes; (c) tp over two cards or more through nccl (a
+             local shapes, that gen block's velocity against one
+             process's w8a8 (each row-parallel row quantized with its
+             whole row's scale; the row-parallel weights quantized on the
+             whole leaf, as a w8a8 checkpoint arrives) after one layer
+             and after all, with a control (each rank's own scale) that
+             must fail the one-layer gate, its launches and all-reduces
+             by formula;
+             (c) tp over two cards or more through nccl (a
              line says when the machine has fewer).
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
@@ -1241,6 +1254,113 @@ def phase_quantize_rows(cfg):
     return results
 
 
+def phase_split_rows(cfg):
+    """A w8a8 row-parallel leaf's split quantization (tp > 1: each row's
+    absmax of this rank's slice, MAX over tp, the codes with the whole
+    row's scale) and B5's f32 instance (its partial sums), at the local
+    shapes of tp = 2 and 4: o (K = hidden / tp) and down (K = FFN / tp),
+    M = 1, 8 and a ragged 77. The reduce-only and the given-scale kernels
+    bit for bit against their plain versions (the given scale the larger
+    absmax of another rank's slice), a control (the codes of a scale 1 %
+    off) that must differ; B5's f32 instance bit for bit against the plain
+    epilogue before its rounding, and its bf16 rounding equal to B5's bf16
+    instance. Device times at tp = 2's local shapes of the 1024 px gen
+    block's rows (3 x 4096), beside their bounds."""
+    from bagel_tpu_torch.ops import int8_matmul as m8
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    d, f = cfg.llm.hidden_size, cfg.llm.intermediate_size
+    gen_rows = 3 * (PX // cfg.latent_downsample) ** 2
+    rows = []
+    for tp in (2, 4):
+        for leaf, k in (("o", d // tp), ("down", f // tp)):
+            for m in (1, 8, 77) + ((gen_rows,) if tp == 2 else ()):
+                # this rank's slice and another's: bf16 rows of mixed magnitude
+                x, other = ((torch.randn((m, k), generator=gen, device=DEVICE)
+                             * (torch.rand((m, 1), generator=gen, device=DEVICE) * 50)).bfloat16()
+                            for _ in range(2))
+                amax = m8.row_absmax(x)
+                scale = m8.row_scale(torch.maximum(amax, m8.row_absmax_plain(other)))
+                xq, xs = m8.quantize_rows(x, scale)
+                torch.cuda.synchronize()
+                same_amax = torch.equal(amax, m8.row_absmax_plain(x))
+                same_q = torch.equal(xq, m8.quantize_rows_plain(x, scale)[0])
+                label = f"tp = {tp} {leaf} M={m} K={k}"
+                check(same_amax, f"row_absmax {label}: differs from the plain version in "
+                                 f"{int((amax != m8.row_absmax_plain(x)).sum())} rows")
+                check(same_q, f"quantize_rows_given {label}: codes differ from the plain version")
+                blind = m8.quantize_rows_plain(x, scale * 1.01)[0]
+                check(not torch.equal(blind, xq),
+                      f"quantize_rows_given {label}: the gate accepts a scale 1 % off")
+                row = dict(shape=label, tp=tp, leaf=leaf, M=m, K=k, bit_identical=True,
+                           control_codes_differ=int((blind != xq).sum()))
+                wq = to_kmajor_random(gen, k, d)
+                ws = (torch.rand((d,), generator=gen, device=DEVICE) + 0.5) / 127
+                got = m8.int8_matmul(xq, xs, wq, ws, out_dtype=torch.float32)
+                want = m8.int8_matmul_plain(xq, xs, wq, ws, out_dtype=torch.float32)
+                bf16 = m8.int8_matmul(xq, xs, wq, ws)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"B5 f32 {label} N={d}: differs from the plain "
+                                              f"epilogue in {int((got != want).sum())} values")
+                check(torch.equal(got.bfloat16(), bf16),
+                      f"B5 f32 {label}: its rounding differs from the bf16 instance")
+                row["b5_f32_bit_identical"] = True
+                if m == gen_rows:
+                    bytes_abs, bytes_given = 2 * m * k + 4 * m, 2 * m * k + 4 * m + m * k
+                    ops = 2 * m * d * k
+                    bytes_b5 = m * k + k * d + 4 * m * d + 4 * (m + d)
+                    row.update(
+                        absmax_device_ms=device_ms(lambda: m8.row_absmax(x), 20),
+                        absmax_call_ms=cuda_ms(lambda: m8.row_absmax(x), 20, 2),
+                        absmax_plain_ms=cuda_ms(lambda: m8.row_absmax_plain(x), 5),
+                        absmax_library_ms=device_ms(lambda: torch.linalg.vector_norm(
+                            x, float("inf"), dim=-1, keepdim=True, dtype=torch.float32), 20),
+                        absmax_bound_ms=bound_ms_at(0, bytes_abs, PEAK_INT8)[0],
+                        given_device_ms=device_ms(lambda: m8.quantize_rows(x, scale), 20),
+                        given_call_ms=cuda_ms(lambda: m8.quantize_rows(x, scale), 20, 2),
+                        given_plain_ms=cuda_ms(lambda: m8.quantize_rows_plain(x, scale), 5),
+                        given_bound_ms=bound_ms_at(0, bytes_given, PEAK_INT8)[0],
+                        whole_device_ms=device_ms(lambda: m8.quantize_rows(x), 20),
+                        b5_f32_device_ms=device_ms(
+                            lambda: m8.int8_matmul(xq, xs, wq, ws, out_dtype=torch.float32), 10),
+                        b5_f32_call_ms=cuda_ms(
+                            lambda: m8.int8_matmul(xq, xs, wq, ws, out_dtype=torch.float32),
+                            10, 2),
+                        b5_f32_plain_ms=cuda_ms(lambda: m8.int8_matmul_plain(
+                            xq, xs, wq, ws, out_dtype=torch.float32), 2),
+                        b5_bf16_device_ms=device_ms(lambda: m8.int8_matmul(xq, xs, wq, ws), 10),
+                        b5_f32_library_ms=device_ms(
+                            lambda: torch._int_mm(xq, wq).float() * xs * ws, 10),
+                        b5_f32_bound_ms=bound_ms_at(ops, bytes_b5, PEAK_INT8)[0],
+                        b5_f32_bound_by=bound_ms_at(ops, bytes_b5, PEAK_INT8)[1])
+                    log(f"[kernels] split rows {label}: row_absmax device "
+                        f"{row['absmax_device_ms']:.4f} ms (bound {row['absmax_bound_ms']:.4f}, "
+                        f"plain {row['absmax_plain_ms']:.3f}), quantize_rows_given device "
+                        f"{row['given_device_ms']:.4f} ms (bound {row['given_bound_ms']:.4f}, "
+                        f"plain {row['given_plain_ms']:.3f}), the whole pass "
+                        f"{row['whole_device_ms']:.4f} ms; B5 f32 N={d} device "
+                        f"{row['b5_f32_device_ms']:.4f} ms (bf16 instance "
+                        f"{row['b5_bf16_device_ms']:.4f}, torch._int_mm + epilogue "
+                        f"{row['b5_f32_library_ms']:.4f}, plain {row['b5_f32_plain_ms']:.3f}, "
+                        f"bound {row['b5_f32_bound_ms']:.4f} ({row['b5_f32_bound_by']}))")
+                else:
+                    log(f"[kernels] split rows {label}: absmax, codes and B5 f32 (N={d}) "
+                        f"bit-identical; control codes of a scale 1 % off: "
+                        f"{row['control_codes_differ']} differ")
+                rows.append(row)
+                del x, other, amax, scale, xq, xs, wq, ws, got, want, bf16, blind
+    torch.cuda.empty_cache()
+    return rows
+
+
+def to_kmajor_random(gen, k, n):
+    """A random int8 [k, n] weight laid out k-major (B5's layout)."""
+    from bagel_tpu_torch.utils.quant import to_kmajor
+
+    return to_kmajor(torch.randint(-127, 128, (k, n), generator=gen, device=DEVICE,
+                                   dtype=torch.int8))
+
+
 # ---------------------------------------------------------------------------
 # phase 3d: B4 int4_matmul against its plain version
 # ---------------------------------------------------------------------------
@@ -2150,7 +2270,8 @@ def counted_call(fn):
 
 def bf16_counts(**kw):
     """The launch counts of a bf16 path: B1 and B3 as given, the rest 0."""
-    return dict(dict(b1=0, b2=0, b3=0, b3_bwd=0, b4=0, b5=0, quant=0, prep=0, kv8=0), **kw)
+    return dict(dict(b1=0, b2=0, b3=0, b3_bwd=0, b4=0, b5=0, b5_f32=0, quant=0, absmax=0,
+                     quant_given=0, prep=0, kv8=0), **kw)
 
 
 def phase_taylorseer(engine, t2i):
@@ -2398,13 +2519,13 @@ def plain_linears():
     from bagel_tpu_torch.ops import int4_matmul as m4
     from bagel_tpu_torch.ops import int8_matmul as m8
 
-    saved = qwen2.int8_matmul, qwen2.int4_matmul, qwen2.quantize_rows
+    saved = qwen2.int8_matmul, qwen2.int4_matmul, qwen2.quantize_rows, qwen2.row_absmax
     qwen2.int8_matmul, qwen2.int4_matmul = m8.int8_matmul_plain, m4.int4_matmul_plain
-    qwen2.quantize_rows = m8.quantize_rows_plain
+    qwen2.quantize_rows, qwen2.row_absmax = m8.quantize_rows_plain, m8.row_absmax_plain
     try:
         yield
     finally:
-        qwen2.int8_matmul, qwen2.int4_matmul, qwen2.quantize_rows = saved
+        qwen2.int8_matmul, qwen2.int4_matmul, qwen2.quantize_rows, qwen2.row_absmax = saved
 
 
 @contextlib.contextmanager
@@ -2478,7 +2599,9 @@ def counts_reset():
     fns = dict(b1=flash.flash_cached_attention, b2=flash.flash_cached_attention_q8,
                b3=sparse_flash.sparse_packed_attention,
                b3_bwd=sparse_flash.sparse_packed_attention_bwd, b4=int4_matmul.int4_matmul,
-               b5=int8_matmul.int8_matmul, quant=int8_matmul.quantize_rows,
+               b5=int8_matmul.int8_matmul, b5_f32=int8_matmul.int8_matmul_f32,
+               quant=int8_matmul.quantize_rows, absmax=int8_matmul.row_absmax,
+               quant_given=int8_matmul.quantize_rows_given,
                prep=flash.q8_prep, kv8=flash.flash_decode_kv8)
     for fn in fns.values():
         fn.launches = 0
@@ -2544,8 +2667,7 @@ def phase_t2i_w8a8(engine, gen):
         # fused leaves: qkv, o, gate_up, down per expert; a prefill runs the
         # und expert, a gen block both (the 2 boundary tokens take the und one)
         b5 = L * (4 * 2 + 8 * forwards)
-        want = dict(b1=0, b2=L * (2 + forwards), b3=0, b3_bwd=0, b4=0, b5=b5, quant=b5,
-                    prep=L * (2 + forwards), kv8=0)
+        want = bf16_counts(b2=L * (2 + forwards), b5=b5, quant=b5, prep=L * (2 + forwards))
         log(f"[t2i w8a8] __call__ {PX} px, {NUM_TIMESTEPS} timesteps, BAGEL_FLASH_INT8=1: "
             f"{total_s:.2f} s, peak memory {peak / 2**30:.2f} GiB (at most {W8A8_PEAK_GIB}); "
             f"launches {counts} (expected B5 {L} x (4 x 2 prefills + 8 x {forwards} forwards) "
@@ -2636,8 +2758,7 @@ def phase_vqa_int4(engine, card):
         n_tok = len(answer.split())
         steps = n_tok + 1 if n_tok < MAX_THINK else MAX_THINK
         run = program_steps(steps, qeng.decode.chunk)  # the program's whole chunks
-        want = dict(b1=L * (2 + caps + run), b2=0, b3=LV, b3_bwd=0, b4=L * 4 * (caps + run),
-                    b5=0, quant=0, prep=0, kv8=0)
+        want = bf16_counts(b1=L * (2 + caps + run), b3=LV, b4=L * 4 * (caps + run))
         log(f"[vqa int4] __call__ {VQA_PX} px + question, {MAX_THINK} tokens at most: "
             f"{total_s:.2f} s, answer of {n_tok} tokens, peak memory {peak / 2**30:.2f} GiB; "
             f"launches {counts} (expected B4 {L} x 4 fused linears x ({caps} capture warm-up "
@@ -5158,6 +5279,47 @@ class DropPartial:
         return self.tp.leave(x)
 
 
+class OwnScale:
+    """An InferenceTP whose w8a8 row-parallel leaves quantize each rank's
+    slice of a row with its own scale (no MAX over tp): 12b's w8a8
+    control, what the port did before each row took its whole row's."""
+
+    def __init__(self, tp):
+        self.tp = tp
+
+    def __getattr__(self, name):
+        return getattr(self.tp, name)
+
+    def row_max(self, amax):
+        return amax
+
+
+def whole_leaf_w8a8(q, params, layout):
+    """The row-parallel leaves (o and down: their input rows split over tp)
+    of a w8a8 tree quantized on this rank's shards, quantized again on the
+    whole leaf and cut, as a w8a8 checkpoint arrives (the app quantizes,
+    then places): a shard's own per-column scale, the max over its half of
+    the input rows, would be another model than one process's. Each leaf
+    is gathered over tp (collective), one at a time."""
+    from bagel_tpu_torch.parallel.mesh import gather_plain
+    from bagel_tpu_torch.utils.quant import quantize_weight
+
+    layers = params["llm"]["layers"]
+    for group in ("attn", "attn_gen", "mlp", "mlp_gen"):
+        name = "o" if group.startswith("attn") else "down"
+        if group not in layers:
+            continue
+        leaf = layers[group][name]
+        whole = gather_plain(leaf["w"] if isinstance(leaf, dict) else leaf, -2, layout.tp.group)
+        w = quantize_weight(whole)
+        del whole
+        path = f"llm/layers/{group}/{name}"
+        q["llm"]["layers"][group][name] = dict(
+            w_q8=layout.place(path + "/w_q8", w["w_q"]), scale=layout.place(path + "/scale",
+                                                                           w["scale"]))
+        del w
+
+
 def shard_inputs(cfg):
     """12b's inputs: the gen block's x1 at FORWARD_PX and the VQA image."""
     x1 = torch.randn((n_latents(cfg, FORWARD_PX), cfg.patch_latent_dim),
@@ -5236,8 +5398,9 @@ def child_sharded(spec):
     with the other process; the velocity, logits and VQA answer of
     `shard_paths`, the control (rank 1's o partial sums dropped), then B4
     and B5 at their local shard shapes: an int4 engine's decode steps and
-    a w8a8 engine's gen block through the kernels, and each kernel against
-    its plain version on this rank's layer-0 leaves."""
+    a w8a8 engine's gen block through the kernels (its velocity, and the
+    control's with each rank's own activation scale, `OwnScale`), and each
+    kernel against its plain version on this rank's layer-0 leaves."""
     import torch.distributed as dist
 
     from bagel_tpu_torch import configs
@@ -5319,13 +5482,23 @@ def child_sharded(spec):
         # B5 at its local shapes: a w8a8 engine's gen block, and the kernel
         # bit for bit on this rank's k-major layer-0 leaves
         q = quantize_bagel_params(params, "w8a8")
+        whole_leaf_w8a8(q, params, layout)
         q["llm"] = qwen2.fuse_llm_params(q["llm"], inplace=True)
         qeng = BagelEngine(q, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE,
                            layout=layout)
         ctxs = prompt_contexts(qeng)
-        read = counts_reset()
-        gen_block_velocity(qeng, ctxs, x1, L, "auto")
-        res["w8a8_counts"] = read()
+        read, coll = counts_reset(), collectives_reset()
+        w8 = {L: gen_block_velocity(qeng, ctxs, x1, L, "auto").cpu()}
+        res["w8a8_counts"], res["w8a8_collectives"] = read(), coll()
+        w8[1] = gen_block_velocity(qeng, ctxs, x1, 1, "auto").cpu()
+        tp, layout.tp = layout.tp, OwnScale(layout.tp)
+        w8.update({("control", d): gen_block_velocity(qeng, ctxs, x1, d, "auto").cpu()
+                   for d in (1, L)})
+        layout.tp = tp
+        if rank == 0:
+            res["w8a8_tensors"] = spec["out"] + ".w8a8.pt"
+            torch.save(w8, res["w8a8_tensors"])
+        del w8
         rows = []
         for group, name in (("attn", "qkv"), ("attn", "o"), ("mlp", "gate_up"), ("mlp", "down")):
             leaf = {k: t[0] for k, t in q["llm"]["layers"][group][name].items()}
@@ -5346,11 +5519,14 @@ def child_sharded(spec):
 def shard_reference():
     """One process's engine on 12b's and 12c's live_place weights: the
     velocity, logits and greedy VQA answer of `shard_paths`, and the
-    answer's margins (`answer_margins`)."""
+    answer's margins (`answer_margins`); then the same weights quantized
+    w8a8, its gen block's velocity."""
     from bagel_tpu_torch import configs
     from bagel_tpu_torch.data.tokenizer import MockTokenizer
     from bagel_tpu_torch.inference.engine import BagelEngine
+    from bagel_tpu_torch.models import qwen2
     from bagel_tpu_torch.models.bagel import init_bagel_params
+    from bagel_tpu_torch.utils.quant import quantize_bagel_params
 
     cfg = getattr(configs, SHARD_CFG)()
     tok = MockTokenizer(cfg.llm.vocab_size)
@@ -5363,9 +5539,24 @@ def shard_reference():
         engine = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE)
         vel, logits, answer, ctx = shard_paths(engine, x1, image)
         margins = answer_margins(engine, ctx, answer)
-    ref = dict(velocity=vel.cpu(), logits=logits.cpu(), answer=answer, margins=margins,
-               eos=tok.new_token_ids["eos_token_id"], s=time.perf_counter() - t0)
-    del engine, params, ctx, vel, logits
+        ref = dict(velocity=vel.cpu(), logits=logits.cpu(), answer=answer, margins=margins,
+                   eos=tok.new_token_ids["eos_token_id"])
+        del engine, ctx, vel, logits
+        gc_cuda()
+        # the w8a8 engine's gen block on the same weights (12b holds its tp = 2
+        # one) at one layer and all, and at all through the plain attention:
+        # how far a reordering alone moves it there
+        q = quantize_bagel_params(params, "w8a8")
+        del params
+        q["llm"] = qwen2.fuse_llm_params(q["llm"], inplace=True)
+        qeng = BagelEngine(q, cfg, tok, tok.new_token_ids, max_kv=MAX_KV, device=DEVICE)
+        ctxs, L = prompt_contexts(qeng), cfg.llm.num_hidden_layers
+        ref["w8a8_velocity"] = {d: gen_block_velocity(qeng, ctxs, x1, d, "auto").cpu()
+                                for d in (1, L)}
+        ref["w8a8_reorder"] = relative_error(
+            gen_block_velocity(qeng, ctxs, x1, L, "dense").cpu(), ref["w8a8_velocity"][L])
+        del qeng, q, ctxs
+    ref["s"] = time.perf_counter() - t0
     gc_cuda()
     return ref
 
@@ -5416,7 +5607,11 @@ def sharded_tp2(card, ref):
     held against one process's engine on the same weights (`ref`,
     `shard_gates`: with the control); B4 and B5 launched at their local
     shard shapes per their formulas and held against their plain versions
-    there."""
+    there; the w8a8 gen block's velocity against one process's w8a8 (each
+    row quantized with its whole row's scale: the row-parallel leaves'
+    absmax all-reduced with MAX) after one layer and after all, the
+    control with each rank's own scale failing the one-layer gate, and its
+    all-reduces by formula."""
     from bagel_tpu_torch import configs
 
     L = getattr(configs, SHARD_CFG)().llm.num_hidden_layers
@@ -5427,13 +5622,43 @@ def sharded_tp2(card, ref):
     out = shard_gates(f"12b tp = {SHARD_TP}", procs, ref)
     n4 = L * 4 * SHARD_DECODE  # 4 linears a layer, one whole chunk of steps
     n5 = L * 8  # the gen block: both experts' 4 linears a layer
+    # of which o and down (L x 2 x 2) are row-parallel: their rows' absmax,
+    # MAX over tp, the codes with the whole row's scale, B5's f32 instance
+    n_row = L * 4
+    # the w8a8 velocity against one process's: after one layer within
+    # FORWARD_TOL_1; after all, within FORWARD_TOL or, where larger, what the
+    # plain attention's reordering alone moves one process's (w8a8 codes
+    # amplify reorderings: phase 7's gate does the same)
+    w8 = torch.load(lead["w8a8_tensors"])
+    w8_rel, w8_ctl, w8_tol = {}, {}, {1: FORWARD_TOL_1, L: max(FORWARD_TOL, ref["w8a8_reorder"])}
+    for d in (1, L):
+        w8_rel[d] = relative_error(w8[d], ref["w8a8_velocity"][d])
+        w8_ctl[d] = relative_error(w8[("control", d)], ref["w8a8_velocity"][d])
+        check(w8_rel[d] <= w8_tol[d], f"12b tp = {SHARD_TP}: the w8a8 gen block's velocity at "
+                                      f"{d} layer(s), rel err {w8_rel[d]:.3e} against one "
+                                      f"process's > {w8_tol[d]:.3e}")
+    # the control (each rank's own scale) must fail after one layer, where
+    # nothing amplifies it
+    check(w8_ctl[1] > w8_tol[1], f"12b tp = {SHARD_TP}: the w8a8 control (each rank's own "
+                                 f"scale) passes the one-layer gate: rel err {w8_ctl[1]:.3e} <= "
+                                 f"{w8_tol[1]:.1e}")
+    out.update(w8a8_velocity_rel=w8_rel, w8a8_control_rel=w8_ctl, w8a8_tol=w8_tol,
+               w8a8_reorder_rel=ref["w8a8_reorder"])
+    want5 = bf16_counts(b1=L, b5=n5, b5_f32=n_row, quant=n5 - n_row, absmax=n_row,
+                        quant_given=n_row)  # B1: the block's attention, a layer
     for p in procs:
         check(p["counts"]["b4"] == p["counts"]["b5"] == 0, "12b: the bf16 paths ran B4 or B5")
         check(p["int4_counts"]["b4"] == n4, f"12b rank {p['rank']}: B4 launched "
               f"{p['int4_counts']['b4']} times in {SHARD_DECODE} decode steps, not {n4}")
-        check(p["w8a8_counts"]["b5"] == p["w8a8_counts"]["quant"] == n5,
-              f"12b rank {p['rank']}: B5 / quantize_rows launched {p['w8a8_counts']['b5']} / "
-              f"{p['w8a8_counts']['quant']} times in one gen block, not {n5}")
+        check(p["w8a8_counts"] == want5,
+              f"12b rank {p['rank']}: the w8a8 gen block's launches {p['w8a8_counts']} != "
+              f"{want5}")
+        # the embedding's sum, o's and down's partial sums a layer, and a MAX
+        # of the rows' absmax for each row-parallel linear
+        c = p["w8a8_collectives"]["all_reduce"]
+        check(c == dict(eager=1 + 2 * L + n_row, captured=0),
+              f"12b rank {p['rank']}: the w8a8 gen block's all-reduces {c}, not "
+              f"{1 + 2 * L + n_row} eager")
         for r in p["int4_rows"]:
             check(r["limit_ratio"] <= 1.0 and r["linear_launches"] == 1,
                   f"12b rank {p['rank']}: B4 at {r}")
@@ -5444,6 +5669,7 @@ def sharded_tp2(card, ref):
               f"12b: B4 / B5 at tp = 4's local shape {r}")
     out.update(reference_s=ref["s"], wall_s=wall, llm_gb=[p["llm_gb"] for p in procs],
                paths_s=[p["paths_s"] for p in procs], int4_rows=lead["int4_rows"],
+               w8a8_collectives=lead["w8a8_collectives"],
                w8a8_rows=lead["w8a8_rows"], tp4_rows=lead["tp4_rows"],
                launches=dict(sharded_tp2_int4=lead["int4_counts"],
                              sharded_tp2_w8a8=lead["w8a8_counts"],
@@ -5460,7 +5686,13 @@ def sharded_tp2(card, ref):
         f"{lead['w8a8_counts']['b5']} in a w8a8 gen block, bit-identical at "
         f"{[(r['leaf'], r['K'], r['N']) for r in lead['w8a8_rows']]}; at tp = 4's local shapes "
         f"{[(r['leaf'], r['K'], r['N']) for r in lead['tp4_rows']]} B4's limit ratios "
-        f"{[round(r['int4_limit_ratio'], 3) for r in lead['tp4_rows']]}, B5 bit-identical; the paths "
+        f"{[round(r['int4_limit_ratio'], 3) for r in lead['tp4_rows']]}, B5 bit-identical; the w8a8 "
+        f"gen block's velocity against one process's w8a8 rel err {w8_rel[1]:.3e} at 1 layer "
+        f"(tol {w8_tol[1]:.1e}), {w8_rel[L]:.3e} at {L} (tol {w8_tol[L]:.3e}; one process's "
+        f"plain attention alone {ref['w8a8_reorder']:.3e}), the control (each rank's own "
+        f"scale) {w8_ctl[1]:.3e} (must exceed the one-layer tol) / {w8_ctl[L]:.3e}, launches "
+        f"{lead['w8a8_counts']}, "
+        f"all-reduces {lead['w8a8_collectives']['all_reduce']}; the paths "
         f"{out['paths_s'][0]:.1f} s a process; one process's reference {ref['s']:.1f} s; "
         f"{wall:.1f} s with both processes' set-up")
     return out
@@ -5637,6 +5869,7 @@ def phase_all_kernels():
                                  cfg.vit.num_attention_heads, cfg.vit.head_dim),
             phase_int8_matmul(cfg, _bucket(prompt_len)),
             phase_quantize_rows(cfg),
+            phase_split_rows(cfg),
             phase_int4_matmul(cfg),
             phase_flash_q8(cfg, prompt_len, _bucket(prompt_len), vqa_shapes),
             phase_kv8(cfg))
@@ -5657,7 +5890,7 @@ def main() -> int:
     from bagel_tpu_torch.inference.engine import BagelEngine
     from bagel_tpu_torch.models.bagel import init_bagel_params
 
-    cfg, tok, (worst, shapes), (worst3, main3), b5_rows, quant_rows, \
+    cfg, tok, (worst, shapes), (worst3, main3), b5_rows, quant_rows, split_q, \
         (worst4, b4_rows, b4_token), (worst2, b2_rows, prep_rows), \
         (worst_kv8, kv8_main) = phase_all_kernels()
 
@@ -5698,6 +5931,7 @@ def main() -> int:
     main_shape = shapes[0]
     decode = next(r for r in shapes if r["T"] == 1)
     quant_main = quant_rows[0]
+    split_main = next(r for r in split_q if r["leaf"] == "down" and "absmax_device_ms" in r)
     library = "torch.nn.functional.scaled_dot_product_attention (bool mask, enable_gqa)"
     gate = next(r for r in b5_rows if r["shape"] == "gen gate")
     b2_main, prep_main = b2_rows[0], prep_rows[0]
@@ -5921,6 +6155,68 @@ def main() -> int:
             library="none: no one PyTorch call computes it",
             shape=f"M={quant_main['M']} K={quant_main['K']}",
             shapes=quant_rows,
+        ),
+        dict(
+            name="row_absmax",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/int8_matmul.cu",
+            replaces="bagel_tpu/models/qwen2.py:147 (the max of the w8a8 scale, over a row "
+                     "that tp splits: XLA's reduction across the shards, no Pallas kernel)",
+            launches=sum(by_path("absmax").values()),
+            launches_by_path=by_path("absmax"),
+            max_abs_err=0.0,
+            tol="bit-identical to the plain version",
+            ms=split_main["absmax_device_ms"],  # the kernel's time: its device time
+            device_ms=split_main["absmax_device_ms"],
+            call_ms=split_main["absmax_call_ms"],
+            plain_ms=split_main["absmax_plain_ms"],
+            bound_ms=split_main["absmax_bound_ms"],
+            bound_by="bytes",
+            library_ms=split_main["absmax_library_ms"],
+            library="torch.linalg.vector_norm(x, inf, dim=-1) in f32",
+            shape=split_main["shape"],
+            shapes=split_q,
+        ),
+        dict(
+            name="quantize_rows_given",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/int8_matmul.cu",
+            replaces="bagel_tpu/models/qwen2.py:148 (the w8a8 codes of a row that tp splits, "
+                     "with the whole row's scale: XLA's work, no Pallas kernel)",
+            launches=sum(by_path("quant_given").values()),
+            launches_by_path=by_path("quant_given"),
+            max_abs_err=0.0,
+            tol="bit-identical to the plain version (codes)",
+            ms=split_main["given_device_ms"],  # the kernel's time: its device time
+            device_ms=split_main["given_device_ms"],
+            call_ms=split_main["given_call_ms"],
+            plain_ms=split_main["given_plain_ms"],
+            bound_ms=split_main["given_bound_ms"],
+            bound_by="bytes",
+            library_ms=None,
+            library="none: no one PyTorch call computes it",
+            shape=split_main["shape"],
+        ),
+        dict(
+            name="int8_matmul_f32",
+            route="cuda",
+            source="bagel_tpu_torch/csrc/int8_matmul.cu",
+            replaces="bagel_tpu/ops/int8_matmul.py:49 (B5's f32 instance: a tp rank's partial "
+                     "sum, rounded once after the all-reduce as JAX rounds the whole sum)",
+            launches=sum(by_path("b5_f32").values()),
+            launches_by_path=by_path("b5_f32"),
+            max_abs_err=0.0,
+            tol="bit-identical to the plain epilogue before its rounding",
+            ms=split_main["b5_f32_device_ms"],  # the kernel's time: its device time
+            device_ms=split_main["b5_f32_device_ms"],
+            call_ms=split_main["b5_f32_call_ms"],
+            plain_ms=split_main["b5_f32_plain_ms"],
+            bound_ms=split_main["b5_f32_bound_ms"],
+            bound_by=split_main["b5_f32_bound_by"],
+            library_ms=split_main["b5_f32_library_ms"],
+            library="torch._int_mm + the same f32 epilogue",
+            shape=f"{split_main['shape']} N={cfg.llm.hidden_size}",
+            bf16_instance_device_ms=split_main["b5_bf16_device_ms"],
         ),
     ]
     log(json.dumps({"vqa": vqa, "taylorseer": taylorseer, "edit": edit, "batch": batch,

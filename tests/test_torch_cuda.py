@@ -355,6 +355,38 @@ def test_quantize_rows_bit_identical_on_card(m, k):
     assert torch.equal(xq, want_q) and torch.equal(xs, want_s)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(1, 1792), (8, 4736), (77, 1040)])
+def test_split_row_quantization_bit_identical_on_card(m, k):
+    """The reduce-only and given-scale passes give the plain version's
+    absmax and codes bit for bit, on a strided view; B5's f32 instance the
+    plain epilogue before its rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.ops import int8_matmul as m8
+    from bagel_tpu_torch.utils.quant import to_kmajor
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    base = torch.randn((m, k + 64), generator=gen, device="cuda")
+    x = (base * torch.rand((m, 1), generator=gen, device="cuda") * 50).bfloat16()[:, 64:]
+    before = m8.row_absmax.launches, m8.quantize_rows_given.launches
+    amax = m8.row_absmax(x)
+    scale = m8.row_scale(amax * 2)  # the other ranks' slices: a larger absmax
+    xq, xs = m8.quantize_rows(x, scale)
+    torch.cuda.synchronize()
+    assert (m8.row_absmax.launches, m8.quantize_rows_given.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert torch.equal(amax, m8.row_absmax_plain(x))
+    assert xs is scale and torch.equal(xq, m8.quantize_rows_plain(x, scale)[0])
+    wq = to_kmajor(torch.randint(-127, 128, (k, 256), generator=gen, device="cuda",
+                                 dtype=torch.int8))
+    ws = (torch.rand((256,), generator=gen, device="cuda") + 0.5) / 127
+    n0 = m8.int8_matmul_f32.launches
+    got = m8.int8_matmul(xq, xs, wq, ws, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and m8.int8_matmul_f32.launches == n0 + 1
+    assert torch.equal(got, m8.int8_matmul_plain(xq, xs, wq, ws, out_dtype=torch.float32))
+
+
 def _block_inputs(gen, b, t, s, past, valid, h=28, kh=4, strided_q=False):
     """q [B, T, H, 128] (a view of a fused [B, T, (H + 2 KH) 128] projection
     with strided_q) and k/v [B, S, KH, 128] with NaN past each row's live

@@ -83,8 +83,8 @@ def test_wrapper_rejects_bad_inputs_before_launch():
         t8._check(xq, xs[:3], wq, ws, None, torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 16"):
         t8._check(xq[:, :40], xs, wq[:40], ws, None, torch.bfloat16)
-    with pytest.raises(TypeError, match="bf16"):
-        t8._check(xq, xs, wq, ws, None, torch.float32)
+    with pytest.raises(TypeError, match="bf16 or f32"):  # f32: the partial-sum instance
+        t8._check(xq, xs, wq, ws, None, torch.float16)
     with pytest.raises(ValueError, match="k-major"):  # the CUDA kernel reads [N, K]
         t8._check(xq, xs, wq, ws, torch.zeros(16), torch.bfloat16)
     t8._check(xq, xs, to_kmajor(wq), ws, torch.zeros(16), torch.bfloat16)

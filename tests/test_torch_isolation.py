@@ -1,5 +1,7 @@
-"""bagel_tpu_torch stands alone: it imports neither JAX nor bagel_tpu (nor,
-on import, PIL), and its entry points never quietly fall back to the CPU."""
+"""bagel_tpu_torch stands alone: it imports neither JAX nor bagel_tpu, nor
+Orbax, tensorstore or the repository's tools (the Orbax converter), nor,
+on import, PIL; and its entry points never quietly fall back to the
+CPU."""
 
 import re
 import subprocess
@@ -24,8 +26,8 @@ def test_import_pulls_in_no_jax():
         "import sys, pkgutil, importlib, bagel_tpu_torch\n"
         "for m in pkgutil.walk_packages(bagel_tpu_torch.__path__, 'bagel_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'bagel_tpu' or m.startswith('bagel_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'bagel_tpu', 'orbax', 'tensorstore', 'tools', 'orbax_to_torch')]\n"
         "assert not bad, bad\n"
         "new = {'bagel_tpu_torch.utils.quant', 'bagel_tpu_torch.ops.int8_matmul',\n"
         "       'bagel_tpu_torch.ops.int4_matmul', 'bagel_tpu_torch.ops.flash',\n"

@@ -12,13 +12,20 @@ and fuses its shards. Per mesh:
 - text-to-image (a randomized `llm2vae`, JAX's noise handed over): the fp32
   latent within 1e-4 of JAX's; w8a8 and int8 weights make both engines bf16
   (a quantized embedding), held to test_torch_quant_engine.py's bf16 bound;
+  at tp > 1 the w8a8 latent also within W8A8_TP_TOL of the unsharded
+  port's on the same weights and noise;
 - understanding: the greedy answer identical;
 - the serving runtime over the sharded slot cache (2 slots, over dp where
   dp = 2), plain and speculative=2: every answer identical to JAX's
   request alone;
 - every rank returns the same latents and answers, bit for bit;
 - the slot cache's local part follows JAX's `_shard_cache` rule.
-Then the shapes the layout refuses, the runtime's and the app's mesh
+In the (1, 1, 2) world, a row-parallel w8a8 linear at tiny_bagel's `o` and
+`down` shapes (bf16 rows whose two halves differ in magnitude): each
+rank's codes and scales equal its slice of JAX's whole-row quantization
+bit for bit, the all-reduced output is within one bf16 ulp of JAX's
+`_linear`, and the control (each slice quantized with its own scale) is
+not. Then the shapes the layout refuses, the runtime's and the app's mesh
 checks, and vlm_runner under --mesh 1,1,2 over two processes.
 """
 
@@ -48,13 +55,16 @@ from bagel_tpu_torch.data.tokenizer import MockTokenizer
 from bagel_tpu_torch.eval.gen_runner import row_shard
 from bagel_tpu_torch.inference.engine import BagelEngine
 from bagel_tpu_torch.models.bagel import init_bagel_params
+from bagel_tpu_torch.models.qwen2 import fuse_llm_params
 from bagel_tpu_torch.parallel.mesh import AXES, InferenceLayout, make_mesh
 from bagel_tpu_torch.serving import app
 from bagel_tpu_torch.serving.runtime import ServingRuntime
+from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from asserts import assert_close_live, assert_latent_motion
 from test_torch_qwen2 import randomized
 from test_torch_quant_engine import LATENT_TOL, _bf16_rest
+from test_torch_w8a8_kmajor import _jax_quantize_rows
 from torch_dist_util import REPO, run
 
 WORLD2 = [(1, 1, 2), (1, 2, 1), (2, 1, 1)]
@@ -63,6 +73,11 @@ SHAPES = WORLD2 + WORLD4
 QUANT = ("w8a8", "int8")
 MAX_NEW = 6
 DEADLINE = 280
+# the sharded w8a8 latent against the unsharded port's: equal at every tp > 1
+# mesh here; the bound leaves room for the partial sums' fp32 order to flip
+# a bf16 rounding. With each rank's own scale (before each row took its
+# whole row's) they were 0.0095 apart at tp = 2 and 0.0058 at tp = 4.
+W8A8_TP_TOL = 2e-3
 
 
 def _image(rng, px):
@@ -82,6 +97,46 @@ def _work(cfg, seed, steps):
 
 CHATS = [("what is this?", _image(np.random.default_rng(4), 28)), ("just text", None),
          ("a third one", None)]
+
+
+def _port_latent(job):
+    """The unsharded port's text-to-image latent of a job."""
+    cfg, work = job["cfg"], job["work"]
+    tok = MockTokenizer(cfg.llm.vocab_size)
+    params = params_from_numpy(job["tree"], "cpu")
+    params["llm"] = fuse_llm_params(params["llm"], inplace=True)
+    eng = BagelEngine(params, cfg, tok, tok.new_token_ids, max_kv=512, device="cpu")
+    ctx = eng.init_context()
+    cfg_text, cfg_img = ctx.copy(), ctx.copy()
+    ctx = eng.update_context_text(work["prompt"], ctx)
+    cfg_img = eng.update_context_text(work["prompt"], cfg_img)
+    return eng.gen_image(work["shape"], ctx, cfg_text_precontext=cfg_text,
+                         cfg_img_precontext=cfg_img, init_noise=work["noise"],
+                         return_latent=True, **work["gen"])
+
+
+def _linear_cases(cfg):
+    """Row-parallel w8a8 linears at cfg's o and down shapes: bf16 rows whose
+    two tp halves differ in magnitude (as heads and FFN columns do), random
+    codes and column scales."""
+    rng = np.random.default_rng(11)
+    d, f = cfg.llm.hidden_size, cfg.llm.intermediate_size
+    cases = []
+    for name, k in (("o", cfg.llm.num_attention_heads * cfg.llm.head_dim), ("down", f)):
+        mag = rng.uniform(0.05, 4.0, (6, 2)).repeat(k // 2, axis=1)
+        x = torch.tensor(rng.standard_normal((6, k)) * mag).bfloat16().float().numpy()
+        cases.append(dict(name=name, x=x, w_q8=rng.integers(-127, 128, (k, d)).astype(np.int8),
+                          scale=(rng.uniform(0.5, 2.0, d) * 0.02 / 127).astype(np.float32)))
+    return cases
+
+
+def _jax_linear(case):
+    """JAX's w8a8 `_linear` of a case (bf16 out) and its whole-row codes and
+    scales."""
+    x = jnp.asarray(case["x"], jnp.bfloat16)
+    out = jq._linear(x, {"w_q8": jnp.asarray(case["w_q8"]), "scale": jnp.asarray(case["scale"])})
+    codes, scales = _jax_quantize_rows(x)
+    return dict(out=np.asarray(out, np.float32), codes=codes, scale=scales)
 
 
 def _jax_job(job):
@@ -131,12 +186,16 @@ def runs(tmp_path_factory):
     for kind in QUANT:
         jobs.append(dict(name=kind, cfg=qcfg, work=qwork, tree=jax.tree.map(
             np.asarray, jquant.quantize_bagel_params(jax.tree.map(jnp.asarray, qtree), kind))))
+    linears = _linear_cases(qcfg)
     with jax.default_matmul_precision("float32"):
         want = {job["name"]: _jax_job(job) for job in jobs}
+        want["linears"] = [_jax_linear(c) for c in linears]
+    want["w8a8"]["port_latent"] = _port_latent(jobs[1])
     tmp = tmp_path_factory.mktemp("sharded")
     got = {}
     for world, shapes in ((2, WORLD2), (4, WORLD4)):
-        ranks = run("sharded_paths", world, tmp, deadline=DEADLINE, shapes=shapes, jobs=jobs)
+        ranks = run("sharded_paths", world, tmp, deadline=DEADLINE, shapes=shapes, jobs=jobs,
+                    linears=linears if world == 2 else ())
         for shape in shapes:
             got[shape] = [r[shape] for r in ranks]
     return {job["name"]: job["work"] for job in jobs}, want, got
@@ -169,6 +228,30 @@ def test_quantized_text_to_image_matches_jax(runs, shape, kind):
     assert np.isfinite(latent).all()
     assert_close_live(latent, want[kind]["latent"], moved_from=works[kind]["noise"], floor=0.1,
                       rtol=0, atol=LATENT_TOL, name="latent")
+    if kind == "w8a8" and shape[2] > 1:  # each row quantized with its whole row's scale
+        gap = float(np.abs(latent - want[kind]["port_latent"]).max())
+        assert gap <= W8A8_TP_TOL, (gap, W8A8_TP_TOL)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each value (of the smallest normal near 0)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("leaf", [0, 1], ids=["o", "down"])
+def test_row_parallel_w8a8_linear_matches_jax(runs, leaf):
+    _, want, got = runs
+    ref = want["linears"][leaf]
+    per_rank = [r["linears"][leaf] for r in got[(1, 1, 2)]]
+    for r, res in enumerate(per_rank):
+        assert np.array_equal(res["codes"], np.split(ref["codes"], 2, axis=-1)[r]), r
+        assert np.array_equal(res["scale"], ref["scale"]), r
+        assert np.array_equal(res["out"], per_rank[0]["out"]), r
+    ulp = _bf16_ulp(ref["out"])
+    err = np.abs(per_rank[0]["out"] - ref["out"])
+    assert (err <= ulp).all(), float((err / ulp).max())
+    # the control, each slice with its own scale, parts from JAX by more
+    assert not (np.abs(per_rank[0]["control"] - ref["out"]) <= ulp).all()
 
 
 @pytest.mark.parametrize("shape", SHAPES)

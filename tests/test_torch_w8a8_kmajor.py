@@ -4,6 +4,10 @@
   bit-identical to the JAX package's per-token quantization in its w8a8
   `_linear` (bagel_tpu/models/qwen2.py), on zero rows, exact +-absmax and
   ties at .5 (round half to even).
+- With the whole row's scale given, each tp slice of a row quantizes to
+  the slice of the whole row's codes, bit for bit; the whole row's scale is
+  `row_scale` of the slices' absmax maxed (what a row-parallel w8a8 leaf
+  all-reduces).
 - `utils.quant.w8a8_kmajor` lays w8a8 weights out k-major (what B5's wgmma
   reads) without changing codes, scales or shapes; it is idempotent and
   composes with `fuse_llm_params`; `_linear` over a k-major and a row-major
@@ -74,6 +78,24 @@ def test_quantize_rows_plain_equals_jax(kind):
     q2, s2 = t8.quantize_rows(torch.tensor(x))
     assert torch.equal(q2, got_q) and torch.equal(s2, got_s)
     assert t8.quantize_rows.launches == 0
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("kind", ["zero row", "exact absmax", "ties at .5", "bf16 rows"])
+def test_given_scale_slices_equal_the_whole_rows(kind, n):
+    x = torch.tensor(_rows(kind))
+    whole_q, whole_s = t8.quantize_rows_plain(x)
+    slices = x.chunk(n, dim=-1)
+    amax = torch.stack([t8.row_absmax(part) for part in slices]).amax(dim=0)
+    scale = t8.row_scale(amax)
+    assert torch.equal(scale, whole_s)
+    for i, part in enumerate(slices):
+        q, s = t8.quantize_rows(part, scale)
+        assert s is scale and torch.equal(q, whole_q.chunk(n, dim=-1)[i])
+    if kind == "bf16 rows":  # each slice's own scale is another quantization
+        own = torch.cat([t8.quantize_rows_plain(part)[0] for part in slices], dim=-1)
+        assert not torch.equal(own, whole_q)
+    assert t8.quantize_rows_given.launches == t8.row_absmax.launches == 0
 
 
 def test_quantize_rows_checks_refuse_what_the_kernel_does_not_take():

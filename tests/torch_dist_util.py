@@ -271,7 +271,33 @@ def serve_two(tree, cfg, prompts, runtime):
     return dict(answers=answers, ticks=fe.ticks, stats=dict(fe.stats))
 
 
-def sharded_paths(shapes, jobs):
+def row_parallel_w8a8(tp, cases):
+    """Each case {x [M, K] (bf16 values), w_q8 [K, N], scale [N]} as a
+    row-parallel w8a8 linear over the tp group (`InferenceTP`): this rank's
+    slice of K through `qwen2._linear` (its partial sums all-reduced, then
+    rounded to bf16), with the codes and scales it quantized; and the
+    control, each slice quantized with its own scale (the plain per-slice
+    quantization), its partial sums all-reduced and rounded the same way."""
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.ops.int8_matmul import int8_matmul_plain, quantize_rows_plain
+
+    rank = dist.get_rank(tp.group)
+    out = []
+    for c in cases:
+        x = torch.tensor(c["x"]).bfloat16().chunk(tp.n, dim=-1)[rank]
+        leaf = dict(w_q8=torch.tensor(c["w_q8"]).chunk(tp.n, dim=0)[rank],
+                    scale=torch.tensor(c["scale"]))
+        codes, scales = qwen2.quantize_activations(x, tp)
+        y = tp.leave(qwen2._linear(x, leaf, tp=tp)).bfloat16()
+        own_q, own_s = quantize_rows_plain(x)
+        ctl = int8_matmul_plain(own_q, own_s, leaf["w_q8"], leaf["scale"], out_dtype=torch.float32)
+        dist.all_reduce(ctl, group=tp.group)
+        out.append(dict(codes=codes.numpy(), scale=scales.numpy(), out=y.float().numpy(),
+                        control=ctl.bfloat16().float().numpy()))
+    return out
+
+
+def sharded_paths(shapes, jobs, linears=()):
     """Every inference path of a sharded engine, for each (dp, fsdp, tp)
     mesh of `shapes` over this world. Each job {name, cfg, tree, work,
     chats}: its numpy tree (quantized on the whole leaf where it is) placed
@@ -279,6 +305,7 @@ def sharded_paths(shapes, jobs):
     text-to-image latent from `work["noise"]`; with `chats` the greedy
     understanding answer, the serving runtime's answers over the sharded
     slot cache (plain and speculative) and the slot cache's local part.
+    At tp = world, the `linears` cases (`row_parallel_w8a8`) as well.
     Returns {shape: {name: {...}}}."""
     from bagel_tpu_torch.data.tokenizer import MockTokenizer
     from bagel_tpu_torch.inference.engine import BagelEngine
@@ -291,6 +318,9 @@ def sharded_paths(shapes, jobs):
     for shape in shapes:
         mesh = make_mesh(tuple(shape))
         out[tuple(shape)] = per_job = {}
+        if linears and shape[2] == dist.get_world_size():
+            cfg = jobs[0]["cfg"]
+            per_job["linears"] = row_parallel_w8a8(InferenceLayout(mesh, cfg).tp, linears)
         for job in jobs:
             cfg, work = job["cfg"], job["work"]
             tok = MockTokenizer(cfg.llm.vocab_size)
