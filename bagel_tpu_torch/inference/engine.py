@@ -75,6 +75,7 @@ from bagel_tpu_torch.ops.embeds import (
     flattened_position_ids_interpolate,
 )
 from bagel_tpu_torch.ops.flash import kv_bucket
+from bagel_tpu_torch.utils import trace
 from bagel_tpu_torch.utils.device import resolve_device
 from bagel_tpu_torch.utils.quant import w8a8_kmajor
 
@@ -265,10 +266,11 @@ def _denoise_phase(
     flow_v = _make_flow_v(params, cfg, n, n_jobs, n_branches, boundary_ids,
                           branch_rope, cache, lat_pos, attn_impl, layout)
     for t, dt in zip(timesteps, dts):
-        v = flow_v(x_t, t)
-        v_t = _combine(v, n_jobs, n_branches, cfg_text_scale, cfg_img_scale,
-                       cfg_renorm_type, cfg_renorm_min)
-        x_t = x_t - v_t * float(dt)
+        with trace.span("engine.denoise_step", x_t.device, rows=n_jobs * n_branches):
+            v = flow_v(x_t, t)
+            v_t = _combine(v, n_jobs, n_branches, cfg_text_scale, cfg_img_scale,
+                           cfg_renorm_type, cfg_renorm_min)
+            x_t = x_t - v_t * float(dt)
     return x_t
 
 
@@ -309,15 +311,18 @@ def _denoise_phase_taylorseer(
     flow_v = _make_flow_v(params, cfg, n, n_jobs, n_branches, boundary_ids,
                           branch_rope, cache, lat_pos, attn_impl, layout)
     for k, (t, dt) in enumerate(zip(timesteps, dts)):
-        if schedule.is_full[k]:
-            v = flow_v(x_t, t)
-            factors, n_valid = taylor_update(factors, n_valid, v, float(schedule.delta[k]),
-                                             bool(schedule.grow[k]))
-        else:
-            v = taylor_eval(factors, n_valid, float(schedule.x_off[k]))
-        v_t = _combine(v, n_jobs, n_branches, cfg_text_scale, cfg_img_scale,
-                       cfg_renorm_type, cfg_renorm_min)
-        x_t = x_t - v_t * float(dt)
+        full = bool(schedule.is_full[k])
+        with trace.span("engine.denoise_step", x_t.device, rows=n_jobs * n_branches, full=full):
+            if full:
+                v = flow_v(x_t, t)
+                factors, n_valid = taylor_update(factors, n_valid, v,
+                                                 float(schedule.delta[k]),
+                                                 bool(schedule.grow[k]))
+            else:
+                v = taylor_eval(factors, n_valid, float(schedule.x_off[k]))
+            v_t = _combine(v, n_jobs, n_branches, cfg_text_scale, cfg_img_scale,
+                           cfg_renorm_type, cfg_renorm_min)
+            x_t = x_t - v_t * float(dt)
     return x_t, factors, n_valid
 
 
@@ -800,7 +805,8 @@ class BagelEngine:
             unpatchify_latent(x, h, w, cfg.latent_patch_size, cfg.latent_channel)
             for x in x_t
         ])
-        imgs = vae_decode(self.params["vae"], cfg.vae, z)
+        with trace.span("engine.vae_decode", self.device):
+            imgs = vae_decode(self.params["vae"], cfg.vae, z)
         imgs = (torch.clamp(imgs * 0.5 + 0.5, 0, 1) * 255).to(torch.uint8)
         return list(imgs.cpu().numpy())
 

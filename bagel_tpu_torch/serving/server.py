@@ -175,6 +175,12 @@ class BagelServer:
         return {"image": encode_png(arr), "shape": list(arr.shape[:2])}
 
     def stats(self) -> dict:
+        """/v1/stats: the runtime's counters (`ServingRuntime.stats`;
+        besides the chunk and token counts, admitted, queue_wait_s and
+        requeued: the chat requests admitted, their summed seconds from
+        submission to the start of their prefill, and the put-backs of
+        requests that had to wait for KV capacity), and the slots and
+        queues now."""
         rt = self.runtime
         return {
             **rt.stats,

@@ -4,7 +4,8 @@ tiny_bagel in fp32 on the CPU:
 
 - a leader and a follower over a `LocalBus` in one process: the follower
   replays the leader's schedule from the broadcast ingress alone (equal
-  stats and tick counts), the leader's greedy answers equal one session per
+  stats and tick counts; the summed queue wait, on each process's own
+  clock, is only positive on both), the leader's greedy answers equal one session per
   request and bagel_tpu's, a generate job runs between chats, and a
   follower refuses client traffic;
 - one process falls back to a plain leader with no bus;
@@ -59,6 +60,12 @@ def _sequential(engine, image, prompt, max_new):
     return engine.gen_text(ctx, max_length=max_new)
 
 
+def _counts(stats: dict) -> dict:
+    """The stats that lockstep processes share: all but the queue wait,
+    which each process takes on its own clock."""
+    return {k: v for k, v in stats.items() if k != "queue_wait_s"}
+
+
 def _images():
     rng = np.random.default_rng(0)
     return [rng.standard_normal((28, 28, 3)).astype(np.float32) * 0.3, None, None]
@@ -85,8 +92,10 @@ def test_lockstep_leader_follower(setup):
         for im, p, g in zip(images, PROMPTS, got):
             assert g == _sequential(engine, im, p, 6) == _sequential(jeng, im, p, 6), p
     assert img["image"].shape == (32, 32, 3)
-    assert follower.stats == leader.stats and follower.ticks == leader.ticks
+    assert _counts(follower.stats) == _counts(leader.stats) and follower.ticks == leader.ticks
     assert leader.stats["chat_done"] == 3 and leader.stats["gen_done"] == 1
+    assert leader.stats["admitted"] == 3
+    assert leader.stats["queue_wait_s"] > 0 and follower.stats["queue_wait_s"] > 0
     assert leader.error is None and follower.error is None
     with pytest.raises(RuntimeError, match="followers take no client traffic"):
         follower.submit_chat("nope")
@@ -121,8 +130,10 @@ def test_two_gloo_processes(setup, tmp_path):
         want = [_sequential(jeng, None, p, 6) for p in prompts]
     assert leader["answers"] == alone == want
     assert follower["answers"] is None
-    assert follower["ticks"] == leader["ticks"] and follower["stats"] == leader["stats"]
-    assert leader["stats"]["chat_done"] == len(prompts)
+    assert follower["ticks"] == leader["ticks"]
+    assert _counts(follower["stats"]) == _counts(leader["stats"])
+    assert leader["stats"]["chat_done"] == leader["stats"]["admitted"] == len(prompts)
+    assert leader["stats"]["queue_wait_s"] > 0 and follower["stats"]["queue_wait_s"] > 0
 
 
 def test_server_main_two_processes(tmp_path):

@@ -9,7 +9,10 @@ speculative chunks included); an oversized request fails on its own future;
 `stop` fails what is pending; multi-image requests; speculative chunks
 greedy-exact; the int8 slot cache's answers equal bagel_tpu's; every
 HTTP endpoint, streaming included; `app.build_engine` and
-`run_once` on the CPU.
+`run_once` on the CPU. Under a profiler session the runtime and the
+engine leave their spans (runtime.admit over runtime.prefill,
+runtime.decode, runtime.deliver; a denoise step each, one VAE decode),
+and the engine module's `cfg_combine` stays the seam a recorder swaps.
 """
 
 import base64
@@ -17,10 +20,12 @@ import http.client
 import io
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +39,9 @@ from bagel_tpu_torch.data.transforms import ImageTransform, pil_img2rgb
 from bagel_tpu_torch.inference.engine import BagelEngine
 from bagel_tpu_torch.serving import app
 from bagel_tpu_torch.serving.runtime import ServingRuntime
+from bagel_tpu_torch.models.bagel import shifted_timesteps
 from bagel_tpu_torch.serving.server import BagelServer, serve_in_thread
+from bagel_tpu_torch.utils import trace
 from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from test_torch_qwen2 import randomized
@@ -94,7 +101,7 @@ def test_runtime_chat_parity_and_slot_reuse(engines, engine):
     # 3 requests on 2 slots: one retires and its slot is refilled
     rt = ServingRuntime(engine, slots=2, decode_chunk=3, max_new_default=6)
     got = _serve(rt, requests)
-    assert rt.stats["chat_done"] == 3
+    assert rt.stats["chat_done"] == 3 and rt.stats["admitted"] == 3
     assert rt.stats["tokens_out"] == sum(len(g.split()) for g in got)
     jeng = engines[1]()
     for (p, im), g in zip(requests, got):
@@ -185,15 +192,95 @@ def test_runtime_decode_margin_checked_before_each_chunk(engine):
 
 def test_runtime_defers_admission_near_a_full_live_row(engine):
     rt = ServingRuntime(engine, slots=2, decode_chunk=2, max_new_default=4)
+    t0 = time.perf_counter()
     first = rt.submit_chat("live session")
     rt._admit()
+    t1 = time.perf_counter()
+    assert rt.stats["admitted"] == 1 and 0 < rt.stats["queue_wait_s"] < t1 - t0
     length = rt.cache.length.clone()
     length[0] = engine.max_kv - 8  # the next padded prefill block would not fit
     rt.cache.length = length
     waiting = rt.submit_chat("waits")
+    t2 = time.perf_counter()
     rt._admit()
     assert rt.slot_state[1] is None and rt.chat_q.qsize() == 1 and not waiting.done()
     assert not first.done()
+    assert rt.stats["requeued"] == 1 and rt.stats["admitted"] == 1
+    # the live row retires: the waiting request is admitted, its wait counted
+    rt._retire(0)
+    t3 = time.perf_counter()
+    rt._admit()
+    t4 = time.perf_counter()
+    assert rt.slot_state[0].req.future is waiting and rt.chat_q.qsize() == 0
+    assert rt.stats["admitted"] == 2 and rt.stats["requeued"] == 1
+    assert t3 - t2 < rt.stats["queue_wait_s"] < (t1 - t0) + (t4 - t2)
+
+
+def test_runtime_spans_under_a_profiler(engine):
+    rt = ServingRuntime(engine, slots=2, decode_chunk=2, max_new_default=4)
+    rt.start()
+    thread = rt._thread.ident
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            ans = rt.submit_chat("traced").result(timeout=TIMEOUT)
+    finally:
+        rt.stop()
+    got = trace.spans(t0)
+    by = {}
+    for s in got:
+        by.setdefault(s["name"], []).append(s)
+    assert {"runtime.admit", "runtime.prefill", "runtime.decode", "runtime.deliver"} <= set(by)
+    assert all(s["thread"] == thread for s in got)
+    (pre,) = by["runtime.prefill"]
+    (adm,) = [s for s in by["runtime.admit"] if s["id"] == pre["parent"]]
+    assert adm["t0"] <= pre["t0"] < pre["t1"] <= adm["t1"] and adm["parent"] is None
+    chunks = -(-len(ans.split()) // 2)  # 2-step chunks, up to 4 tokens
+    assert len(by["runtime.decode"]) >= chunks and len(by["runtime.deliver"]) >= chunks
+    assert all(s["parent"] is None for s in by["runtime.decode"] + by["runtime.deliver"])
+    assert all(s["device_ms"] is None for s in got)  # no device time on the CPU
+    assert rt.stats["admitted"] == 1 and rt.stats["requeued"] == 0
+
+
+class _CombineRecorder:
+    """Wraps the engine module's `cfg_combine`, as the benchmark's t2i
+    check does: one call per job and denoise step."""
+
+    def __init__(self, module):
+        self.module, self.orig, self.calls = module, module.cfg_combine, 0
+        module.cfg_combine = self
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.orig(*args, **kw)
+
+
+@pytest.mark.parametrize("taylorseer", [False, True])
+def test_gen_image_spans_and_the_cfg_combine_seam(engine, monkeypatch, taylorseer):
+    from bagel_tpu_torch.inference import engine as engine_mod
+
+    n = 8 if taylorseer else 5
+    monkeypatch.setattr(engine_mod, "cfg_combine", engine_mod.cfg_combine)
+    rec = _CombineRecorder(engine_mod)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = engine(text="a red cube", image_shapes=(32, 32), num_timesteps=n,
+                     cfg_interval=(0.5, 1.0), enable_taylorseer=taylorseer,
+                     taylorseer_first_enhance=2, taylorseer_threshold=2)
+    assert out["image"].shape == (32, 32, 3)
+    ts, _ = shifted_timesteps(n, 3.0)
+    steps = [s for s in trace.spans(t0) if s["name"] == "engine.denoise_step"]
+    vae = [s for s in trace.spans(t0) if s["name"] == "engine.vae_decode"]
+    assert len(steps) == len(ts) == rec.calls and len(vae) == 1
+    on = (ts > 0.5) & (ts <= 1.0)
+    assert 0 < on.sum() < len(ts)
+    assert [s["attrs"]["rows"] for s in steps] == [3 if o else 1 for o in on]
+    if taylorseer:
+        full = [s["attrs"]["full"] for s in steps]
+        assert 0 < sum(full) < len(full)
+    else:
+        assert all("full" not in s["attrs"] for s in steps)
+    assert vae[0]["t0"] >= steps[-1]["t1"]
 
 
 def test_runtime_oversized_request_fails_cleanly(engines):
