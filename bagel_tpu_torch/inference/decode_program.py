@@ -69,7 +69,7 @@ replayed_kernels: collections.Counter = collections.Counter()
 def _wrapper_kernels() -> dict:
     """Each counted kernel wrapper's kernel: a piece of the mangled name of
     the one kernel that every launch of the wrapper runs once."""
-    from bagel_tpu_torch.ops import flash, int4_matmul, int8_matmul, sparse_flash
+    from bagel_tpu_torch.ops import flash, int4_matmul, int8_matmul, layer_elementwise, sparse_flash
 
     return {
         flash.flash_cached_attention: ("25flash_decode_split_kernelI13__nv_bfloat16",
@@ -85,6 +85,9 @@ def _wrapper_kernels() -> dict:
         int8_matmul.row_absmax: ("17row_absmax_kernel",),
         sparse_flash.sparse_packed_attention: ("30sparse_packed_attention_kernel",),
         sparse_flash.sparse_packed_attention_bwd: ("22sparse_bwd_dkdv_kernel",),
+        layer_elementwise.add_rms_norm: ("19add_rms_norm_kernel",),
+        layer_elementwise.qk_norm_rope: ("19qk_norm_rope_kernel",),
+        layer_elementwise.silu_mul: ("15silu_mul_kernel",),
     }
 
 

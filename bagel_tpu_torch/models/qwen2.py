@@ -35,6 +35,15 @@
   (T=1) go through the same kernel. With `BAGEL_FLASH_INT8=1` every block of
   more than one token (prefill, ViT block, gen block) takes the int8
   attention, as on the JAX package's TPU path; decode steps stay bf16.
+- Where the attention takes the kernels and the activations are bf16
+  (`_fused`), each layer is `_layer_extend_fused`: the elementwise passes
+  between its GEMMs are the hand-written kernels of
+  `ops.layer_elementwise` (the residual add with the next RMSNorm, the
+  fp32 QK-norm with rope and the K/V write, SiLU x up), at the plain
+  path's rounding points, each reading the MoT split by row, so the layer
+  has no cat of the experts' rows and no copy of a strided slice. Every
+  other block (fp32, attn_impl "plain", CPU tensors under "auto") takes
+  `_layer_extend`.
 - Quantized weight leaves (`utils.quant`): `w_q` (int8 weight-only) and
   `w_nf4` dequantize to the activation dtype at use; `w_q8` (w8a8) quantizes
   the activations per token and runs `ops.int8_matmul`; `w_p4` (int4) runs
@@ -92,6 +101,17 @@ from bagel_tpu_torch.ops.flash import (
 from bagel_tpu_torch.ops.flash import kv_dequantize as _kv_dequantize
 from bagel_tpu_torch.ops.int4_matmul import int4_gemv_eligible, int4_matmul
 from bagel_tpu_torch.ops.int8_matmul import int8_matmul, quantize_rows, row_absmax, row_scale
+from bagel_tpu_torch.ops.layer_elementwise import (
+    Split,
+    add_rms_norm,
+    add_rms_norm_plain,
+    qk_norm_rope,
+    qk_norm_rope_f32,
+    qk_norm_rope_plain,
+    silu_mul,
+)
+from bagel_tpu_torch.ops.layer_elementwise import block_slots as _block_at
+from bagel_tpu_torch.ops.layer_elementwise import split_apply as _split_apply
 from bagel_tpu_torch.ops.norms import rms_norm
 from bagel_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from bagel_tpu_torch.ops.ring import ring_packed_attention
@@ -400,14 +420,17 @@ def _proj_qkv(x, attn, h, kh, hd, widths=None):
             v.reshape(lead + (kh, hd)))
 
 
-def _ffn_mix(z, mlp, widths=None):
-    """silu(gate) * up from fused or separate gate/up leaves."""
+def _gate_up(z, mlp, widths=None):
+    """(gate, up) from fused or separate gate/up leaves."""
     w = widths or {}
     if "gate_up" in mlp:
-        gate, up = _linear(z, mlp["gate_up"], w.get("gate_up")).chunk(2, dim=-1)
-    else:
-        gate = _linear(z, mlp["gate"], w.get("gate"))
-        up = _linear(z, mlp["up"], w.get("up"))
+        return _linear(z, mlp["gate_up"], w.get("gate_up")).chunk(2, dim=-1)
+    return _linear(z, mlp["gate"], w.get("gate")), _linear(z, mlp["up"], w.get("up"))
+
+
+def _ffn_mix(z, mlp, widths=None):
+    """silu(gate) * up from fused or separate gate/up leaves."""
+    gate, up = _gate_up(z, mlp, widths)
     return F.silu(gate) * up
 
 
@@ -416,22 +439,58 @@ def _ffn_mix(z, mlp, widths=None):
 # ---------------------------------------------------------------------------
 
 
-def _split_apply(x, und_len: int, fn_und, fn_gen):
-    """fn_und on x[:, :und_len], fn_gen on the rest, concatenated on axis 1;
-    a single-expert block runs one function only."""
-    t = x.shape[1]
-    if und_len >= t:
-        return fn_und(x)
-    if und_len <= 0:
-        return fn_gen(x)
-    return torch.cat([fn_und(x[:, :und_len]), fn_gen(x[:, und_len:])], dim=1)
-
-
 def _layer_params(layers: dict, i: int) -> dict:
     """Layer i's slice of the stacked parameter tree."""
     if isinstance(layers, dict):
         return {k: _layer_params(v, i) for k, v in layers.items()}
     return layers[i]
+
+
+def _rope_into_cache(cfg, und_len, q, k, v, attn_u, attn_g, cos, sin, k_buf, v_buf,
+                     ks_buf, vs_buf, past_len) -> torch.Tensor:
+    """The fp32 QK-norm and rope of the block's q and k [B, T, heads, D],
+    its K/V written into the buffers at [past_len, past_len + T) (an int8
+    cache: codes quantized from the f32 k, and their scales); returns q in
+    the attention's dtype."""
+    eps = cfg.rms_norm_eps
+    qk = [(attn_u[n], attn_g[n]) if cfg.qk_norm else None for n in ("q_norm", "k_norm")]
+    if k_buf.dtype != torch.int8:
+        return qk_norm_rope_plain(*(Split.block(z, und_len) for z in (q, k, v)), *qk, cos, sin,
+                                  k_buf, v_buf, past_len, eps)
+    q, k = qk_norm_rope_f32(q, k, und_len, *qk, cos, sin, eps)
+    # append the block at per-row offsets, one indexed write a buffer;
+    # quantize first, then attend over the cache's codes
+    rows, at = _block_at(past_len, q.shape[1], k_buf.shape[1])
+    (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+    ks_buf[rows, at] = ks
+    vs_buf[rows, at] = vs
+    k_buf[rows, at] = k.to(k_buf.dtype)
+    v_buf[rows, at] = v.to(v_buf.dtype)
+    return q.to(torch.bfloat16)
+
+
+def _attend(q, k_buf, v_buf, ks_buf, vs_buf, past_len, live, q_valid, causal, kernel):
+    """The block's attention over the buffers, through the kernels (B1,
+    B1-kv8, B2) or their plain versions."""
+    t = q.shape[1]
+    quant = k_buf.dtype == torch.int8
+    cdt = torch.bfloat16 if quant else k_buf.dtype
+    if quant and t == 1:
+        # the decode step reads the codes themselves (B1-kv8)
+        decode = flash_decode_kv8 if kernel else flash_decode_kv8_plain
+        att = decode(q, k_buf, v_buf, ks_buf, vs_buf, past_len, q_valid)
+    else:
+        k_use, v_use = k_buf, v_buf
+        if quant:  # the live prefix, dequantized once for the layer
+            k_use = _kv_dequantize(k_buf[:, :live], ks_buf[:, :live], cdt)
+            v_use = _kv_dequantize(v_buf[:, :live], vs_buf[:, :live], cdt)
+        # the JAX package sends every block of more than one token to its
+        # flash kernel on the TPU, and so to the int8 one under
+        # BAGEL_FLASH_INT8
+        int8 = t > 1 and flash.default_int8()
+        attend = flash_cached_attention if kernel else flash_cached_attention_plain
+        att = attend(q, k_use, v_use, past_len, q_valid, causal=causal, int8_compute=int8)
+    return att
 
 
 def _layer_extend(
@@ -476,11 +535,7 @@ def _layer_extend(
     ln_g = lp["input_ln_gen"] if mot else lp["input_ln"]
 
     res = x
-    hqkv = _split_apply(
-        x, und_len,
-        lambda xu: rms_norm(xu, ln_u, cfg.rms_norm_eps),
-        lambda xg: rms_norm(xg, ln_g, cfg.rms_norm_eps),
-    )
+    hqkv = add_rms_norm_plain(Split.block(x, und_len), (ln_u, ln_g), cfg.rms_norm_eps)[1].whole()
     if und_len >= t:
         q, k, v = _proj_qkv(hqkv, attn_u, h, kh, hd, widths)
     elif und_len <= 0:
@@ -492,51 +547,10 @@ def _layer_extend(
         k = torch.cat([ku, kg], dim=1)
         v = torch.cat([vu, vg], dim=1)
 
-    if cfg.qk_norm:
-        # fp32 QK-norm (upstream keeps it in fp32 on the gen path)
-        def qknorm(z, w):
-            return rms_norm(z.float(), w, cfg.rms_norm_eps)
-
-        q = _split_apply(
-            q, und_len,
-            lambda z: qknorm(z, attn_u["q_norm"]),
-            lambda z: qknorm(z, attn_g["q_norm"]),
-        )
-        k = _split_apply(
-            k, und_len,
-            lambda z: qknorm(z, attn_u["k_norm"]),
-            lambda z: qknorm(z, attn_g["k_norm"]),
-        )
-
-    q, k = apply_rope(q, k, cos, sin)
-    quant = k_buf.dtype == torch.int8
-    cdt = torch.bfloat16 if quant else k_buf.dtype
-    q = q.to(cdt)
-    # append the block at per-row offsets, one indexed write a buffer
-    rows, at = _block_at(past_len, t, k_buf.shape[1])
-    if quant:  # quantize first, then attend over the cache's codes
-        (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
-        ks_buf[rows, at] = ks
-        vs_buf[rows, at] = vs
-    k_buf[rows, at] = k.to(k_buf.dtype)
-    v_buf[rows, at] = v.to(v_buf.dtype)
-
+    q = _rope_into_cache(cfg, und_len, q, k, v, attn_u, attn_g, cos, sin, k_buf, v_buf,
+                         ks_buf, vs_buf, past_len)
     kernel = attn_impl == "flash" or (attn_impl == "auto" and q.is_cuda)
-    if quant and t == 1:
-        # the decode step reads the codes themselves (B1-kv8)
-        decode = flash_decode_kv8 if kernel else flash_decode_kv8_plain
-        att = decode(q, k_buf, v_buf, ks_buf, vs_buf, past_len, q_valid)
-    else:
-        k_use, v_use = k_buf, v_buf
-        if quant:  # the live prefix, dequantized once for the layer
-            k_use = _kv_dequantize(k_buf[:, :live], ks_buf[:, :live], cdt)
-            v_use = _kv_dequantize(v_buf[:, :live], vs_buf[:, :live], cdt)
-        # the JAX package sends every block of more than one token to its
-        # flash kernel on the TPU, and so to the int8 one under
-        # BAGEL_FLASH_INT8
-        int8 = t > 1 and flash.default_int8()
-        attend = flash_cached_attention if kernel else flash_cached_attention_plain
-        att = attend(q, k_use, v_use, past_len, q_valid, causal=causal, int8_compute=int8)
+    att = _attend(q, k_buf, v_buf, ks_buf, vs_buf, past_len, live, q_valid, causal, kernel)
     att = att.reshape(b, t, h * hd)
 
     o = leave(_split_apply(
@@ -548,32 +562,111 @@ def _layer_extend(
         # an int8 cache's bf16 attention beside f32 weights: JAX's product
         # promotes it and rounds its result to the attention's dtype
         o = o.to(att.dtype)
-    x = res + o.to(res.dtype)
-
-    res = x
     mlp_u = lp["mlp"]
     mlp_g = lp.get("mlp_gen", lp["mlp"])
     pln_u = lp["post_ln"]
     pln_g = lp["post_ln_gen"] if mot else lp["post_ln"]
+    x, hn = add_rms_norm_plain(Split.block(o.to(res.dtype), und_len), (pln_u, pln_g),
+                               cfg.rms_norm_eps, res=res)
 
-    def ffn(mlp, pln):
-        def f(z):
-            z = rms_norm(z, pln, cfg.rms_norm_eps)
-            return _linear(_ffn_mix(z, mlp, widths), mlp["down"], tp=rowpar)
+    def ffn(mlp):
+        return lambda z: _linear(_ffn_mix(z, mlp, widths), mlp["down"], tp=rowpar)
 
-        return f
-
-    m = leave(_split_apply(x, und_len, ffn(mlp_u, pln_u), ffn(mlp_g, pln_g)))
-    return res + m.to(res.dtype)
+    m = leave(hn.map(ffn(mlp_u), ffn(mlp_g)).whole())
+    return x + m.to(x.dtype)
 
 
-def _block_at(past_len: torch.Tensor, t: int, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (rows [B, 1], slots [B, T]) a T-token block takes in an s-slot
-    buffer: [past_len, past_len + T), the start clamped into the buffer as
-    JAX's dynamic_update_slice clamps it."""
-    rows = torch.arange(past_len.shape[0], device=past_len.device)[:, None]
-    start = torch.clamp(past_len.to(torch.int64), max=s - t)
-    return rows, start[:, None] + torch.arange(t, device=past_len.device)[None, :]
+def _fused(attn_impl: str, x: torch.Tensor) -> bool:
+    """Whether a block's layers take the fused elementwise kernels
+    (`_layer_extend_fused`): where its attention takes the kernels (B1:
+    attn_impl "flash", or "auto" on a CUDA tensor) and the activations are
+    bf16. On CPU tensors the kernels' plain versions run."""
+    kernel = attn_impl == "flash" or (attn_impl == "auto" and x.is_cuda)
+    return kernel and x.dtype == torch.bfloat16
+
+
+def _per_expert(z: Split, fn_und, fn_gen) -> tuple:
+    """fn_und / fn_gen, each giving a tuple of tensors, on each expert's part
+    of z: a Split of each of the tuple's tensors."""
+    out = [None, None]
+    for e, part in z.parts():
+        out[e] = (fn_und, fn_gen)[e](part)
+    n = len(out[0] if out[0] is not None else out[1])
+    return tuple(Split(*(None if o is None else o[i] for o in out), z.und_len, z.t)
+                 for i in range(n))
+
+
+def _experts_over(x: torch.Tensor, und_len: int, fn_und, fn_gen) -> Split:
+    """fn_und and fn_gen over each expert's rows of a whole block x [B, T,
+    ...] (B1's output): the expert with more rows over the whole block in
+    place (the other's few rows computed with it and never read), the other
+    over its own rows (a copy where B > 1)."""
+    s = Split.block(x, und_len)
+    u, t = s.und_len, s.t
+    if s.und is None or s.gen is None:
+        return s.map(fn_und, fn_gen)
+    if t - u >= u:
+        return Split(fn_und(x[:, :u]), fn_gen(x), u, t)
+    return Split(fn_und(x), fn_gen(x[:, u:]), u, t)
+
+
+def _layer_extend_fused(
+    cfg: Qwen2Config, und_len: int, causal: bool, x: torch.Tensor, carry: Optional[Split],
+    lp: dict, k_buf, v_buf, ks_buf, vs_buf, past_len, live: int, q_valid, cos, sin, tp=None,
+) -> Tuple[torch.Tensor, Split]:
+    """`_layer_extend` through the fused kernels of `ops.layer_elementwise`,
+    at the same rounding points: the MoT split read by row (no cat, no copy
+    of a strided slice), each residual add inside the next norm. x [B, T, d]
+    is the residual stream before the previous layer's FFN output `carry`
+    (None at the first layer) is added: that add is this layer's first
+    norm's. Returns (x, the FFN output) for the next layer or the final norm.
+
+    A bf16 cache takes `qk_norm_rope`; an int8 cache keeps
+    `_rope_into_cache`, whose codes are quantized from the f32 k. Under tp
+    the o and down products are merged into one block, all-reduced and
+    rounded once, as in `_layer_extend`."""
+    b, t, _ = x.shape
+    h, kh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    widths = None
+    if tp is not None:
+        h, kh, widths = tp.heads, tp.kv_heads, tp.widths
+    rowpar = tp if tp is not None and tp.n > 1 else None
+    mot = cfg.layer_module == "mot"
+    attn_u = lp["attn"]
+    attn_g = lp["attn_gen"] if mot else lp["attn"]
+    mlp_u = lp["mlp"]
+    mlp_g = lp.get("mlp_gen", lp["mlp"])
+    ln = (lp["input_ln"], lp["input_ln_gen"] if mot else lp["input_ln"])
+    pln = (lp["post_ln"], lp["post_ln_gen"] if mot else lp["post_ln"])
+
+    def leave(z: Split) -> Split:
+        if tp is None:
+            return z
+        return Split.block(tp.leave(z.merged()).to(x.dtype), und_len)
+
+    if carry is None:
+        _, hn = add_rms_norm(Split.block(x, und_len), ln, eps)
+    else:
+        x, hn = add_rms_norm(carry, ln, eps, res=x)
+    q, k, v = _per_expert(hn, lambda z: _proj_qkv(z, attn_u, h, kh, hd, widths),
+                          lambda z: _proj_qkv(z, attn_g, h, kh, hd, widths))
+    if k_buf.dtype == torch.bfloat16:
+        qk = [(attn_u[n], attn_g[n]) if cfg.qk_norm else None for n in ("q_norm", "k_norm")]
+        q = qk_norm_rope(q, k, v, *qk, cos, sin, k_buf, v_buf, past_len, eps)
+    else:
+        q = _rope_into_cache(cfg, und_len, q.whole(), k.whole(), v.whole(), attn_u, attn_g,
+                             cos, sin, k_buf, v_buf, ks_buf, vs_buf, past_len)
+    att = _attend(q, k_buf, v_buf, ks_buf, vs_buf, past_len, live, q_valid, causal, True)
+    o = _experts_over(att.reshape(b, t, h * hd), und_len,
+                      lambda z: _linear(z, attn_u["o"], tp=rowpar),
+                      lambda z: _linear(z, attn_g["o"], tp=rowpar))
+    x, hn = add_rms_norm(leave(o), pln, eps, res=x)
+    gate, up = _per_expert(hn, lambda z: _gate_up(z, mlp_u, widths),
+                           lambda z: _gate_up(z, mlp_g, widths))
+    m = silu_mul(gate, up).map(lambda z: _linear(z, mlp_u["down"], tp=rowpar),
+                               lambda z: _linear(z, mlp_g["down"], tp=rowpar))
+    return x, leave(m)
 
 
 def llm_extend(
@@ -637,7 +730,8 @@ def llm_extend(
     # prefix: no key past it is visible, so the bucket's tail is never copied
     live = min(kv_bound + t, cache.max_len)
     tp = None if layout is None else layout.tp
-    x = embeds
+    fused = _fused(attn_impl, embeds)
+    x, carry = embeds, None
     for i in range(cfg.num_hidden_layers):
         lp = _layer_params(params["layers"], i)
         if layout is not None:
@@ -647,18 +741,21 @@ def llm_extend(
             bufs = [None if buf is None else buf[i] for buf in new.buffers()]
         else:
             bufs = [None if buf is None else buf[i, :, :live].clone() for buf in cache.buffers()]
+        if fused:
+            x, carry = _layer_extend_fused(cfg, und_len, causal, x, carry, lp, *bufs,
+                                           cache.length, live, q_valid, cos, sin, tp=tp)
+            continue
         x = _layer_extend(
             cfg, und_len, causal, x, lp, *bufs, cache.length, live, q_valid, cos, sin,
             attn_impl=attn_impl, tp=tp,
         )
 
     fin_u = params["final_norm"]
-    fin_g = params.get("final_norm_gen", fin_u)
-    x = _split_apply(
-        x, und_len,
-        lambda z: rms_norm(z, fin_u, cfg.rms_norm_eps),
-        lambda z: rms_norm(z, fin_g, cfg.rms_norm_eps),
-    )
+    fin = (fin_u, params.get("final_norm_gen", fin_u))
+    # the fused path's last FFN's residual add inside the final norm
+    _, x = (add_rms_norm if fused else add_rms_norm_plain)(
+        Split.block(x, und_len) if carry is None else carry, fin, cfg.rms_norm_eps,
+        res=None if carry is None else x, final=True)
     if update_cache:
         if keep is not None:
             for buf, old in zip(new.buffers(), held):

@@ -6,6 +6,8 @@ no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -959,3 +961,295 @@ def test_train_step_on_card():
         finals.append([t.detach().cpu() for t in tree_leaves(state.params)]
                       + [t.cpu() for t in tree_leaves(state.ema_params)])
     assert all(torch.equal(a, b) for a, b in zip(*finals))
+
+
+# ---------------------------------------------------------------------------
+# The decoder layer's fused elementwise kernels (ops/layer_elementwise.py)
+# ---------------------------------------------------------------------------
+
+# (b, t, und_len): the 1024 px denoise block, the 8-slot decode step, blocks
+# with no und row, a few, and no gen row
+FUSED_SHAPES = [(3, 4098, 2), (8, 1, 1), (2, 37, 0), (2, 37, 5), (2, 37, 37)]
+
+
+def _ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |x| (f32)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _expert_rows(gen, b, t, und_len, width, whole_gen=False):
+    """A Split of random bf16 rows: each expert's own, or the gen expert's
+    as the whole block (the o projection's layout)."""
+    from bagel_tpu_torch.ops.layer_elementwise import Split
+
+    u = min(und_len, t)
+
+    def rnd(n):
+        return torch.randn((b, n, width), generator=gen, device="cuda").bfloat16() if n else None
+
+    return Split(rnd(u), rnd(t if whole_gen and u < t else t - u), u, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,und_len", FUSED_SHAPES)
+def test_add_rms_norm_matches_plain_on_card(b, t, und_len, w_dtype):
+    """`add_rms_norm` against `res + o` and `rms_norm` with each row's
+    expert's weight: the sum bit for bit; the normed rows within one bf16
+    ulp of the normed value before the weight (the sum of squares' order is
+    the only difference), carried through the weight's product, plus that
+    product's own rounding; one launch a call. Compact parts, the gen part as
+    the whole block, no residual (the first layer) and the final norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.ops import layer_elementwise as le
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    d = 3584
+    w = tuple((1 + 0.2 * torch.randn(d, generator=gen, device="cuda")).to(w_dtype)
+              for _ in range(2))
+    res = torch.randn((b, t, d), generator=gen, device="cuda").bfloat16()
+    eps = 1e-6
+
+    def close(got, want, rows_w):
+        tol = rows_w.float().abs() * _ulp(want.float() / rows_w.float()) + _ulp(want)
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+        assert (got != want).float().mean().item() <= 1e-3  # rounding flips, not a drift
+
+    u = min(und_len, t)
+    rows_w = torch.stack([w[0] if i < u else w[1] for i in range(t)])  # [T, d]
+    for whole_gen in (False, True):
+        o = _expert_rows(gen, b, t, und_len, d, whole_gen)
+        before = le.add_rms_norm.launches
+        y, n = le.add_rms_norm(o, w, eps, res=res)
+        torch.cuda.synchronize()
+        assert le.add_rms_norm.launches == before + 1
+        y0, n0 = le.add_rms_norm_plain(o, w, eps, res=res)
+        assert torch.equal(y, y0)
+        close(n.whole(), n0.whole(), rows_w)
+        assert all(p.is_contiguous() for _, p in n.parts())
+        _, nf = le.add_rms_norm(o, w, eps, res=res, final=True)
+        close(nf, n0.whole(), rows_w)
+    block = le.Split.block(res, und_len)
+    y, n = le.add_rms_norm(block, w, eps)
+    assert y is None
+    close(n.whole(), le.add_rms_norm_plain(block, w, eps)[1].whole(), rows_w)
+
+
+def _qkv_rows(gen, b, t, und_len, h, kh):
+    """q, k, v Splits: per expert the [B, n, heads, 128] views of one fused
+    qkv product [B, n, (H + 2 KH) 128], as `qwen2._proj_qkv` gives them."""
+    from bagel_tpu_torch.ops.layer_elementwise import Split
+
+    u = min(und_len, t)
+    parts = []
+    for n in (u, t - u):
+        if not n:
+            parts.append((None,) * 3)
+            continue
+        qkv = torch.randn((b, n, (h + 2 * kh) * 128), generator=gen, device="cuda").bfloat16()
+        q, k, v = torch.split(qkv, [h * 128, kh * 128, kh * 128], dim=-1)
+        parts.append((q.reshape(b, n, h, 128), k.reshape(b, n, kh, 128), v.reshape(b, n, kh, 128)))
+    return tuple(Split(parts[0][i], parts[1][i], u, t) for i in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["f32", "bf16", "none"])
+@pytest.mark.parametrize("b,t,und_len", FUSED_SHAPES)
+def test_qk_norm_rope_matches_plain_on_card(b, t, und_len, norm):
+    """`qk_norm_rope` against the fp32 QK-norm (each row's expert's weights)
+    then `apply_rope`: q and the k written into the cache within one bf16
+    ulp (the head's sum of squares' order), but for the rare values where
+    rope's two products nearly cancel; bit for bit without QK-norm; v
+    written bit for bit; every slot outside the block untouched, the start
+    clamped into the buffer for a row whose past + T overflows it; one
+    launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.ops import layer_elementwise as le
+    from bagel_tpu_torch.ops.rope import rope_cos_sin
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    h, kh = 28, 4
+    q, k, v = _qkv_rows(gen, b, t, und_len, h, kh)
+    s = t + 600
+    past = torch.randint(0, 600, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    past[0] = s - t // 2  # overflows: the block's start is clamped to s - t
+    pos = past[:, None].long() + torch.arange(t, device="cuda")[None]
+    cos, sin = rope_cos_sin(pos, 128, 1e6)
+    qn = kn = None
+    if norm != "none":
+        dt = torch.float32 if norm == "f32" else torch.bfloat16
+        qn, kn = ((tuple((1 + 0.2 * torch.randn(128, generator=gen, device="cuda")).to(dt)
+                         for _ in range(2))) for _ in range(2))
+    bufs = [torch.randn((b, s, kh, 128), generator=gen, device="cuda").bfloat16()
+            for _ in range(2)]
+    plain = [x.clone() for x in bufs]
+    before = le.qk_norm_rope.launches
+    got = le.qk_norm_rope(q, k, v, qn, kn, cos, sin, *bufs, past, 1e-6)
+    torch.cuda.synchronize()
+    assert le.qk_norm_rope.launches == before + 1
+    want = le.qk_norm_rope_plain(q, k, v, qn, kn, cos, sin, *plain, past, 1e-6)
+    assert got.is_contiguous() and got.shape == (b, t, h, 128)
+    if norm == "none":
+        assert torch.equal(got, want) and torch.equal(bufs[0], plain[0])
+    else:
+        for g, w in ((got, want), (bufs[0], plain[0])):
+            # a head's rsqrt a few f32 ulps apart moves each rotated value by
+            # ~2^-22 of its two products: one bf16 ulp, or more where the two
+            # nearly cancel; a bound of 2^-20 of the head's rms covers those
+            g, w = g.float(), w.float()
+            rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+            err = (g - w).abs()
+            ulp = _ulp(torch.maximum(g.abs(), w.abs()))
+            assert bool((err <= ulp + 2.0 ** -20 * rms).all())
+            assert (err > ulp).float().mean().item() <= 1e-5
+    assert torch.equal(bufs[1], plain[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,und_len", FUSED_SHAPES)
+def test_silu_mul_bit_identical_on_card(b, t, und_len):
+    """`silu_mul` over the chunks of each expert's gate_up product [B, n,
+    2f] gives `F.silu(gate) * up` bit for bit, in each expert's own
+    contiguous rows; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.ops import layer_elementwise as le
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    f = 18944
+    gu = _expert_rows(gen, b, t, und_len, 2 * f)
+    gate = gu.map(lambda z: z[..., :f], lambda z: z[..., :f])
+    up = gu.map(lambda z: z[..., f:], lambda z: z[..., f:])
+    before = le.silu_mul.launches
+    got = le.silu_mul(gate, up)
+    torch.cuda.synchronize()
+    assert le.silu_mul.launches == before + 1
+    want = le.silu_mul_plain(gate, up)
+    for e, part in got.parts():
+        assert part.is_contiguous() and torch.equal(part, want.rows(e))
+
+
+def _full_width_llm(layers=2):
+    from bagel_tpu_torch.configs import BagelConfig
+    from bagel_tpu_torch.models import qwen2
+
+    cfg = dataclasses.replace(BagelConfig().llm, num_hidden_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    params = qwen2.init_qwen2_params(gen, cfg, torch.bfloat16, device="cuda")
+
+    def perturb(tree):  # experts' norms and biases that differ, norms that are not 1
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                perturb(leaf)
+            elif leaf.ndim <= 2:
+                tree[key] = leaf + 0.1 * torch.randn(leaf.shape, generator=gen,
+                                                     device="cuda").to(leaf.dtype)
+
+    perturb(params["layers"])
+    return cfg, qwen2.fuse_llm_params(params, inplace=True)
+
+
+def _forbid_plain_norms(monkeypatch):
+    """Make rms_norm and apply_rope raise wherever the layer reaches them."""
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.ops import layer_elementwise as le
+
+    def banned(*a, **k):
+        raise AssertionError("the plain norm or rope ran on the fused path")
+
+    for mod in (qwen2, le):
+        monkeypatch.setattr(mod, "rms_norm", banned)
+        monkeypatch.setattr(mod, "apply_rope", banned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("update_cache", [True, False])
+def test_fused_layers_match_plain_path_on_card(update_cache, monkeypatch):
+    """`llm_extend` over 2 full-width MoT layers (the denoise block: B=3,
+    T=4098, und_len 2, non-causal) through the fused kernels (attn_impl
+    "auto") against the plain path ("plain") under B1's gate, hidden states
+    and written K/V; the kernels launch 2L+1, L and L times, and the layers
+    call neither `rms_norm` nor `apply_rope`. A captured decode chunk (8
+    slots) replays them once a layer a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.inference import decode_program
+    from bagel_tpu_torch.inference.decode_program import DecodeProgram
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.ops import layer_elementwise as le
+
+    cfg, params = _full_width_llm()
+    L = cfg.num_hidden_layers
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, t, s = 3, 4098, 4608
+    cache = qwen2.kv_cache_init(cfg, b, s, device="cuda")
+    for buf in (cache.k, cache.v):
+        buf.normal_(generator=gen)
+    cache.length.copy_(torch.tensor([40, 300, 400], dtype=torch.int32))
+    x = torch.randn((b, t, cfg.hidden_size), generator=gen, device="cuda").bfloat16()
+    pos = cache.length[:, None].long().expand(b, t).int()
+    valid = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    kw = dict(und_len=2, causal=False, update_cache=update_cache)
+    want, wc = qwen2.llm_extend(params, cfg, x, pos, cache, valid, attn_impl="plain", **kw)
+    counts = [fn.launches for fn in (le.add_rms_norm, le.qk_norm_rope, le.silu_mul)]
+    with monkeypatch.context() as m:
+        _forbid_plain_norms(m)
+        got, gc = qwen2.llm_extend(params, cfg, x, pos, cache, valid, **kw)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in
+            zip((le.add_rms_norm, le.qk_norm_rope, le.silu_mul), counts)] == [2 * L + 1, L, L]
+    _assert_block_gate(got, want, [t] * b)
+    if update_cache:
+        for g, w in ((gc.k, wc.k), (gc.v, wc.v)):
+            for row, p in enumerate(cache.length.tolist()):
+                _assert_block_gate(g[:, row, p:p + t], w[:, row, p:p + t], [t] * L)
+    else:
+        assert gc is cache
+
+    slots = qwen2.kv_cache_init(cfg, 8, 512, device="cuda")
+    slots.length.copy_(torch.arange(8, dtype=torch.int32) * 50)
+    start = torch.arange(8, device="cuda")
+    prog = DecodeProgram(chunk=4)
+    decode_program.replayed_kernels.clear()
+    counts = [fn.launches for fn in (le.add_rms_norm, le.qk_norm_rope, le.silu_mul)]
+    with monkeypatch.context() as m:
+        _forbid_plain_norms(m)
+        qwen2.decode_text(params, cfg, slots, start, slots.length.clone(), max_steps=8,
+                          eos_id=-1, program=prog, graph=True)
+    assert prog.captures == 1 and prog.replays == 2
+    for fn, n, per in zip((le.add_rms_norm, le.qk_norm_rope, le.silu_mul), counts,
+                          (2 * L + 1, L, L)):
+        assert fn.launches - n == per  # the capture's warm-up step
+        assert decode_program.replayed_launches(fn) == per * 8
+
+
+@pytest.mark.cuda
+def test_fused_layers_keep_int8_cache_codes_on_card():
+    """An int8 KV cache on the fused path keeps the plain q/k code: with an
+    input whose sums of squares are exact in any order (entries +-1, +-2),
+    layer 0 writes the plain path's codes and scales bit for bit, and the
+    hidden states pass B1's gate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from bagel_tpu_torch.models import qwen2
+
+    cfg, params = _full_width_llm()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    b, t, s = 2, 300, 1024
+    cache = qwen2.kv_cache_init(cfg, b, s, dtype=torch.int8, device="cuda")
+    cache.length.copy_(torch.tensor([0, 200], dtype=torch.int32))
+    sign = torch.randint(0, 2, (b, t, cfg.hidden_size), generator=gen, device="cuda") * 2 - 1
+    mag = torch.randint(1, 3, (b, t, cfg.hidden_size), generator=gen, device="cuda")
+    x = (sign * mag).bfloat16()
+    pos = cache.length[:, None].long() + torch.arange(t, device="cuda")[None]
+    valid = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    kw = dict(und_len=2, causal=True, update_cache=True)
+    want, wc = qwen2.llm_extend(params, cfg, x, pos, cache, valid, attn_impl="plain", **kw)
+    got, gc = qwen2.llm_extend(params, cfg, x, pos, cache, valid, **kw)
+    for g, w in ((gc.k, wc.k), (gc.v, wc.v), (gc.k_scale, wc.k_scale),
+                 (gc.v_scale, wc.v_scale)):
+        assert torch.equal(g[0], w[0])
+    _assert_block_gate(got, want, [t] * b)

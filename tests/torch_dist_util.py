@@ -359,6 +359,44 @@ def sharded_paths(shapes, jobs, linears=()):
     return out
 
 
+def fused_tp(cfg, seed):
+    """`llm_extend` over a (1, 1, world) mesh on bf16 weights, through the
+    fused layers (attn_impl "flash") and the plain ones ("plain"), each
+    with the collectives it issued. Every rank draws the same whole
+    weights and inputs, then keeps its shard."""
+    from bagel_tpu_torch.models import qwen2
+    from bagel_tpu_torch.parallel import mesh as pm
+
+    layout = pm.InferenceLayout(pm.make_mesh((1, 1, dist.get_world_size())), cfg)
+    gen = torch.Generator().manual_seed(seed)
+    full = qwen2.init_qwen2_params(gen, cfg.llm, torch.bfloat16, device="cpu")
+
+    def perturb(tree):  # experts that differ, norms that are not 1
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                perturb(leaf)
+            else:
+                tree[key] = leaf + 0.05 * torch.randn(leaf.shape, generator=gen).to(leaf.dtype)
+
+    perturb(full["layers"])
+    params = layout.place_tree(qwen2.fuse_llm_params(full), "llm")
+    b, t = 2, 6
+    x = torch.randn((b, t, cfg.llm.hidden_size), generator=gen).bfloat16()
+    pos = torch.arange(t)[None].expand(b, t).int() + 3
+    out = {}
+    for impl in ("plain", "flash"):
+        cache = qwen2.kv_cache_init(cfg.llm, b, 16, device="cpu", layout=layout)
+        cache.length.copy_(torch.tensor([3, 5], dtype=torch.int32))
+        pm.collectives.clear()
+        hidden, new = qwen2.llm_extend(params, cfg.llm, x, pos, cache,
+                                       torch.full((b,), t, dtype=torch.int32), und_len=2,
+                                       causal=False, update_cache=True, attn_impl=impl,
+                                       layout=layout)
+        out[impl] = dict(hidden=hidden.float().numpy(), k=new.k.float().numpy(),
+                         collectives=dict(pm.collectives))
+    return out
+
+
 def serve_main(argv, prompt):
     """serving.server.main under this group: the leader answers one chat
     over HTTP and shuts its server down, the follower ticks until then."""
