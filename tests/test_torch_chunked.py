@@ -18,6 +18,7 @@ from bagel_tpu_torch.ops.attention import dot_attention, mask_to_bias, train_pac
 from bagel_tpu_torch.ops.chunked import chunked_packed_attention as tchunked
 from bagel_tpu.ops.attention import mask_to_bias as jmask_to_bias
 from test_torch_sparse_flash import _meta, _qkv
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

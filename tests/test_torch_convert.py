@@ -26,6 +26,7 @@ from bagel_tpu_torch.utils.bridge import params_from_numpy, params_to
 from bagel_tpu_torch.utils.export_hf import export_checkpoint
 
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TABLES = {"vit_pos_embed", "latent_pos_embed"}
 

@@ -14,6 +14,7 @@ import torch
 from bagel_tpu_torch.ops import flash
 from bagel_tpu_torch.ops import sparse_flash
 from bagel_tpu_torch.utils.cuda_graph import kernels_on_card
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from asserts import assert_close_live
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 EDIT = "make the sky green"
 CFG = dict(num_timesteps=6, timestep_shift=3.0, cfg_text_scale=4.0, cfg_img_scale=1.5)

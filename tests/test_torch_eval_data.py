@@ -13,6 +13,7 @@ from bagel_tpu.data import make_parquet_info as jmake_parquet_info
 from bagel_tpu.eval import data_prep as jdata_prep
 from bagel_tpu_torch.data import make_parquet_info
 from bagel_tpu_torch.eval import data_prep
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def _inputs(bench, root, rng):

@@ -40,6 +40,7 @@ from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from test_torch_edit import jax_normal
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits, reaped  # noqa: F401 (port_limits: autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 GEN = ["--image_size", "32", "--num_timesteps", "3", "--cfg_text_scale", "2.0",
@@ -234,15 +235,14 @@ def test_vlm_main_two_processes(tmp_path):
             [sys.executable, "-c", code, *common, "--out", str(tmp_path / "two.jsonl")],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     errors = []
-    for p in procs:
-        try:
-            _, err = p.communicate(timeout=180)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            pytest.fail("a rank hung")
-        if p.returncode:
-            errors.append(err)
+    with reaped(procs):
+        for p in procs:
+            try:
+                _, err = p.communicate(timeout=180)
+            except subprocess.TimeoutExpired:
+                pytest.fail("a rank hung")
+            if p.returncode:
+                errors.append(err)
     assert not errors, errors
     one = (tmp_path / "one.jsonl").read_text()
     assert (tmp_path / "two.jsonl").read_text() == one

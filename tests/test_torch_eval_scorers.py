@@ -25,6 +25,7 @@ from bagel_tpu.eval import vlm_runner as jvlm_runner
 from bagel_tpu.eval.scorers.geneval import Detection as JDetection
 from bagel_tpu_torch.eval import detectors, gen_runner, gen_scorer, judge_scorer, vlm_runner
 from bagel_tpu_torch.eval.scorers.geneval import Detection
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 YESNO = ["Yes", "no.", "Yes, there is one.", "maybe", "No there isn't", "", "the answer: no"]
 CHOICE = ["A", "(B) a cat", "The answer is C", "D.", "none of them", "b", "I pick B because"]

@@ -17,6 +17,7 @@ from bagel_tpu_torch.parallel.expert import split_expert_layers
 from test_torch_pipeline import check_against, dense_reference
 from torch_dist_util import run
 from torch_train_util import configs, jax_batch, jax_params
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def _inputs(B=1, seed=0, **llm):

@@ -23,6 +23,7 @@ from bagel_tpu_torch.utils.convert import export_bagel, load_checkpoint_dir
 from bagel_tpu_torch.utils.export_hf import export_from_checkpoint
 
 from test_torch_train_driver import _args, corpus  # noqa: F401
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from bagel_tpu.ops import flash as jflash
 from bagel_tpu_torch.ops import _build
 from bagel_tpu_torch.ops import flash as tflash
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=2e-5, atol=2e-5)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from bagel_tpu.ops.attention import cache_block_mask, dot_attention
 from bagel_tpu_torch.ops import flash as tflash
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 H, KH, D, S = 28, 4, 16, 512

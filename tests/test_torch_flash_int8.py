@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from bagel_tpu.ops import flash as jflash
 from bagel_tpu_torch.ops import flash as tflash
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 REL = 2e-5
 

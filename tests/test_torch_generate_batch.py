@@ -29,6 +29,7 @@ from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from asserts import assert_close_live, assert_signal_moved
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 SHAPE = (16, 16)  # 4 x 4 latent tokens on tiny_bagel
 PROMPTS = ["a red bicycle", "two cats"]

@@ -24,6 +24,7 @@ from bagel_tpu.utils.quant import quantize_weight_int4 as jquantize_int4
 from bagel_tpu_torch.ops import int4_matmul as t4
 from bagel_tpu_torch.utils.bridge import params_from_numpy
 from bagel_tpu_torch.utils.quant import dequantize_weight4, quantize_weight_int4
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def _bf16_ulp(x):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from bagel_tpu.ops.int8_matmul import int8_matmul as jint8_matmul
 from bagel_tpu_torch.ops import int8_matmul as t8
 from bagel_tpu_torch.utils.quant import to_kmajor
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def _inputs(seed, m, k, n):

@@ -16,6 +16,7 @@ from bagel_tpu_torch.data.tokenizer import MockTokenizer
 from bagel_tpu_torch.inference.engine import BagelEngine
 from bagel_tpu_torch.models.bagel import init_bagel_params
 from bagel_tpu_torch.models.qwen2 import kv_cache_init
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "bagel_tpu_torch"

@@ -16,6 +16,7 @@ from bagel_tpu_torch.configs import tiny_bagel, tiny_qwen2
 from bagel_tpu_torch.models import qwen2
 from bagel_tpu_torch.ops import layer_elementwise as le
 from bagel_tpu_torch.ops.norms import rms_norm
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def _params(cfg, seed=0):

@@ -28,6 +28,7 @@ from bagel_tpu.train import step as jstep
 from bagel_tpu_torch.parallel.mesh import param_pspec
 from torch_dist_util import run
 from torch_train_util import adam_state, configs, jax_batch, jax_leaves, jax_params, rel_err
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 LR = 1e-3
 EMA = 0.9

@@ -32,6 +32,7 @@ from bagel_tpu_torch.serving.multihost import LocalBus, MultiHostFrontend, serve
 from bagel_tpu_torch.serving.runtime import ServingRuntime
 from bagel_tpu_torch.utils.bridge import params_from_numpy
 from torch_dist_util import run
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TIMEOUT = 300
 PROMPTS = ["what is this?", "just text", "another one"]

@@ -18,6 +18,7 @@ from bagel_tpu_torch.ops import attention as tattn
 from bagel_tpu_torch.ops import embeds as temb
 from bagel_tpu_torch.ops import norms as tnorms
 from bagel_tpu_torch.ops import rope as trope
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -66,6 +66,7 @@ from torch_train_util import (
     to_torch_batch,
     torch_params,
 )
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import orbax_to_torch  # noqa: E402

@@ -26,6 +26,7 @@ from bagel_tpu_torch.data import datasets as tds
 from bagel_tpu_torch.data import packing as tpk
 from bagel_tpu_torch.data.tokenizer import MockTokenizer
 from bagel_tpu_torch.data.transforms import ImageTransform
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def _png(rng, w, h):

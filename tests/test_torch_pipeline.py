@@ -18,6 +18,7 @@ from bagel_tpu.train import step as jstep
 from bagel_tpu_torch.parallel.pipeline import stage_layers
 from torch_dist_util import run
 from torch_train_util import configs, jax_batch, jax_leaves, jax_params, rel_err
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def dense_reference(jcfg, jp, jb, noise, **kw):

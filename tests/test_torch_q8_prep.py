@@ -20,6 +20,7 @@ import torch
 import jax.numpy as jnp
 
 from bagel_tpu_torch.ops import flash as tflash
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def _jax_quantize(q, k, v, past_len, q_valid):

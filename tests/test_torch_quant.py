@@ -24,6 +24,7 @@ from bagel_tpu_torch.utils import quant as tquant
 from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 MODES = ["int8", "w8a8", "int4", "nf4"]
 TOL = dict(rtol=1e-5, atol=1e-5)

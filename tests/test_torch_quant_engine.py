@@ -34,6 +34,7 @@ from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from asserts import assert_close_live
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 MODES = ["int8", "w8a8", "int4", "nf4"]
 # bf16 engines: the two frameworks round bf16 activations at different

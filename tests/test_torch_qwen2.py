@@ -16,6 +16,7 @@ from bagel_tpu.configs import tiny_qwen2
 from bagel_tpu.models import qwen2 as jq
 from bagel_tpu_torch.models import qwen2 as tq
 from bagel_tpu_torch.utils.bridge import params_from_numpy
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -25,6 +25,7 @@ from bagel_tpu.ops.ring import ring_attention, ring_packed_attention
 from bagel_tpu.train import step as jstep
 from torch_dist_util import run
 from torch_train_util import configs, jax_batch, jax_leaves, jax_params, rel_err
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = 2e-5
 RING = [(False, 2), (True, 2), (False, 4), (True, 4)]

@@ -65,6 +65,7 @@ from asserts import assert_close_live, assert_latent_motion
 from test_torch_qwen2 import randomized
 from test_torch_quant_engine import LATENT_TOL, _bf16_rest
 from test_torch_w8a8_kmajor import _jax_quantize_rows
+from torch_test_env import port_limits, reaped  # noqa: F401 (port_limits: autouse)
 from torch_dist_util import REPO, run
 
 WORLD2 = [(1, 1, 2), (1, 2, 1), (2, 1, 1)]
@@ -392,15 +393,14 @@ def test_vlm_main_over_a_tp_mesh(tmp_path):
                            OMP_NUM_THREADS="1"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
     errors = []
-    for p in procs:
-        try:
-            _, err = p.communicate(timeout=DEADLINE)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            pytest.fail("a rank hung")
-        if p.returncode:
-            errors.append(err[-3000:])
+    with reaped(procs):
+        for p in procs:
+            try:
+                _, err = p.communicate(timeout=DEADLINE)
+            except subprocess.TimeoutExpired:
+                pytest.fail("a rank hung")
+            if p.returncode:
+                errors.append(err[-3000:])
     assert not errors, errors
     assert (tmp_path / "tp.jsonl").read_text() == (tmp_path / "one.jsonl").read_text()
     assert not list(tmp_path.glob("tp.jsonl.rank*"))

@@ -27,6 +27,7 @@ from bagel_tpu_torch.ops import rope as trope
 from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

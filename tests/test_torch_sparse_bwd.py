@@ -33,6 +33,7 @@ import jax.numpy as jnp
 from bagel_tpu.ops import sparse_flash as jsf
 from bagel_tpu.ops.attention import train_packed_mask as jtrain_packed_mask
 from bagel_tpu_torch.ops import sparse_flash as tsf
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 LSE_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -23,6 +23,7 @@ from bagel_tpu_torch.models.siglip import segment_flash_attention as tsegment_fl
 from bagel_tpu_torch.ops import _build
 from bagel_tpu_torch.ops import attention as tattn
 from bagel_tpu_torch.ops import sparse_flash as tsf
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from bagel_tpu.ops import sparse_flash as jsf
 from bagel_tpu_torch.ops import sparse_flash as tsf
 from test_torch_sparse_flash import _meta, _qkv
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -30,6 +30,7 @@ from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from asserts import assert_close_live, assert_signal_moved
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 PROMPT = "a red cube on a blue table"
 SHAPE = (32, 32)  # 8 x 8 latent tokens on tiny_bagel

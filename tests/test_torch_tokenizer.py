@@ -17,6 +17,7 @@ from bagel_tpu_torch.data.bpe import ByteBPETokenizer, bytes_to_unicode
 from bagel_tpu_torch.data.tokenizer import SPECIAL_TOKENS, add_special_tokens, load_tokenizer
 
 from test_tokenizer import PARITY_TEXTS, TRAIN_CORPUS, train_bpe
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TEXTS = PARITY_TEXTS + [TRAIN_CORPUS, "<|vision_start|>hello<|vision_end|> <|im_end|>"]
 

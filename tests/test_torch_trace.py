@@ -14,6 +14,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from bagel_tpu_torch.utils import trace
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def _session():

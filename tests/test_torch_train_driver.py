@@ -11,6 +11,7 @@ same global batch within 1e-5, and a bit-equal --auto_resume under a mesh."""
 import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from bagel_tpu_torch.data.datasets import register_dataset_info
 from bagel_tpu_torch.train import driver
 from bagel_tpu_torch.train.checkpoint import get_latest_ckpt, step_from_path
 from bagel_tpu_torch.train.step import FROZEN_BUFFERS, tree_leaves
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 @pytest.fixture(scope="module")
@@ -61,6 +63,16 @@ def _params(state):
     return [t.detach().clone() for t in tree_leaves(state.params)]
 
 
+@pytest.fixture(scope="module")
+def two_steps(corpus, tmp_path_factory):
+    """One two-step run (checkpoint at step 2) that the resume tests start
+    from: its final state and its checkpoint directory, which each test
+    copies before it resumes or alters anything."""
+    ckpt = tmp_path_factory.mktemp("two_steps") / "ckpt"
+    state, _ = driver.main(_args(corpus, ckpt, "--total_steps", "2"))
+    return state, ckpt
+
+
 def test_driver_runs_and_checkpoints(corpus, tmp_path):
     state, history = driver.main(_args(corpus, tmp_path / "ckpt", "--total_steps", "3"))
     assert [h["step"] for h in history] == [0, 1, 2] and state.step == 3
@@ -74,9 +86,9 @@ def test_driver_runs_and_checkpoints(corpus, tmp_path):
     assert os.path.exists(os.path.join(latest, "config.json"))
 
 
-def test_auto_resume_continues_bit_equal(corpus, tmp_path):
-    ckpt = tmp_path / "ckpt"
-    first, _ = driver.main(_args(corpus, ckpt, "--total_steps", "2"))
+def test_auto_resume_continues_bit_equal(corpus, two_steps, tmp_path):
+    first, shared = two_steps
+    ckpt = shutil.copytree(shared, tmp_path / "ckpt")
     saved = _params(first)
     again, history = driver.main(_args(corpus, ckpt, "--total_steps", "2", "--auto_resume"))
     assert history == [] and again.step == 2 and again.opt_state["count"] == 2
@@ -89,9 +101,9 @@ def test_auto_resume_continues_bit_equal(corpus, tmp_path):
     assert step_from_path(get_latest_ckpt(str(ckpt))) == 4
 
 
-def test_model_only_resume(corpus, tmp_path):
-    src = tmp_path / "src"
-    first, _ = driver.main(_args(corpus, src, "--total_steps", "2"))
+def test_model_only_resume(corpus, two_steps, tmp_path):
+    first, shared = two_steps
+    src = shutil.copytree(shared, tmp_path / "src")
     latest = get_latest_ckpt(str(src))
     with pytest.raises(ValueError, match="fresh directory"):
         driver.main(_args(corpus, src, "--total_steps", "1", "--resume_from", latest,
@@ -106,9 +118,8 @@ def test_model_only_resume(corpus, tmp_path):
                 assert torch.equal(a, b), name
 
 
-def test_unfinished_async_save_is_skipped(corpus, tmp_path):
-    ckpt = tmp_path / "ckpt"
-    driver.main(_args(corpus, ckpt, "--total_steps", "2"))
+def test_unfinished_async_save_is_skipped(corpus, two_steps, tmp_path):
+    ckpt = shutil.copytree(two_steps[1], tmp_path / "ckpt")
     (ckpt / "0000009" / "state.tmp-1").mkdir(parents=True)  # a save cut mid-write
     assert step_from_path(get_latest_ckpt(str(ckpt))) == 2
     _, history = driver.main(_args(corpus, ckpt, "--total_steps", "3", "--auto_resume"))
@@ -172,15 +183,33 @@ def _tp_config(tmp_path):
     return ["--llm_config", str(path)]
 
 
+@pytest.fixture(scope="module")
+def one_process(corpus, tmp_path_factory):
+    """The one-process run of each set of flags, made once: three of the
+    layouts are held to the same run."""
+    runs = {}
+
+    def history(*flags):
+        if flags not in runs:
+            tmp = tmp_path_factory.mktemp("one")
+            runs[flags] = driver.main(_args(corpus, tmp / "one", *_tp_config(tmp),
+                                            "--total_steps", "3", *flags))[1]
+        return runs[flags]
+
+    return history
+
+
 @pytest.mark.parametrize("name", list(PARALLEL))
-def test_parallel_runs_match_one_process(corpus, tmp_path, name):
+def test_parallel_runs_match_one_process(corpus, one_process, tmp_path, name):
     from torch_dist_util import run
 
     flags, one = PARALLEL[name]
     extra = _tp_config(tmp_path) + ["--total_steps", "3"]
+    layers = []
     if "--num_hidden_layers" in flags:
-        extra += flags[flags.index("--num_hidden_layers"):][:2]
-    _, want = driver.main(_args(corpus, tmp_path / "one", *extra, *one))
+        layers = flags[flags.index("--num_hidden_layers"):][:2]
+    extra += layers
+    want = one_process(*layers, *one)
     got = run("driver_run", 4, tmp_path,
               argv=_args(corpus, tmp_path / "mesh", *extra, *flags),
               dataset=("t2i_pretrain", "toy_t2i", str(corpus / "t2i")))

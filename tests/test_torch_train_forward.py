@@ -36,6 +36,7 @@ from torch_train_util import (
     to_torch_batch,
     torch_params,
 )
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 TOL = 1e-4
 

@@ -37,6 +37,7 @@ from torch_train_util import (
     to_torch_batch,
     torch_params,
 )
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 NOISE_LEAVES = (("llm", "layers", "attn", "k", "b"), ("vit", "layers", "attn", "k", "b"))
 LR = 1e-3

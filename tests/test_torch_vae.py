@@ -13,6 +13,7 @@ from bagel_tpu_torch.models import vae as tvae
 from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def test_vae_decode_matches_jax():

@@ -29,6 +29,7 @@ from bagel_tpu_torch.data.tokenizer import MockTokenizer
 from bagel_tpu_torch.data.transforms import ImageTransform
 
 from test_torch_packing import _assert_batches_equal, _assert_samples_equal, _pcfg
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 GRID = list(itertools.product([1, 2, 5, 16, 97, 301], [0.5, 1.0, 24.0, 29.97],
                               [1, 4, 8, 16], [0.5, 2.0, 4.0]))

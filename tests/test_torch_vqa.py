@@ -21,6 +21,7 @@ from bagel_tpu_torch.inference import engine as tengine
 from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 QUESTION = "What is in the picture?"
 MAX_KV = 512  # the think system prompt is 229 mock tokens

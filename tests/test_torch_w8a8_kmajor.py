@@ -32,6 +32,7 @@ from bagel_tpu_torch.utils import quant as tquant
 from bagel_tpu_torch.utils.bridge import params_from_numpy
 
 from test_torch_qwen2 import randomized
+from torch_test_env import port_limits  # noqa: F401 (autouse: time limit, torch threads)
 
 
 def _jax_quantize_rows(x):

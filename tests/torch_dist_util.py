@@ -4,8 +4,9 @@
 one gloo group through a FileStore under `tmp_path` (no TCP port, so tests
 run side by side under xdist), calls the function `fn` of this module in
 each with `kw` and returns what each returned, in rank order. The parent
-joins them with a deadline of its own and fails when it passes (no
-pytest-timeout here). Each worker takes one CPU thread.
+joins them with a deadline of its own and fails when it passes, and kills
+them when the call ends early (tests/torch_test_env.py). Each worker takes one
+CPU thread.
 
 This module imports torch, numpy and bagel_tpu_torch only: the workers
 never import JAX. The JAX side runs in the pytest process and reaches the
@@ -20,6 +21,8 @@ import time
 
 import torch
 import torch.distributed as dist
+
+from torch_test_env import reaped
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,11 +41,10 @@ def run(fn: str, world: int, tmp_path, deadline: float = 300.0, env=None, **kw) 
              for r in range(world)]
     end = time.monotonic() + deadline
     try:
-        for p in procs:
-            p.wait(timeout=max(end - time.monotonic(), 0.1))
+        with reaped(procs):
+            for p in procs:
+                p.wait(timeout=max(end - time.monotonic(), 0.1))
     except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
         raise AssertionError(f"{fn}: workers still running after {deadline} s:\n"
                              + _tails(logs))
     if any(p.returncode for p in procs):
